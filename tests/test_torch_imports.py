@@ -1,0 +1,71 @@
+"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
+package, and its entry points run on CUDA unless asked for the CPU."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import wavjepa_tpu_torch
+from wavjepa_tpu_torch.api import hear_wavjepa
+from wavjepa_tpu_torch.api import runtime as trt
+from wavjepa_tpu_torch.models.jepa import JEPAConfig
+
+PACKAGE = pathlib.Path(wavjepa_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "wavjepa_tpu")
+TINY = dict(conv_spec=((16, 10, 5), (16, 3, 2)), size="tiny",
+            sample_rate=1600, process_seconds=0.201)
+
+
+def _imported(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax_and_not_the_jax_package():
+    files = sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imported(ast.parse(path.read_text(), str(path))):
+            root = name.split(".")[0]
+            assert root not in FORBIDDEN, f"{path.relative_to(PACKAGE.parent)} imports {name}"
+
+
+def test_ast_walk_catches_a_forbidden_import():
+    tree = ast.parse("def f():\n    from wavjepa_tpu.ops import pos_embed\n    import jax.numpy\n")
+    assert [n.split(".")[0] for n in _imported(tree)] == ["wavjepa_tpu", "jax"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    cfg = JEPAConfig(**TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trt.load_model("")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trt.load_model("", config=cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trt.RuntimeJEPA(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hear_wavjepa.load_model("")
+
+
+def test_entry_points_run_on_cpu_when_asked(no_cuda):
+    rt = trt.load_model("", config=JEPAConfig(**TINY), device="cpu")
+    assert rt.device.type == "cpu"
+    emb, ts = hear_wavjepa.get_timestamp_embeddings([torch.randn(500).numpy()], rt)
+    assert emb.device.type == "cpu" and emb.shape[0] == 1 and torch.isfinite(emb).all()
+    base = hear_wavjepa.load_model("", device="cpu")
+    assert base.embedding_size == 768 and base.config.dtype == torch.bfloat16
+    assert next(base.model.parameters()).dtype == torch.float32

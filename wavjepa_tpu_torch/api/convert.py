@@ -1,0 +1,133 @@
+"""Weights in and out of the port's modules.
+
+The port's parameter names are the reference's torch names, so a
+reference-format checkpoint (a Lightning ``{"state_dict": ...}`` or a bare
+``state_dict``, with or without ``torch.compile``'s ``._orig_mod``
+segments) loads with ``load_state_dict`` once the prefixes are stripped.
+``state_dict_from_jax_params`` carries the JAX package's flax parameter
+tree (nested dicts of arrays) across:
+
+  * a flax Dense ``kernel`` (in, out) becomes a ``weight`` (out, in);
+  * conv kernels are OIH in both and carry over as they are;
+  * a LayerNorm ``scale`` becomes ``weight``;
+  * the decoder subtree, its mappers and the mask token are skipped.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from wavjepa_tpu_torch.ops.pos_embed import (
+    get_1d_sincos_pos_embed_from_grid,
+    get_binaural_pos_embed,
+)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def strip_compile_prefixes(state_dict: Mapping[str, object]) -> dict[str, object]:
+    """Remove the ``._orig_mod`` segments torch.compile puts in names."""
+    return {k.replace("._orig_mod", ""): v for k, v in state_dict.items()}
+
+
+def unwrap_state_dict(ckpt: Mapping[str, object]) -> dict[str, object]:
+    """A Lightning checkpoint's ``state_dict``, or the dict itself, with
+    compile prefixes stripped."""
+    if "state_dict" in ckpt and not hasattr(ckpt["state_dict"], "shape"):
+        ckpt = ckpt["state_dict"]
+    return strip_compile_prefixes(ckpt)
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """Read a reference ``.ckpt``/``.pt`` onto the CPU. Lightning
+    checkpoints pickle more than tensors, so this unpickles in full: load
+    only files from a source you trust."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def detect_pos_embed(
+    state_dict: Mapping[str, object],
+    encoder_dim: int,
+    frames_per_window: int,
+    total_patches: int,
+    atol: float = 1e-3,
+) -> "str | None":
+    """Which position table a reference checkpoint stored ("time",
+    "binaural"), or None when it stores none or neither matches."""
+    sd = unwrap_state_dict(state_dict)
+    stored = None
+    for key, value in sd.items():
+        if key.endswith("pos_encoding_encoder"):
+            stored = np.asarray(
+                value.detach().cpu().numpy() if hasattr(value, "detach") else value
+            )
+            break
+    if stored is None or stored.size != total_patches * encoder_dim:
+        return None
+    stored = stored.reshape(total_patches, encoder_dim).astype(np.float64)
+    time_table = get_1d_sincos_pos_embed_from_grid(
+        encoder_dim, np.arange(total_patches, dtype=np.float64)
+    )
+    if np.allclose(stored, time_table, atol=atol):
+        return "time"
+    if total_patches == 2 * frames_per_window and np.allclose(
+        stored, get_binaural_pos_embed(encoder_dim, frames_per_window), atol=atol
+    ):
+        return "binaural"
+    return None
+
+
+def _linear(params: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _t(params["kernel"]).T.contiguous()
+    if "bias" in params:
+        out[f"{prefix}.bias"] = _t(params["bias"])
+
+
+def _layernorm(params: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _t(params["scale"])
+    out[f"{prefix}.bias"] = _t(params["bias"])
+
+
+def _encoder(params: Mapping, prefix: str, out: dict) -> None:
+    for name, layer in params.items():
+        if not name.startswith("layers_"):
+            continue
+        lp = f"{prefix}.layers.{int(name.split('_')[1])}"
+        attn = layer["self_attn"]
+        out[f"{lp}.self_attn.in_proj_weight"] = _t(attn["in_proj"]["kernel"]).T.contiguous()
+        out[f"{lp}.self_attn.in_proj_bias"] = _t(attn["in_proj"]["bias"])
+        _linear(attn["out_proj"], f"{lp}.self_attn.out_proj", out)
+        _linear(layer["linear1"], f"{lp}.linear1", out)
+        _linear(layer["linear2"], f"{lp}.linear2", out)
+        _layernorm(layer["norm1"], f"{lp}.norm1", out)
+        _layernorm(layer["norm2"], f"{lp}.norm2", out)
+    _layernorm(params["norm"], f"{prefix}.norm", out)
+
+
+def state_dict_from_jax_params(params: Mapping, extractor_mode: str = "default"
+                               ) -> dict[str, torch.Tensor]:
+    """The JAX package's JEPA params (encoder side) → the port's state_dict.
+
+    ``extractor_mode`` says where a conv block's norm sits: GroupNorm at
+    ``cnn.{i}.2`` ("default", block 0 only) or LayerNorm at ``cnn.{i}.2.1``
+    ("layer_norm")."""
+    out: dict[str, torch.Tensor] = {}
+    for name, block in params["extract_audio"].items():
+        prefix = f"extract_audio.cnn.{int(name.split('_')[1])}"
+        out[f"{prefix}.0.weight"] = _t(block["kernel"])
+        if "bias" in block:
+            out[f"{prefix}.0.bias"] = _t(block["bias"])
+        if "norm_scale" in block:
+            norm = f"{prefix}.2.1" if extractor_mode == "layer_norm" else f"{prefix}.2"
+            out[f"{norm}.weight"] = _t(block["norm_scale"])
+            out[f"{norm}.bias"] = _t(block["norm_bias"])
+    _layernorm(params["feature_norms"], "feature_norms", out)
+    if "post_extraction_mapper" in params:
+        _linear(params["post_extraction_mapper"], "post_extraction_mapper", out)
+    _encoder(params["encoder"], "encoder", out)
+    return out

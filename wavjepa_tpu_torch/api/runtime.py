@@ -1,0 +1,213 @@
+"""HEAR 2021 runtime: timestamp and scene embeddings by 2.01-s windows.
+
+Counterpart of ``wavjepa_tpu/api/runtime.py``, with the same window and
+padding arithmetic and outputs: every window of a batch is folded into one
+batched encoder call. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; with no CUDA device they raise rather than fall back.
+
+    load_model(ckpt_path, ...) -> RuntimeJEPA
+    get_timestamp_embeddings(audio, model) -> (emb (B, S, E), timestamps_ms (B, S))
+    get_scene_embeddings(audio, model) -> emb (B, E)
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from wavjepa_tpu_torch.api.convert import (
+    detect_pos_embed,
+    load_torch_checkpoint,
+    unwrap_state_dict,
+)
+from wavjepa_tpu_torch.api.feature_helper import prepare_batch
+from wavjepa_tpu_torch.models.jepa import JEPA, JEPAConfig
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``cuda`` unless the caller names another device; raises when CUDA is
+    asked for (or defaulted to) and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: pass device='cpu' to run on the CPU")
+    return dev
+
+
+def chunk_padding(
+    cur_frames: int, unit_frames: int, sample_rate: int, output_steps: int
+) -> tuple[int, int, int, int]:
+    """Window and padding arithmetic → (pad_frames, n_chunks, cut_off,
+    total_steps).
+
+    Pads to the next multiple of ``unit_frames`` unconditionally (an exact
+    multiple gains a whole padding window), then cuts the output with
+    integer window seconds: process_seconds = unit_frames // sample_rate
+    (2, not 2.01), output_sr = int(output_steps / 2) (100 Hz), pad_steps
+    truncated. A clip of exactly one window yields 200 rows and a fully
+    padded second window. Windows shorter than a second use the true float
+    rate.
+    """
+    pad_frames = unit_frames - (cur_frames % unit_frames)
+    padded_len = cur_frames + pad_frames
+    n_chunks = padded_len // unit_frames
+    total_steps = output_steps * n_chunks
+    ps_int = unit_frames // sample_rate
+    if ps_int >= 1:
+        n_chunks_ref = int((padded_len / sample_rate) / ps_int)
+        output_sr = int(output_steps / ps_int)
+        pad_steps = int(pad_frames / sample_rate * output_sr)
+        cut_off = min(output_steps * n_chunks_ref - pad_steps, total_steps)
+    else:
+        output_sr = output_steps * sample_rate / unit_frames
+        pad_steps = int(round(pad_frames / sample_rate * output_sr))
+        cut_off = total_steps - pad_steps
+    return pad_frames, n_chunks, cut_off, total_steps
+
+
+class RuntimeJEPA:
+    """A JEPA encoder on one device behind the HEAR contract.
+
+    ``state_dict`` holds the port's (reference-named) weights; without it
+    the weights are random, drawn from a CPU generator seeded with ``seed``,
+    so one seed gives the same weights on every device."""
+
+    def __init__(
+        self,
+        config: JEPAConfig,
+        state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+        device: DeviceLike = None,
+        seed: int = 0,
+    ):
+        self.device = resolve_device(device)
+        self.config = config
+        model = JEPA(config)
+        if state_dict is None:
+            model.init_parameters(torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(dict(state_dict))
+        self.model = model.to(self.device).eval()
+        self.sample_rate = config.sample_rate
+        self.embedding_size = config.encoder_dim
+        self.scene_embedding_size = self.embedding_size
+        self.timestamp_embedding_size = self.embedding_size
+        self.in_channels = config.in_channels
+        self.unit_frames = config.target_length
+        self.output_steps = config.frames_per_window
+
+    def _forward(self, chunks: np.ndarray, masks: np.ndarray) -> torch.Tensor:
+        """chunks (N, C, unit_frames), masks (N, tokens) True = padding →
+        (N, tokens, E) float32 on the device."""
+        with torch.inference_mode():
+            x = torch.from_numpy(chunks).to(self.device)
+            m = torch.from_numpy(masks).to(self.device)
+            # per-window normalisation over (C, T): unbiased variance, std + 1e-5
+            mean = x.mean(dim=(-2, -1), keepdim=True)
+            n = x.shape[-1] * x.shape[-2]
+            var = (x - mean).square().sum(dim=(-2, -1), keepdim=True) / max(n - 1, 1)
+            normed = (x - mean) / (var.sqrt() + 1e-5)
+            return self.model.represent(normed.to(self.config.dtype), m).float()
+
+    def get_timestamp_embeddings(self, audio) -> tuple[torch.Tensor, torch.Tensor]:
+        """audio: list of waveforms, or (B, T)/(B, C, T) array or tensor →
+        ((B, S, E) float32, (B, S) float64 timestamps in ms), on the device."""
+        batch = self._to_batch(audio)
+        b, c, cur_frames = batch.shape
+        pad_frames, n_chunks, cut_off, total_steps = chunk_padding(
+            cur_frames, self.unit_frames, self.sample_rate, self.output_steps
+        )
+        padded = np.pad(batch, ((0, 0), (0, 0), (0, pad_frames)))
+        step_mask = np.zeros((b, total_steps), bool)
+        step_mask[:, cut_off:] = True
+        # fold windows into the batch: (B·n, C, unit)
+        chunks = padded.reshape(b, c, n_chunks, self.unit_frames).transpose(0, 2, 1, 3)
+        chunks = np.ascontiguousarray(chunks.reshape(b * n_chunks, c, self.unit_frames))
+        masks = step_mask.reshape(b * n_chunks, self.output_steps)
+        emb = self._forward(chunks, masks)
+        emb = emb.reshape(b, n_chunks * emb.shape[1], emb.shape[-1])[:, :cut_off]
+        # uniform grid over the unpadded duration, in ms
+        x_len = emb.shape[1]
+        step_ms = cur_frames / self.sample_rate / x_len * 1000.0
+        ts = step_ms * torch.arange(x_len, dtype=torch.float64, device=self.device)
+        return emb, ts[None, :].expand(b, x_len).contiguous()
+
+    def get_scene_embeddings(self, audio) -> torch.Tensor:
+        emb, _ = self.get_timestamp_embeddings(audio)
+        return emb.mean(dim=1)
+
+    def _to_batch(self, audio) -> np.ndarray:
+        if isinstance(audio, (list, tuple)):
+            return prepare_batch(audio, self.in_channels)
+        if isinstance(audio, torch.Tensor):
+            arr = audio.detach().cpu().float().numpy()
+        else:
+            arr = np.asarray(audio, np.float32)
+        if arr.ndim in (2, 3):
+            return prepare_batch(list(arr), self.in_channels)
+        raise ValueError(f"unsupported audio input shape {arr.shape}")
+
+
+def load_model(
+    model_file_path: str = "",
+    config: Optional[JEPAConfig] = None,
+    in_channels: int = 1,
+    process_seconds: Optional[float] = None,
+    model_size: str = "base",
+    pos_embed: Optional[str] = None,
+    device: DeviceLike = None,
+    seed: int = 0,
+) -> RuntimeJEPA:
+    """HEAR ``load_model``: a runtime from a reference-format torch
+    ``.ckpt``, or with random weights from ``seed`` when no path is given.
+
+    Without ``config`` the model is ``JEPAConfig(size=model_size)`` in
+    bfloat16 with ``process_seconds`` windows (2.01 s by default). The
+    position table is derived from the config; for a checkpoint it is
+    detected from the table the checkpoint stores unless ``pos_embed`` is
+    given. Orbax directories and their model_config.json sidecar have no
+    port yet."""
+    dev = resolve_device(device)
+    window_s = 2.01 if process_seconds is None else process_seconds
+    state_dict = None
+    if model_file_path:
+        path = Path(model_file_path)
+        if path.is_dir():
+            raise NotImplementedError("orbax checkpoint directories have no port yet")
+        state_dict = unwrap_state_dict(load_torch_checkpoint(str(path)))
+        if config is None and pos_embed is None:
+            probe = JEPAConfig(in_channels=in_channels, process_seconds=window_s,
+                               size=model_size)
+            pos_embed = detect_pos_embed(
+                state_dict, probe.encoder_dim, probe.frames_per_window, probe.total_patches
+            )
+    if config is None:
+        config = JEPAConfig(
+            in_channels=in_channels,
+            process_seconds=window_s,
+            size=model_size,
+            pos_embed=pos_embed or "time",
+            dtype=torch.bfloat16,
+        )
+    if state_dict is not None:
+        # keep the encoder side: the decoder, teacher and stored tables go
+        state_dict = {
+            k: v if isinstance(v, torch.Tensor) else torch.tensor(v)
+            for k, v in state_dict.items()
+            if k.startswith(_ENCODER_SIDE)
+        }
+    return RuntimeJEPA(config, state_dict, dev, seed)
+
+
+_ENCODER_SIDE = ("extract_audio.", "feature_norms.", "post_extraction_mapper.", "encoder.")
+
+
+def get_timestamp_embeddings(audio, model: RuntimeJEPA):
+    return model.get_timestamp_embeddings(audio)
+
+
+def get_scene_embeddings(audio, model: RuntimeJEPA):
+    return model.get_scene_embeddings(audio)

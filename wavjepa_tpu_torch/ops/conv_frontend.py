@@ -1,0 +1,144 @@
+"""Wav2Vec2-style stacked temporal-convolution waveform encoder.
+
+Counterpart of ``wavjepa_tpu/ops/conv_frontend.py:ConvFeatureExtractor``.
+Each block is Conv1d (VALID, no dilation) → {GroupNorm(C, C) on block 0 in
+"default" mode | channel LayerNorm on every block in "layer_norm" mode |
+nothing} → exact GELU. Norm statistics and affine run in float32 (eps 1e-5);
+the convolution and GELU run in the compute dtype (bfloat16 on the card).
+Parameters stay float32 and are cast at use.
+
+Module names follow the reference's ``nn.Sequential`` block layout, so a
+reference ``state_dict`` loads as is: ``cnn.{i}.0`` is the convolution,
+``cnn.{i}.2`` the GroupNorm ("default") or ``cnn.{i}.2.1`` the LayerNorm
+("layer_norm").
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+ConvSpec = Sequence[tuple[int, int, int]]  # (out_dim, kernel, stride) per layer
+
+WAVJEPA_CONV_SPEC: ConvSpec = tuple([(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512, 2, 2)])
+WAV2VEC2_CONV_SPEC: ConvSpec = tuple(
+    [(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512, 2, 2)] * 2
+)
+
+
+def conv_output_length(time: int, spec: ConvSpec) -> int:
+    """Output frames for an input of ``time`` samples (VALID, no dilation)."""
+    for _, k, s in spec:
+        time = (time - k) // s + 1
+        if time <= 0:
+            raise ValueError(f"input too short for conv spec at layer k={k},s={s}")
+    return time
+
+
+def conv_receptive_fields(spec: ConvSpec) -> list[int]:
+    """Receptive field in samples at each layer boundary, input first."""
+    rf = 1
+    fields = [rf]
+    for _, width, stride in reversed(list(spec)):
+        rf = (rf - 1) * stride + width
+        fields.append(rf)
+    return list(reversed(fields))
+
+
+class _Conv(nn.Module):
+    def __init__(self, in_c: int, out_c: int, kernel: int, bias: bool):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_c, in_c, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_c)) if bias else None
+
+
+class _ChannelAffine(nn.Module):
+    """Float32 per-channel scale and shift (the norm's parameters)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+
+def _normalize(y: torch.Tensor, norm: _ChannelAffine, dim: int) -> torch.Tensor:
+    """f32 (x − mean)·rsqrt(var + 1e-5)·w + b over ``dim`` of (B, C, T)."""
+    y32 = y.float()
+    mean = y32.mean(dim=dim, keepdim=True)
+    var = (y32 - mean).square().mean(dim=dim, keepdim=True)
+    y32 = (y32 - mean) * torch.rsqrt(var + 1e-5)
+    return y32 * norm.weight[None, :, None] + norm.bias[None, :, None]
+
+
+class ConvBlock(nn.Module):
+    """Conv1d → {GroupNorm | LayerNorm | none} → exact GELU on (B, C, T)."""
+
+    def __init__(self, in_c: int, out_dim: int, kernel: int, stride: int,
+                 norm: str = "none", use_bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.norm = norm
+        self.add_module("0", _Conv(in_c, out_dim, kernel, use_bias))
+        if norm == "group":
+            self.add_module("2", _ChannelAffine(out_dim))
+        elif norm == "layer":
+            # reference: Sequential(rearrange, LayerNorm, rearrange)
+            wrapper = nn.Module()
+            wrapper.add_module("1", _ChannelAffine(out_dim))
+            self.add_module("2", wrapper)
+        elif norm != "none":
+            raise ValueError(f"unknown norm {norm!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.dtype
+        conv = getattr(self, "0")
+        bias = None if conv.bias is None else conv.bias.to(dtype)
+        y = F.conv1d(x.to(dtype), conv.weight.to(dtype), bias, stride=self.stride)
+        if self.norm == "group":  # per-(sample, channel) stats over time
+            y = _normalize(y, getattr(self, "2"), dim=-1)
+        elif self.norm == "layer":  # over channels at each step
+            y = _normalize(y, getattr(getattr(self, "2"), "1"), dim=1)
+        return F.gelu(y.to(dtype))
+
+
+class ConvFeatureExtractor(nn.Module):
+    """(B, C_in, T) or (B, T) waveforms → (B, T', embed_dim) frames."""
+
+    def __init__(self, conv_spec: ConvSpec = WAVJEPA_CONV_SPEC, in_channels: int = 1,
+                 mode: str = "default", conv_bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if mode not in ("default", "layer_norm"):
+            raise ValueError(f"unknown extractor mode {mode!r}")
+        self.conv_spec = tuple(tuple(layer) for layer in conv_spec)
+        blocks = []
+        in_d = in_channels
+        for i, (dim, k, s) in enumerate(self.conv_spec):
+            norm = "layer" if mode == "layer_norm" else ("group" if i == 0 else "none")
+            blocks.append(
+                ConvBlock(in_d, dim, k, s, norm=norm, use_bias=conv_bias, dtype=dtype)
+            )
+            in_d = dim
+        self.cnn = nn.ModuleList(blocks)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Kaiming-normal convolutions (fan_in, leaky_relu a=0.01 gain), as
+        the JAX package initialises them."""
+        gain = math.sqrt(2.0 / (1.0 + 0.01**2))
+        for block in self.cnn:
+            w = getattr(block, "0").weight
+            w.normal_(0.0, gain / math.sqrt(w.shape[1] * w.shape[2]), generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim == 2:
+            x = x[:, None, :]
+        for block in self.cnn:
+            x = block(x)
+        return x.transpose(1, 2)
