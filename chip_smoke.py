@@ -9,8 +9,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             (one process each, all at once) and print the card and its power
             limit;
 2. kernels  hold each kernel against its plain PyTorch version on the card at
-            the shapes the serving path gives it, in bf16 and f32, and time
-            kernel, plain version, one PyTorch library call, and the bound;
+            the shapes the serving and training paths give it, in bf16 and
+            f32, and time kernel, plain version, one PyTorch library call,
+            and the bound; the backward also with a fully masked row, whose
+            dq must be non-zero and equal the plain version's;
 3. serve    load the HEAR runtime at base width with seeded random weights
             and answer requests: scene embeddings of 8 clips of 10 s,
             timestamp embeddings of a ragged batch (1.0, 2.01, 4.3, 30 s) and
@@ -18,15 +20,27 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             4 clips of 10 s; check shapes, finiteness and that the attention
             kernel ran exactly once per encoder layer per request;
 4. parity   the same weights in f32 on the card (TF32 off) and on the CPU, and
-            bf16 on the card against that f32 result.
+            bf16 on the card against that f32 result;
+5. train    ``train_jepa`` on the AudioSet configuration as resolved (base
+            width, 32 clips × 8 crops, bf16, packing 88/128, 16 microbatches)
+            on synthetic clips for a few steps; check finite losses, the
+            teacher moving less than the student, exactly 36·a forward and
+            24·a backward kernel launches a step (a microbatches), the
+            checkpoint and its model_config.json, and a HEAR request served
+            from that checkpoint; then a few steps in one pass (accum 1);
+6. train parity  one step from the same injected crops and masks at base
+            width in f32 on the card (TF32 off) and on the CPU, and in bf16
+            on the card against that f32 step.
 
-It imports nothing of JAX. The last two lines of standard output are the
-``kernels`` JSON line and ``{"ok": true, "device": {...}}``; the full record
-goes to ``build/chip_smoke.json``.
+It imports nothing of JAX. The last lines of standard output are the card's
+name and power limit, the ``kernels`` JSON line and
+``{"ok": true, "device": {...}}``; the full record goes to
+``build/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -43,6 +57,24 @@ BF16_ATOL = 1e-2   # bf16 output: ~1 ulp at |o| < 2, plus P rounded in another o
 F32_ATOL = 1e-5    # f32: the same maths, summed in another order
 CARD_CPU_ATOL = 1e-3  # f32 model, card vs CPU, 12 layers of reordered sums
 BF16_REL_FRO = 5e-2   # bf16 model vs f32 model on the card, relative Frobenius
+# kernel vs plain version at the training shapes, relative to max(1, max |plain|):
+# bf16 about one bf16 ulp of the largest value (P and dS are rounded to bf16
+# before their products, in another order); f32 the same maths summed in
+# another order
+BF16_REL = 1e-2
+F32_REL = 1e-5
+# one train step, f32, card vs CPU (same weights, crops and masks): the loss
+# and gradient norm after 24 layers of reordered f32 sums; each weight after
+# AdamW's first step, which moves it by lr·g/(|g|+eps), so a gradient that
+# differs by its f32 noise moves it by a small share of lr; the teacher, an
+# EMA of equal weights, only by rounding
+STEP_LOSS_REL = 1e-4
+STEP_GRAD_NORM_REL = 1e-3
+STEP_PARAM_ATOL_LR = 0.1  # × lr
+STEP_TEACHER_ATOL = 1e-6
+STEP_BF16_LOSS_REL = 5e-2  # bf16 step vs f32 step on the card, loss
+TRAIN_STEPS, TRAIN_WARMUP = 6, 2  # train phase: steps, and those left out of the p50
+TRAIN_STEPS_ONE_PASS = 3
 
 # (name, B, H, T): the windowed batch of 8 clips of 10 s (40 windows of 200
 # tokens), the whole-clip batch of 4 clips of 10 s (each gains a fully padded
@@ -54,6 +86,20 @@ ATTN_SHAPES = [
     ("large_windowed", 4, 16, 200),
 ]
 HEAD_DIM = 64
+# the training path's attention, AudioSet configuration (256 crops): the
+# packed student encoder, the packed decoder (4 groups a crop) and the
+# teacher, for the whole batch and for one of its 16 microbatches; the
+# backward also at a T that is not a multiple of the kernel's 64-row tiles
+TRAIN_FWD_SHAPES = [
+    ("student_encoder", 256, 12, 88, 64), ("decoder", 1024, 12, 128, 32),
+    ("teacher", 256, 12, 200, 64), ("student_encoder_mb", 16, 12, 88, 64),
+    ("decoder_mb", 64, 12, 128, 32), ("teacher_mb", 16, 12, 200, 64),
+]
+TRAIN_BWD_SHAPES = [
+    ("student_encoder", 256, 12, 88, 64), ("decoder", 1024, 12, 128, 32),
+    ("student_encoder_mb", 16, 12, 88, 64), ("decoder_mb", 64, 12, 128, 32),
+    ("ragged_t100", 16, 12, 100, 64),
+]
 
 
 def card_line() -> str:
@@ -86,13 +132,32 @@ def attention_bound(b: int, h: int, t: int, d: int, elem: int) -> tuple[float, s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def attention_inputs(b, h, t, d, seed, device):
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v = (torch.randn(b, h, t, d, generator=g) for _ in range(3))
-    mask = torch.rand(b, t, generator=g) < 0.3
-    mask[0] = True    # a fully masked row: uniform weights over the T keys
-    mask[-1] = False  # a clean row
-    return [x.to(device) for x in (q, k, v, mask)]
+def attention_bwd_bound(b: int, h: int, t: int, d: int, elem: int) -> tuple[float, str]:
+    """Least time for the backward: q, k, v, dO read once, dq, dk, dv
+    written once, the mask and the (B, H, T, 2) f32 row statistics read once,
+    against 10·B·H·T²·d operations (the recomputed QKᵀ, dO·Vᵀ, Pᵀ·dO, dS·K,
+    dSᵀ·Q)."""
+    bytes_moved = 7 * b * h * t * d * elem + b * t + 8 * b * h * t
+    ops = 10 * b * h * t * t * d
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scaled_err(out: torch.Tensor, ref: torch.Tensor, rel: float) -> tuple[float, bool]:
+    """max |out − ref| and whether it is within rel · max(1, max |ref|)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, err <= rel * max(1.0, ref.float().abs().max().item())
+
+
+def card_inputs(b, h, t, d, seed, n=3):
+    """n (B, H, T, d) normal tensors and a (B, T) mask drawn on the card,
+    with a fully masked first row and a clean last row."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randn(b, h, t, d, generator=g, device="cuda") for _ in range(n)]
+    mask = torch.rand(b, t, generator=g, device="cuda") < 0.3
+    mask[0] = True
+    mask[-1] = False
+    return xs, mask
 
 
 def phase_kernels(fa) -> list[dict]:
@@ -100,11 +165,11 @@ def phase_kernels(fa) -> list[dict]:
 
     results = []
     for i, (name, b, h, t) in enumerate(ATTN_SHAPES):
-        q, k, v, mask = attention_inputs(b, h, t, HEAD_DIM, seed=i, device="cuda")
+        (q, k, v), mask = card_inputs(b, h, t, HEAD_DIM, seed=i)
         row = {"shape": name, "B": b, "H": h, "T": t, "d": HEAD_DIM}
         for dtype, atol, key in ((torch.float32, F32_ATOL, "f32"),
                                  (torch.bfloat16, BF16_ATOL, "bf16")):
-            qq, kk, vv = (x.to(dtype).contiguous() for x in (q, k, v))
+            qq, kk, vv = (x.to(dtype) for x in (q, k, v))
             out = fa(qq, kk, vv, mask)
             ref = flash_attention_reference(qq, kk, vv, mask)
             torch.cuda.synchronize()
@@ -117,7 +182,7 @@ def phase_kernels(fa) -> list[dict]:
                 uerr = (out[0] - uni).abs().max().item()
                 if not uerr <= 1e-5:
                     raise AssertionError(f"{name}: fully masked row not uniform ({uerr})")
-        qq, kk, vv = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))
+        qq, kk, vv = (x.to(torch.bfloat16) for x in (q, k, v))
         keep = ~mask[:, None, None, :]
         row["ms"] = cuda_ms(lambda: fa(qq, kk, vv, mask))
         row["plain_ms"] = cuda_ms(lambda: flash_attention_reference(qq, kk, vv, mask))
@@ -135,13 +200,92 @@ def phase_kernels(fa) -> list[dict]:
     return results
 
 
+def phase_train_kernels() -> tuple[list[dict], list[dict]]:
+    """Both kernels against their plain versions at the training shapes."""
+    from wavjepa_tpu_torch.ops import flash_attention as fam
+
+    F = torch.nn.functional
+    fwd_rows = []
+    for i, (name, b, h, t, d) in enumerate(TRAIN_FWD_SHAPES):
+        (q, k, v), mask = card_inputs(b, h, t, d, seed=100 + i)
+        row = {"shape": name, "B": b, "H": h, "T": t, "d": d}
+        stats = not name.startswith("teacher")  # the teacher runs without a gradient
+        for dtype, rel, key in ((torch.float32, F32_REL, "f32"), (torch.bfloat16, BF16_REL, "bf16")):
+            qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+            out, _ = fam.flash_attention_fwd(qq, kk, vv, mask, stats)
+            ref = fam.flash_attention_reference(qq, kk, vv, mask)
+            torch.cuda.synchronize()
+            err, ok = scaled_err(out, ref, rel)
+            if not torch.isfinite(out).all() or not ok:
+                raise AssertionError(f"fwd {name} {key}: max |kernel - plain| {err}")
+            row[f"max_abs_err_{key}"] = err
+        row["ms"] = cuda_ms(lambda: fam.flash_attention_fwd(qq, kk, vv, mask, stats))
+        row["plain_ms"] = cuda_ms(lambda: fam.flash_attention_reference(qq, kk, vv, mask))
+        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=~mask[:, None, None, :]))
+        row["bound_ms"], row["bound_by"] = attention_bound(b, h, t, d, 2)
+        row["writes_stats"] = stats
+        print(f"[kernels] flash_attention_fwd {name} (B={b}, H={h}, T={t}, d={d}): "
+              f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g}; "
+              f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        fwd_rows.append(row)
+
+    bwd_rows = []
+    for i, (name, b, h, t, d) in enumerate(TRAIN_BWD_SHAPES):
+        (q, k, v, do), mask = card_inputs(b, h, t, d, seed=200 + i, n=4)
+        row = {"shape": name, "B": b, "H": h, "T": t, "d": d}
+        for dtype, rel, key in ((torch.float32, F32_REL, "f32"), (torch.bfloat16, BF16_REL, "bf16")):
+            qq, kk, vv, dd = (x.to(dtype) for x in (q, k, v, do))
+            _, stats = fam.flash_attention_fwd(qq, kk, vv, mask, True)
+            grads = fam.flash_attention_bwd(qq, kk, vv, mask, dd, stats)
+            refs = fam.flash_attention_bwd_reference(qq, kk, vv, mask, dd)
+            torch.cuda.synchronize()
+            errs = []
+            for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+                err, ok = scaled_err(g, r, rel)
+                if not torch.isfinite(g).all() or not ok:
+                    raise AssertionError(f"bwd {name} {key} {gname}: max |kernel - plain| {err}")
+                errs.append(err)
+            # the fully masked row: uniform P, so its dq is not zero
+            row0_err, ok = scaled_err(grads[0][0], refs[0][0], rel)
+            if not ok or refs[0][0].abs().max().item() == 0 or grads[0][0].abs().max().item() == 0:
+                raise AssertionError(f"bwd {name} {key}: fully masked row dq wrong ({row0_err})")
+            row[f"max_abs_err_{key}"] = max(errs)
+            row[f"masked_row_dq_err_{key}"] = row0_err
+        row["ms"] = cuda_ms(lambda: fam.flash_attention_bwd(qq, kk, vv, mask, dd, stats))
+        row["plain_ms"] = cuda_ms(lambda: fam.flash_attention_bwd_reference(qq, kk, vv, mask, dd))
+        # SDPA's backward: autograd through SDPA with the same mask and dO,
+        # less SDPA's forward timed in the same turn (derived, not one call)
+        qs, ks, vs = (x.detach().requires_grad_(True) for x in (qq, kk, vv))
+        keep = ~mask[:, None, None, :]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+
+        fwd_ms = cuda_ms(sdpa_fwd)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), dd))
+        row["library_ms"] = both_ms - fwd_ms
+        row["library_fwd_bwd_ms"], row["library_fwd_ms"] = both_ms, fwd_ms
+        row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, t, d, 2)
+        print(f"[kernels] flash_attention_bwd {name} (B={b}, H={h}, T={t}, d={d}): "
+              f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g} "
+              f"(masked row dq {row['masked_row_dq_err_bf16']:.3g}); bf16 kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa bwd (derived) "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+        bwd_rows.append(row)
+    return fwd_rows, bwd_rows
+
+
 def make_clips(seconds: list[float], seed: int, sr: int = 16000) -> list[np.ndarray]:
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(int(round(s * sr))).astype(np.float32) * 0.1
             for s in seconds]
 
 
-def phase_serve(fa, load_model, chunk_padding) -> tuple[dict, object]:
+def phase_serve(fa_fwd, load_model, chunk_padding) -> tuple[dict, object]:
     windowed = load_model("", model_size="base", seed=0)
     whole = load_model("", model_size="base", process_seconds=10.0, seed=0)
     layers = windowed.config.encoder_layers
@@ -160,13 +304,13 @@ def phase_serve(fa, load_model, chunk_padding) -> tuple[dict, object]:
         return rt.get_timestamp_embeddings(clips)
 
     record = {}
-    fa.launches = 0  # the main path's run starts here
+    fa_fwd.launches = 0  # the main path's run starts here
     for name, rt, kind, clips in requests:
-        before = fa.launches
+        before = fa_fwd.launches
         emb, ts = run(rt, kind, clips)
         torch.cuda.synchronize()
-        if fa.launches - before != layers:
-            raise AssertionError(f"{name}: {fa.launches - before} kernel launches, "
+        if fa_fwd.launches - before != layers:
+            raise AssertionError(f"{name}: {fa_fwd.launches - before} kernel launches, "
                                  f"expected {layers} (one per encoder layer)")
         n = max(len(c) for c in clips)
         _, n_chunks, cut_off, _ = chunk_padding(n, rt.unit_frames, rt.sample_rate,
@@ -202,7 +346,7 @@ def phase_serve(fa, load_model, chunk_padding) -> tuple[dict, object]:
         print(f"[serve] {name}: out {tuple(emb.shape)}, {len(clips) * n_chunks} windows of "
               f"{rt.output_steps} tokens, p50 {record[name]['p50_ms']:.3f} ms "
               f"over {len(times)} requests", flush=True)
-    launches = fa.launches  # read just after the main path
+    launches = fa_fwd.launches  # read just after the main path
     expected = layers * 13 * len(requests)
     if launches != expected:
         raise AssertionError(f"main path launched the kernel {launches} times, not {expected}")
@@ -231,6 +375,157 @@ def phase_parity(load_model, JEPAConfig, bf16_runtime) -> dict:
             "shape": list(e_card.shape)}
 
 
+def encoder_weights(model) -> dict:
+    return {k: v.detach().float().cpu().clone() for k, v in model.encoder.state_dict().items()}
+
+
+def phase_train(fa_fwd, fa_bwd) -> dict:
+    """train_jepa on the AudioSet configuration as resolved, then in one
+    pass; the launch counts are set to 0 just before each run and read just
+    after it."""
+    import shutil
+
+    from wavjepa_tpu_torch.api.runtime import load_model
+    from wavjepa_tpu_torch.models.jepa import JEPA
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.loop import train_jepa
+
+    record = {}
+    for name, extra, steps in (("accum_auto", [], TRAIN_STEPS),
+                               ("accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS_ONE_PASS)):
+        save_dir = os.path.join("build", "chip_smoke_train", name)
+        shutil.rmtree(save_dir, ignore_errors=True)
+        # the warmup is cut to 2 steps so that these few steps take real
+        # updates (at the configured 100k it is lr 4e-9 at step 1)
+        cfg = apply_overrides(Config(), ["data.synthetic=true", f"trainer.save_dir={save_dir}",
+                                         "trainer.log_every=1", "optimizer.warmup_steps=2",
+                                         *extra])
+        model_cfg = cfg.build_model_config()
+        a = cfg.resolved_accum_steps()
+        init = JEPA(model_cfg)
+        init.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
+        start = encoder_weights(init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_fwd.launches = fa_bwd.launches = 0  # the main path's run starts here
+        state = train_jepa(cfg, max_steps=steps, device="cuda")
+        torch.cuda.synchronize()
+        fwd, bwd = fa_fwd.launches, fa_bwd.launches  # read just after
+        peak = torch.cuda.max_memory_allocated()
+        if (fwd, bwd) != (36 * a * steps, 24 * a * steps):
+            raise AssertionError(f"{name}: {fwd} forward and {bwd} backward launches, expected "
+                                 f"{36 * a * steps} and {24 * a * steps} ({a} microbatches)")
+        run_dir = os.path.join(save_dir, cfg.run_identity())
+        with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        losses = [line["loss"] for line in lines]
+        if len(losses) != steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: losses {losses}")
+        d_student = sum((v.float().cpu() - start[k]).abs().sum().item()
+                        for k, v in state.model.encoder.state_dict().items())
+        d_teacher = sum((v.float().cpu() - start[k]).abs().sum().item()
+                        for k, v in state.teacher_encoder.state_dict().items())
+        if not 0 < d_teacher < d_student:
+            raise AssertionError(f"{name}: teacher moved {d_teacher}, student {d_student}")
+        times = [line["step_time_ms"] for line in lines[TRAIN_WARMUP:]]
+        p50 = statistics.median(times)
+        b = cfg.trainer.batch_size
+        rec = {
+            "accum_steps": a, "steps": steps, "pack": [model_cfg.pack_encoder,
+                                                      model_cfg.pack_decoder],
+            "losses": losses, "grad_norms": [line["grad_norm"] for line in lines],
+            "step_ms": [line["step_time_ms"] for line in lines], "step_p50_ms": p50,
+            "clips_per_s": b / (p50 / 1e3),
+            "crops_per_s": b * cfg.data.samples_per_audio / (p50 / 1e3),
+            "max_memory_allocated_bytes": peak, "launches_fwd": fwd, "launches_bwd": bwd,
+            "student_encoder_moved": d_student, "teacher_moved": d_teacher,
+        }
+        if name == "accum_auto":
+            ckpt = os.path.join(run_dir, "ckpt", f"step_{steps:08d}.ckpt")
+            if not (os.path.isfile(ckpt) and os.path.isfile(os.path.join(run_dir,
+                                                                          "model_config.json"))):
+                raise AssertionError(f"{name}: no checkpoint or model_config.json in {run_dir}")
+            rt = load_model(ckpt)  # architecture from the sidecar
+            emb = rt.get_scene_embeddings(make_clips([10.0, 4.0], 8))
+            torch.cuda.synchronize()
+            if tuple(emb.shape) != (2, rt.embedding_size) or not torch.isfinite(emb).all():
+                raise AssertionError(f"{name}: served {tuple(emb.shape)} from the checkpoint")
+            if rt.config.dtype != torch.bfloat16 or rt.config.pack_encoder != model_cfg.pack_encoder:
+                raise AssertionError(f"{name}: sidecar not read ({rt.config})")
+            rec["served_from_checkpoint"] = list(emb.shape)
+        shutil.rmtree(save_dir)  # ~1.7 GB of base-width checkpoint
+        record[name] = rec
+        print(f"[train] {name}: {steps} steps of {b} clips × {cfg.data.samples_per_audio} "
+              f"crops, {a} microbatches, pack {rec['pack']}; losses "
+              f"{', '.join(f'{x:.5f}' for x in losses)}; step p50 {p50:.1f} ms "
+              f"(after {TRAIN_WARMUP} warm-up steps), {rec['clips_per_s']:.2f} clips/s, "
+              f"{rec['crops_per_s']:.1f} crops/s, peak memory {peak / 2**30:.2f} GiB; "
+              f"launches fwd {fwd} bwd {bwd}; teacher moved {d_teacher:.4g} < student "
+              f"{d_student:.4g}", flush=True)
+    return record
+
+
+def phase_train_parity() -> dict:
+    """One injected step at base width: f32 on the card against the CPU,
+    then bf16 on the card against that f32 step."""
+    from wavjepa_tpu_torch.models.jepa import JEPA
+    from wavjepa_tpu_torch.ops.audio import instance_normalize
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.state import TrainState
+    from wavjepa_tpu_torch.train.step import OptimizerConfig, make_jepa_train_step, make_optimizer
+
+    cfg = apply_overrides(Config(), ["trainer.precision=f32", "trainer.batch_size=1",
+                                     "data.samples_per_audio=2"])
+    f32_cfg = cfg.build_model_config()  # base width, packing 88/128, one pass
+    opt_cfg = OptimizerConfig(warmup_steps=1)  # step 1: lr = the peak, 4e-4
+    masker, masker_cfg = cfg.masker.build()
+    rng = np.random.default_rng(11)
+    crops = instance_normalize(torch.from_numpy(
+        rng.standard_normal((2, 1, f32_cfg.target_length)).astype(np.float32)))
+    masks = masker(torch.Generator().manual_seed(11), batch_size=2,
+                   n_times=f32_cfg.total_patches, cfg=masker_cfg)
+
+    def one_step(model_cfg, device):
+        model = JEPA(model_cfg)
+        model.init_parameters(torch.Generator().manual_seed(0))
+        model.to(device)
+        state = TrainState.create(model, make_optimizer(opt_cfg, model))
+        state.step = 1
+        step = make_jepa_train_step(opt_cfg, nr_samples_per_audio=2, masker_cfg=masker_cfg,
+                                    ema_cfg=cfg.ema)
+        state, m = step.step_on(state, crops.to(device, model_cfg.dtype),
+                                *(x.to(device) for x in masks))
+        weights = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+        teacher = {k: v.detach().float().cpu() for k, v in state.teacher_encoder.state_dict().items()}
+        return float(m["loss"]), float(m["grad_norm"]), m["lr"], weights, teacher
+
+    card = one_step(f32_cfg, "cuda")
+    cpu = one_step(f32_cfg, "cpu")
+    lr = card[2]
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    gn_rel = abs(card[1] - cpu[1]) / abs(cpu[1])
+    w_err = max((card[3][k] - cpu[3][k]).abs().max().item() for k in cpu[3])
+    t_err = max((card[4][k] - cpu[4][k]).abs().max().item() for k in cpu[4])
+    if not (loss_rel <= STEP_LOSS_REL and gn_rel <= STEP_GRAD_NORM_REL
+            and w_err <= STEP_PARAM_ATOL_LR * lr and t_err <= STEP_TEACHER_ATOL):
+        raise AssertionError(f"f32 step, card vs CPU: loss rel {loss_rel}, grad_norm rel "
+                             f"{gn_rel}, weights {w_err} (lr {lr}), teacher {t_err}")
+    bf16 = one_step(dataclasses.replace(f32_cfg, dtype=torch.bfloat16), "cuda")
+    bf16_rel = abs(bf16[0] - card[0]) / abs(card[0])
+    if not bf16_rel <= STEP_BF16_LOSS_REL:
+        raise AssertionError(f"bf16 step vs f32 step on the card: loss rel {bf16_rel}")
+    print(f"[train parity] f32 step card vs CPU: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel "
+          f"{loss_rel:.3g}, limit {STEP_LOSS_REL}), grad_norm rel {gn_rel:.3g} (limit "
+          f"{STEP_GRAD_NORM_REL}), weights max abs {w_err:.3g} (limit "
+          f"{STEP_PARAM_ATOL_LR * lr:.3g} = {STEP_PARAM_ATOL_LR}·lr), teacher {t_err:.3g} "
+          f"(limit {STEP_TEACHER_ATOL}); bf16 step loss {bf16[0]:.6f}, rel {bf16_rel:.3g} "
+          f"(limit {STEP_BF16_LOSS_REL})", flush=True)
+    return {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
+            "grad_norm_card": card[1], "grad_norm_cpu": cpu[1], "grad_norm_rel": gn_rel,
+            "weights_max_abs_err": w_err, "teacher_max_abs_err": t_err, "lr": lr,
+            "bf16_loss": bf16[0], "bf16_loss_rel": bf16_rel}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
@@ -239,7 +534,11 @@ def main() -> int:
     from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
     from wavjepa_tpu_torch.models.jepa import JEPAConfig
     from wavjepa_tpu_torch.ops import _build
-    from wavjepa_tpu_torch.ops.flash_attention import flash_attention as fa
+    from wavjepa_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
 
     # f32 comparisons hold the maths in full f32: no TF32 in cuDNN or cuBLAS
     torch.backends.cudnn.allow_tf32 = False
@@ -255,30 +554,38 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    kernel_rows = phase_kernels(fa)
-    serve, bf16_runtime = phase_serve(fa, load_model, chunk_padding)
+    kernel_rows = phase_kernels(flash_attention)
+    train_fwd_rows, train_bwd_rows = phase_train_kernels()
+    serve, bf16_runtime = phase_serve(flash_attention_fwd, load_model, chunk_padding)
     parity = phase_parity(load_model, JEPAConfig, bf16_runtime)
+    train = phase_train(flash_attention_fwd, flash_attention_bwd)
+    train_parity = phase_train_parity()
 
-    head = kernel_rows[0]  # the windowed HEAR batch, the default serving shape
-    kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "wavjepa_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "wavjepa_tpu/ops/flash_attention.py:39",
-        "launches": serve["launches"],
-        "max_abs_err": head["max_abs_err_bf16"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shapes": kernel_rows,
-    }]
+    def entry(name, replaces, launches, head, rows):
+        return {"name": name, "route": "cuda",
+                "source": f"wavjepa_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": head["max_abs_err_bf16"], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shapes": rows}
+
+    train_fwd = sum(r["launches_fwd"] for r in train.values())
+    fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39",
+                serve["launches"] + train_fwd,
+                kernel_rows[0],  # the windowed HEAR batch, the default serving shape
+                kernel_rows + train_fwd_rows)
+    fwd["launches_by_path"] = {"serve": serve["launches"], "train": train_fwd}
+    bwd = entry("flash_attention_bwd", "wavjepa_tpu/ops/flash_attention.py:58",
+                sum(r["launches_bwd"] for r in train.values()),
+                train_bwd_rows[2],  # one microbatch of the packed student encoder
+                train_bwd_rows)
+    bwd["library_ms_is"] = "autograd through SDPA (same mask, dO) less SDPA's forward"
+    kernels = [fwd, bwd]
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernels": kernels, "serve": serve,
-                   "parity": parity, "torch": torch.__version__,
-                   "cuda": torch.version.cuda}, f, indent=1)
+                   "parity": parity, "train": train, "train_parity": train_parity,
+                   "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from wavjepa_tpu.api.convert import export_jepa_state_dict
 from wavjepa_tpu.models.jepa import JEPA as JaxJEPA
 from wavjepa_tpu.models.jepa import JEPAConfig as JaxConfig
 from wavjepa_tpu.models.jepa import jepa_config_to_dict as jax_config_to_dict
@@ -73,7 +74,12 @@ def test_state_dict_names_are_the_reference_names():
     assert set(sd) == set(port.state_dict())
     assert "extract_audio.cnn.0.2.weight" in sd
     assert "encoder.layers.1.self_attn.in_proj_weight" in sd
-    assert not any(k.startswith(("decoder", "mask_token")) for k in sd)
+    # the training side is carried too, under the names the JAX export writes
+    jax_names = set(export_jepa_state_dict(params))
+    assert set(sd) == jax_names
+    assert {"decoder.layers.0.linear1.weight", "encoder_to_decoder_mapper.weight",
+            "decoder_to_encoder_mapper.bias", "mask_token"} <= jax_names
+    assert tuple(sd["mask_token"].shape) == (1, 1, 16)
 
 
 def test_config_rewrites_and_roundtrip():

@@ -1,0 +1,146 @@
+"""The port's training loop, checkpoints and CLI on the CPU at a tiny
+configuration: a run end to end, resume equivalence, and a port checkpoint
+served by the HEAR runtimes of both packages (embeddings f32, atol 5e-5,
+rtol 1e-4, as tests/test_torch_runtime.py)."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from wavjepa_tpu.api import runtime as jrt
+from wavjepa_tpu.train.checkpoint import read_model_config as jax_read_model_config
+from wavjepa_tpu_torch.api import runtime as trt
+from wavjepa_tpu_torch.models.jepa import JEPA
+from wavjepa_tpu_torch.train import __main__ as cli
+from wavjepa_tpu_torch.train.checkpoint import CheckpointManager, read_model_config
+from wavjepa_tpu_torch.train.config import Config, apply_overrides
+from wavjepa_tpu_torch.train.loop import build_data_iterator, prefetch_to_device, train_jepa
+from wavjepa_tpu_torch.train.state import TrainState
+from wavjepa_tpu_torch.train.step import OptimizerConfig, make_optimizer
+
+# 31 tokens a crop, a two-block frontend, the tiny encoder and predictor
+TINY_RUN = [
+    "data.synthetic=true", "trainer.size=tiny", "trainer.batch_size=2",
+    "data.samples_per_audio=2", "data.sr=1600", "data.process_seconds=0.201",
+    "data.target_seconds=1.0", "extractor.conv_spec=[[16,10,5],[16,3,2]]",
+    "trainer.average_top_k_layers=2", "trainer.precision=f32", "trainer.log_every=1",
+    "optimizer.warmup_steps=1",
+]
+
+
+def _cfg(save_dir, *extra):
+    return apply_overrides(Config(), [*TINY_RUN, f"trainer.save_dir={save_dir}", *extra])
+
+
+def _run_dir(cfg):
+    from pathlib import Path
+
+    return Path(cfg.trainer.save_dir) / cfg.run_identity()
+
+
+def test_train_jepa_runs_on_the_cpu(tmp_path):
+    cfg = _cfg(tmp_path)
+    state = train_jepa(cfg, max_steps=2, device="cpu")
+    assert state.step == 2
+    run = _run_dir(cfg)
+    lines = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert [x["step"] for x in lines] == [1, 2]
+    assert all(np.isfinite(x["loss"]) for x in lines)
+    # clips and crops counted apart: 2 crops a clip
+    assert lines[1]["crops_per_sec"] == pytest.approx(2 * lines[1]["clips_per_sec"])
+    assert (run / "ckpt" / "step_00000002.ckpt").is_file()
+    assert read_model_config(run) == cfg.build_model_config()
+
+
+def _params(state):
+    out = {k: v.clone() for k, v in state.model.state_dict().items()}
+    out.update({f"teacher.{k}": v.clone() for k, v in state.teacher_encoder.state_dict().items()})
+    return out
+
+
+def test_resume_equals_an_uninterrupted_run(tmp_path):
+    straight = _params(train_jepa(_cfg(tmp_path / "a"), max_steps=3, device="cpu"))
+    cfg = _cfg(tmp_path / "b")
+    train_jepa(cfg, max_steps=1, device="cpu")
+    resumed = train_jepa(cfg, max_steps=3, device="cpu")  # restores step 1, takes 2 more
+    assert resumed.step == 3
+    for k, v in straight.items():
+        torch.testing.assert_close(_params(resumed)[k], v, atol=1e-7, rtol=0, msg=k)
+    assert CheckpointManager(_run_dir(cfg) / "ckpt").steps() == [1, 3]
+
+
+def test_a_port_checkpoint_serves_in_both_packages(tmp_path):
+    cfg = _cfg(tmp_path)
+    train_jepa(cfg, max_steps=1, device="cpu")
+    run = _run_dir(cfg)
+    ckpt = str(run / "ckpt" / "step_00000001.ckpt")
+    port = trt.load_model(ckpt, device="cpu")  # the architecture from model_config.json
+    assert port.config == cfg.build_model_config()
+    jax_rt = jrt.load_model(ckpt, config=jax_read_model_config(run))
+    rng = np.random.default_rng(0)
+    clips = [rng.standard_normal(n).astype(np.float32) for n in (200, 700)]
+    ref, _ = jax_rt.get_timestamp_embeddings(clips)
+    out, _ = port.get_timestamp_embeddings(clips)
+    np.testing.assert_allclose(out.numpy(), ref, atol=5e-5, rtol=1e-4)
+
+
+def test_checkpoint_keep_and_every(tmp_path):
+    model = JEPA(_cfg(tmp_path).build_model_config())
+    model.init_parameters(torch.Generator().manual_seed(0))
+    state = TrainState.create(model, make_optimizer(OptimizerConfig(), model))
+    mgr = CheckpointManager(tmp_path / "ck", keep=2, every=2)
+    assert mgr.latest_step() is None
+    assert [mgr.save(s, state) for s in (1, 2, 3, 4, 6)] == [False, True, False, True, True]
+    assert mgr.steps() == [4, 6]
+    assert mgr.save(7, state, force=True) and mgr.steps() == [6, 7]
+    blob = torch.load(mgr.path(7), weights_only=False)
+    assert any(k.startswith("teacher_encoder.") for k in blob["state_dict"])
+    assert not any(k.startswith("teacher.") for k in blob["state_dict"])
+    with pytest.raises(FileNotFoundError):
+        CheckpointManager(tmp_path / "empty").restore(state)
+
+
+def test_cli_trains_on_the_cpu_when_asked(tmp_path, capsys):
+    cli.main([*TINY_RUN, "trainer.steps=1", f"trainer.save_dir={tmp_path}", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "run: Data=AudioSet" in out and "[step 1] loss=" in out
+
+
+def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_jepa(_cfg(tmp_path), max_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main([*TINY_RUN, f"trainer.save_dir={tmp_path}"])
+
+
+def test_data_iterator_and_prefetch(tmp_path):
+    cfg = _cfg(tmp_path)
+    batches = build_data_iterator(cfg, start_step=3)
+    first = next(batches)
+    assert first.shape == (2, 1, 1600) and first.dtype == np.float32
+    # batch i is a function of (seed, i): the resumed stream repeats it
+    again = build_data_iterator(cfg, start_step=2)
+    next(again)
+    np.testing.assert_array_equal(next(again), first)
+    fed = prefetch_to_device(iter([first, first * 2]), torch.device("cpu"))
+    got = list(fed)
+    assert len(got) == 2 and torch.equal(got[1], torch.from_numpy(first * 2))
+    with pytest.raises(NotImplementedError):
+        build_data_iterator(apply_overrides(_cfg(tmp_path), ["data.synthetic=false",
+                                                             "data.data_dirs=x.tar"]))
+    with pytest.raises(NotImplementedError):
+        build_data_iterator(apply_overrides(_cfg(tmp_path), ["data.nat_scenes=true"]))
+
+
+def test_prefetch_passes_on_a_source_error():
+    def source():
+        yield np.zeros((1, 1, 4), np.float32)
+        raise OSError("disk")
+
+    fed = prefetch_to_device(source(), torch.device("cpu"))
+    next(fed)
+    with pytest.raises(OSError, match="disk"):
+        next(fed)

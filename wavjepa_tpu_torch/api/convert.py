@@ -10,7 +10,9 @@ tree (nested dicts of arrays) across:
   * a flax Dense ``kernel`` (in, out) becomes a ``weight`` (out, in);
   * conv kernels are OIH in both and carry over as they are;
   * a LayerNorm ``scale`` becomes ``weight``;
-  * the decoder subtree, its mappers and the mask token are skipped.
+  * the decoder, both mappers and ``mask_token`` (1, 1, D_dec) keep their
+    names, and an EMA teacher tree becomes ``teacher_encoder.*``, as
+    ``wavjepa_tpu/api/convert.py`` exports them.
 """
 
 from __future__ import annotations
@@ -109,9 +111,12 @@ def _encoder(params: Mapping, prefix: str, out: dict) -> None:
     _layernorm(params["norm"], f"{prefix}.norm", out)
 
 
-def state_dict_from_jax_params(params: Mapping, extractor_mode: str = "default"
+def state_dict_from_jax_params(params: Mapping, extractor_mode: str = "default",
+                               teacher_encoder: "Mapping | None" = None
                                ) -> dict[str, torch.Tensor]:
-    """The JAX package's JEPA params (encoder side) → the port's state_dict.
+    """The JAX package's JEPA params → the port's state_dict: the encoder
+    side, and the decoder, mappers and mask token where ``params`` has them;
+    ``teacher_encoder`` (an encoder tree) adds ``teacher_encoder.*``.
 
     ``extractor_mode`` says where a conv block's norm sits: GroupNorm at
     ``cnn.{i}.2`` ("default", block 0 only) or LayerNorm at ``cnn.{i}.2.1``
@@ -130,4 +135,11 @@ def state_dict_from_jax_params(params: Mapping, extractor_mode: str = "default"
     if "post_extraction_mapper" in params:
         _linear(params["post_extraction_mapper"], "post_extraction_mapper", out)
     _encoder(params["encoder"], "encoder", out)
+    if "decoder" in params:
+        _encoder(params["decoder"], "decoder", out)
+        _linear(params["encoder_to_decoder_mapper"], "encoder_to_decoder_mapper", out)
+        _linear(params["decoder_to_encoder_mapper"], "decoder_to_encoder_mapper", out)
+        out["mask_token"] = _t(params["mask_token"])
+    if teacher_encoder is not None:
+        _encoder(teacher_encoder, "teacher_encoder", out)
     return out

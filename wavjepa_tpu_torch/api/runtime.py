@@ -12,6 +12,7 @@ batched encoder call. Entry points run on ``cuda`` unless the caller passes
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Mapping, Optional, Union
 
@@ -25,6 +26,7 @@ from wavjepa_tpu_torch.api.convert import (
 )
 from wavjepa_tpu_torch.api.feature_helper import prepare_batch
 from wavjepa_tpu_torch.models.jepa import JEPA, JEPAConfig
+from wavjepa_tpu_torch.train.checkpoint import read_model_config
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -89,7 +91,12 @@ class RuntimeJEPA:
         if state_dict is None:
             model.init_parameters(torch.Generator().manual_seed(seed))
         else:
-            model.load_state_dict(dict(state_dict))
+            # serving needs the encoder side; the predictor may be absent
+            missing, unexpected = model.load_state_dict(dict(state_dict), strict=False)
+            missing = [k for k in missing if k.startswith(_ENCODER_SIDE)]
+            if missing or unexpected:
+                raise KeyError(f"state_dict does not fit the model: missing {missing}, "
+                               f"unexpected {unexpected}")
         self.model = model.to(self.device).eval()
         self.sample_rate = config.sample_rate
         self.embedding_size = config.encoder_dim
@@ -162,14 +169,16 @@ def load_model(
     seed: int = 0,
 ) -> RuntimeJEPA:
     """HEAR ``load_model``: a runtime from a reference-format torch
-    ``.ckpt``, or with random weights from ``seed`` when no path is given.
+    checkpoint (a reference ``.ckpt`` or a port training checkpoint), or
+    with random weights from ``seed`` when no path is given.
 
-    Without ``config`` the model is ``JEPAConfig(size=model_size)`` in
-    bfloat16 with ``process_seconds`` windows (2.01 s by default). The
-    position table is derived from the config; for a checkpoint it is
+    The architecture comes from ``config``; else, for a checkpoint, from
+    the ``model_config.json`` a training run writes beside it (the JAX
+    package's sidecar format; a ``process_seconds`` given here overrides its
+    window); else it is ``JEPAConfig(size=model_size)`` in bfloat16 with
+    ``process_seconds`` windows (2.01 s by default), whose position table is
     detected from the table the checkpoint stores unless ``pos_embed`` is
-    given. Orbax directories and their model_config.json sidecar have no
-    port yet."""
+    given. Orbax directories have no port."""
     dev = resolve_device(device)
     window_s = 2.01 if process_seconds is None else process_seconds
     state_dict = None
@@ -178,6 +187,10 @@ def load_model(
         if path.is_dir():
             raise NotImplementedError("orbax checkpoint directories have no port yet")
         state_dict = unwrap_state_dict(load_torch_checkpoint(str(path)))
+        if config is None:
+            config = read_model_config(path.parent)
+            if config is not None and process_seconds is not None:
+                config = dataclasses.replace(config, process_seconds=process_seconds)
         if config is None and pos_embed is None:
             probe = JEPAConfig(in_channels=in_channels, process_seconds=window_s,
                                size=model_size)

@@ -1,0 +1,71 @@
+// Helpers shared by the attention kernels (flash_attention_fwd.cu and
+// flash_attention_bwd.cu): the bf16 tensor-core product, fragment packing and
+// the reductions over the lanes that share a row.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wavjepa {
+
+// C (16×8, f32) += A (16×16, bf16, row-major) · B (16×8, bf16, column-major).
+// Fragment layout of mma m16n8k16 (PTX ISA), lane = 4·g + c:
+//   A (16×16): a0 (row g, cols 2c, 2c+1), a1 (row g+8, same), a2/a3 (cols +8)
+//   B (16×8):  b0 (k = 2c, 2c+1, n = g), b1 (k + 8)
+//   C (16×8):  c0, c1 (row g, cols 2c, 2c+1), c2, c3 (row g+8)
+__device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// max / sum over the four lanes of a quad, which share two rows of a fragment
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// max / sum over the 16 lanes of a half warp that share one row group
+__device__ __forceinline__ float half_warp_max(float v) {
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float half_warp_sum(float v) {
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The A fragments of 16 rows (row0 and row0 + 8 for this lane) of a
+// row-major (T, D) bf16 matrix, all of D; rows past the end read as zero.
+template <int D>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const __nv_bfloat16* base,
+                                            int row0, bool in0, bool in1, int c) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const __nv_bfloat16* p0 = base + (size_t)row0 * D + ks * 16 + 2 * c;
+    const __nv_bfloat16* p1 = p0 + 8 * D;
+    a[ks][0] = in0 ? load_u32(p0) : 0u;
+    a[ks][1] = in1 ? load_u32(p1) : 0u;
+    a[ks][2] = in0 ? load_u32(p0 + 8) : 0u;
+    a[ks][3] = in1 ? load_u32(p1 + 8) : 0u;
+  }
+}
+
+}  // namespace wavjepa

@@ -37,6 +37,13 @@
 // weights over the T real keys, never NaN. A slot past T in the last key
 // tile is not a key at all: it gets −inf, stays out of the max and gets
 // weight 0, so it cannot join the uniform average of a fully masked row.
+//
+// Row statistics for the backward. When `stats` is not null the kernel also
+// writes, per query row, the final running max m and sum l of exp(s − m) as
+// an f32 pair (B, H, T, 2); flash_attention_bwd.cu rebuilds P = exp(s − m)/l
+// from them. Not a single logsumexp: for a fully masked row m is −FLT_MAX
+// and m + log(l) rounds back to −FLT_MAX, which would give that row weights
+// of 1 instead of 1/T. The serving path passes null and writes nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,7 +51,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
+
+using namespace wavjepa;
 
 constexpr int kBlockQ = 64;  // query rows a block owns
 constexpr int kBlockK = 64;  // keys a tile holds
@@ -55,43 +66,13 @@ constexpr int kMmaWarps = kBlockQ / 16;  // one warp per 16 query rows
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kPad = 8;  // bf16 values of padding at the end of a K or Vᵀ row
 
-__device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                            uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// max / sum over the four lanes of a quad, which share two rows of a fragment
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Fragment layout of mma m16n8k16 (PTX ISA), lane = 4·g + c:
-//   A (16×16): a0 (row g, cols 2c, 2c+1), a1 (row g+8, same), a2/a3 (cols +8)
-//   B (16×8):  b0 (k = 2c, 2c+1, n = g), b1 (k + 8)
-//   C (16×8):  c0, c1 (row g, cols 2c, 2c+1), c2, c3 (row g+8)
+// Fragment layouts: see mma_16x8x16 in attention_common.cuh.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                         __nv_bfloat16* __restrict__ o, int H, int seq, float scale) {
+                         __nv_bfloat16* __restrict__ o, float* __restrict__ stats, int H,
+                         int seq, float scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int KS = D + kPad;        // K row stride
   constexpr int VS = kBlockK + kPad;  // Vᵀ row stride
@@ -108,21 +89,14 @@ flash_attention_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   const int row0 = blockIdx.x * kBlockQ + (tid >> 5) * 16 + g;  // and row0 + 8
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * (size_t)seq * D;
+  const size_t rows = ((size_t)b * H + h) * (size_t)seq;  // first row of this (b, h)
+  const size_t head = rows * D;
   const uint8_t* mrow = mask + (size_t)b * seq;
   const bool in0 = row0 < seq, in1 = row0 + 8 < seq;
 
   // the warp's 16 query rows, all of d, as A fragments
   uint32_t qa[kDSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kDSteps; ++ks) {
-    const __nv_bfloat16* p0 = q + head + (size_t)row0 * D + ks * 16 + 2 * c;
-    const __nv_bfloat16* p1 = p0 + 8 * D;
-    qa[ks][0] = in0 ? load_u32(p0) : 0u;
-    qa[ks][1] = in1 ? load_u32(p1) : 0u;
-    qa[ks][2] = in0 ? load_u32(p0 + 8) : 0u;
-    qa[ks][3] = in1 ? load_u32(p1 + 8) : 0u;
-  }
+  load_a_rows<D>(qa, q + head, row0, in0, in1, c);
 
   float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8
   float l[2] = {0.f, 0.f};              // this lane's share of the row sums
@@ -217,8 +191,13 @@ flash_attention_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     }
   }
 
-  const float inv0 = 1.f / quad_sum(l[0]);
-  const float inv1 = 1.f / quad_sum(l[1]);
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  const float inv0 = 1.f / l0;
+  const float inv1 = 1.f / l1;
+  if (stats != nullptr && c == 0) {
+    if (in0) *reinterpret_cast<float2*>(stats + 2 * (rows + row0)) = make_float2(m[0], l0);
+    if (in1) *reinterpret_cast<float2*>(stats + 2 * (rows + row0 + 8)) = make_float2(m[1], l1);
+  }
 #pragma unroll
   for (int dt = 0; dt < kOTiles; ++dt) {
     const int col = dt * 8 + 2 * c;
@@ -238,16 +217,6 @@ constexpr int kRowsPerThread = 4;
 constexpr int kColsPerThread = 4;  // key columns tx + 16·c of a score tile
 constexpr int kPStride = kBlockK + 1;
 
-// max / sum over the 16 lanes of a half warp that share one row group
-__device__ __forceinline__ float half_warp_max(float v) {
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 template <int D>
 constexpr int smem_floats() {
   // Q and K with a one-float pad against bank conflicts, V, P
@@ -258,7 +227,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                        float* __restrict__ o, int H, int seq, float scale) {
+                        float* __restrict__ o, float* __restrict__ stats, int H, int seq,
+                        float scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int kOutCols = D / 16;  // output columns tx + 16·j a thread owns
 
@@ -274,7 +244,8 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * (size_t)seq * D;
+  const size_t rows = ((size_t)b * H + h) * (size_t)seq;
+  const size_t head = rows * D;
   const uint8_t* mrow = mask + (size_t)b * seq;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
@@ -372,8 +343,11 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
 
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
-    const float inv = 1.f / half_warp_sum(l[r]);
+    const float lr = half_warp_sum(l[r]);
+    const float inv = 1.f / lr;
     const int row = q0 + ty * kRowsPerThread + r;
+    if (stats != nullptr && tx == 0 && row < seq)
+      *reinterpret_cast<float2*>(stats + 2 * (rows + row)) = make_float2(m[r], lr);
     if (row < seq) {
 #pragma unroll
       for (int j = 0; j < kOutCols; ++j) o[head + (size_t)row * D + tx + 16 * j] = acc[r][j] * inv;
@@ -385,17 +359,19 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const uint8_t* mask,
-                        void* o, int B, int H, int seq, float scale, cudaStream_t stream) {
+                        void* o, float* stats, int B, int H, int seq, float scale,
+                        cudaStream_t stream) {
   dim3 grid((seq + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_fwd_bf16<D><<<grid, kMmaThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(o), H, seq, scale);
+      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(o), stats, H, seq,
+      scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const uint8_t* mask, void* o,
-                       int B, int H, int seq, float scale, cudaStream_t stream) {
+                       float* stats, int B, int H, int seq, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   auto kernel = flash_attention_fwd_f32<D>;
   cudaError_t err =
@@ -405,7 +381,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const uint8_
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q),
                                            static_cast<const float*>(k),
                                            static_cast<const float*>(v), mask,
-                                           static_cast<float*>(o), H, seq, scale);
+                                           static_cast<float*>(o), stats, H, seq, scale);
   return cudaGetLastError();
 }
 
@@ -413,17 +389,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const uint8_
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t
 // (0 = launched); cudaErrorInvalidValue for a shape or type it does not take.
-// q, k, v, o contiguous (B, H, T, head_dim); mask contiguous (B, T) bytes.
+// q, k, v, o contiguous (B, H, T, head_dim); mask contiguous (B, T) bytes;
+// stats null, or contiguous (B, H, T, 2) f32 to receive each row's (m, l).
 extern "C" int wavjepa_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                           const void* mask, void* o, int B, int H, int seq,
-                                           int head_dim, int dtype, float scale,
+                                           const void* mask, void* o, void* stats, int B, int H,
+                                           int seq, int head_dim, int dtype, float scale,
                                            void* stream) {
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* st = static_cast<float*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || seq <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 32) return launch_f32<32>(q, k, v, m, o, B, H, seq, scale, s);
-  if (dtype == 0 && head_dim == 64) return launch_f32<64>(q, k, v, m, o, B, H, seq, scale, s);
-  if (dtype == 1 && head_dim == 32) return launch_bf16<32>(q, k, v, m, o, B, H, seq, scale, s);
-  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(q, k, v, m, o, B, H, seq, scale, s);
+  if (dtype == 0 && head_dim == 32) return launch_f32<32>(q, k, v, m, o, st, B, H, seq, scale, s);
+  if (dtype == 0 && head_dim == 64) return launch_f32<64>(q, k, v, m, o, st, B, H, seq, scale, s);
+  if (dtype == 1 && head_dim == 32) return launch_bf16<32>(q, k, v, m, o, st, B, H, seq, scale, s);
+  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(q, k, v, m, o, st, B, H, seq, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -1,15 +1,27 @@
-"""WavJEPA model: configuration and the encoder side used for inference.
+"""WavJEPA model: configuration, the student and the EMA teacher's targets.
 
 Counterpart of ``wavjepa_tpu/models/jepa.py``. ``JEPAConfig`` is carried
-over whole, so configurations round-trip between the two packages;
-``JEPA`` holds the path that serves: conv frontend → feature LayerNorm
-(eps 1e-5) → 512→768 mapper → fixed sin-cos positions added in the
-activation dtype → post-norm encoder. The decoder, the mask token and the
-student/teacher passes belong to the training path, which is not ported yet.
+over whole, so configurations round-trip between the two packages. ``JEPA``
+holds, under the reference's module names:
+
+  * the path that serves (``represent``): conv frontend → feature LayerNorm
+    (eps 1e-5) → 512→768 mapper → fixed sin-cos positions added in the
+    activation dtype → post-norm context encoder;
+  * the training side: ``student_forward`` (encoder on the context → 768→384
+    mapper → mask-token canvas with decoder positions → predictor per target
+    group → 384→768 mapper), unpacked or with visible tokens packed into
+    ``pack_encoder``/``pack_decoder`` slots; ``teacher_forward`` (the top-k
+    raw layer outputs of a teacher encoder, each instance-normed, averaged);
+    and the masked MSE in both layouts.
+
+The EMA teacher is a second encoder module, ``build_teacher_encoder()``,
+owned by the train state (``train/state.py``), as the JAX package keeps a
+second parameter tree for the same encoder definition.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Optional
 
@@ -142,7 +154,7 @@ def jepa_config_from_dict(d: dict) -> JEPAConfig:
 
 
 class JEPA(nn.Module):
-    """The encoder side of WavJEPA, under the reference's module names."""
+    """The WavJEPA student under the reference's module names."""
 
     def __init__(self, config: JEPAConfig):
         super().__init__()
@@ -150,6 +162,8 @@ class JEPA(nn.Module):
         if cfg.extractor != "conv":
             raise NotImplementedError(f"extractor {cfg.extractor!r} has no port yet")
         check_attn_impl(cfg.attn_impl)
+        if cfg.attn_impl_decoder is not None:
+            check_attn_impl(cfg.attn_impl_decoder)
         self.config = cfg
         self.extract_audio = ConvFeatureExtractor(
             cfg.conv_spec, cfg.in_channels, cfg.extractor_mode, cfg.conv_bias, cfg.dtype
@@ -164,12 +178,17 @@ class JEPA(nn.Module):
             cfg.encoder_layers, cfg.encoder_dim, cfg.encoder_heads,
             int(cfg.encoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
         )
-        # fixed table, not a parameter: derived from the config, not stored
-        self.register_buffer(
-            "pos_encoding_encoder",
-            torch.from_numpy(cfg.pos_table(cfg.encoder_dim)),
-            persistent=False,
+        self.decoder = TransformerEncoder(
+            cfg.decoder_layers, cfg.decoder_dim, cfg.decoder_heads,
+            int(cfg.decoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
         )
+        self.encoder_to_decoder_mapper = Linear(cfg.encoder_dim, cfg.decoder_dim, dtype=cfg.dtype)
+        self.decoder_to_encoder_mapper = Linear(cfg.decoder_dim, cfg.encoder_dim, dtype=cfg.dtype)
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.decoder_dim))
+        # fixed tables, not parameters: derived from the config, not stored
+        for name, dim in (("pos_encoding_encoder", cfg.encoder_dim),
+                          ("pos_encoding_decoder", cfg.decoder_dim)):
+            self.register_buffer(name, torch.from_numpy(cfg.pos_table(dim)), persistent=False)
 
     @torch.no_grad()
     def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -183,6 +202,19 @@ class JEPA(nn.Module):
                 generator=generator,
             )
         self.encoder.init_parameters(generator)
+        # the training side after the encoder side, so that one seed gives
+        # the serving path the same weights as before it existed
+        self.decoder.init_parameters(generator)
+        for lin in (self.encoder_to_decoder_mapper, self.decoder_to_encoder_mapper):
+            nn.init.trunc_normal_(lin.weight, 0.0, 0.02, -0.04, 0.04, generator=generator)
+        self.mask_token.copy_(0.02 * torch.randn(self.mask_token.shape, generator=generator))
+
+    def build_teacher_encoder(self) -> TransformerEncoder:
+        """A copy of the context encoder, outside autograd, for the EMA
+        teacher."""
+        teacher = copy.deepcopy(self.encoder)
+        teacher.requires_grad_(False)
+        return teacher
 
     def encode_features(self, audio: torch.Tensor) -> torch.Tensor:
         """(B, C, T_samples) → (B, total_patches, D_enc) positioned features."""
@@ -195,3 +227,130 @@ class JEPA(nn.Module):
                   padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Inference: features → context encoder under the padding mask."""
         return self.encoder(self.encode_features(audio), key_padding_mask=padding_mask)
+
+    # ------------------------------------------------------------ student
+
+    def student_forward(self, local_features: torch.Tensor, ctx_mask: torch.Tensor,
+                        ctx_and_target_mask: torch.Tensor) -> torch.Tensor:
+        """Masked-prediction pass.
+
+        local_features (B, T, D_enc); ctx_mask (B, T) bool, True = not
+        context; ctx_and_target_mask (B, N, T) bool, True = masked for that
+        target group's predictor (context ∪ its targets visible). Returns
+        (B, N, T, D_enc); with packing, positions outside a group's pack are
+        zero (the loss reads only targets, which are always packed)."""
+        if self.config.pack_encoder is not None:
+            preds_p, order_d, valid_d = self._packed_predictions(
+                local_features, ctx_mask, ctx_and_target_mask)
+            b, t, _ = local_features.shape
+            n, pd = ctx_and_target_mask.shape[1], self.config.pack_decoder
+            de = preds_p.shape[-1]
+            # scatter into t + 1 rows, invalid slots to the last, then drop it
+            index = torch.where(valid_d, order_d, t).reshape(b * n, pd, 1).expand(-1, -1, de)
+            preds = preds_p.new_zeros(b * n, t + 1, de).scatter(1, index, preds_p)
+            return preds[:, :t].reshape(b, n, t, de)
+        b, t, _ = local_features.shape
+        n = ctx_and_target_mask.shape[1]
+        enc_out = self.encoder(local_features, key_padding_mask=ctx_mask)
+        projected = self.encoder_to_decoder_mapper(enc_out)  # (B, T, D_dec)
+        # the reference gathers the context, then scatters it back into the
+        # mask-token canvas at the same positions: a select
+        dec_in = torch.where(ctx_mask[..., None], self.mask_token.to(projected.dtype), projected)
+        dec_in = dec_in + self.pos_encoding_decoder.to(dec_in.dtype)
+        dd = dec_in.shape[-1]
+        dec_in = dec_in[:, None].expand(b, n, t, dd).reshape(b * n, t, dd)
+        dec_out = self.decoder(dec_in, key_padding_mask=ctx_and_target_mask.reshape(b * n, t))
+        return self.decoder_to_encoder_mapper(dec_out).reshape(b, n, t, -1)
+
+    def _packed_predictions(self, local_features, ctx_mask, ctx_and_target_mask):
+        """Packed encoder → decoder pass → (preds_p (B·N, Pd, D_enc),
+        order_d (B, N, Pd) token indices, valid_d (B, N, Pd)).
+
+        Requires at most ``pack_encoder`` context tokens per row (the train
+        step enforces it). The decoder packs targets first (rank 0 = target,
+        1 = visible context, 2 = masked), so targets are always packed; if a
+        group sees more than ``pack_decoder`` tokens, its positionally last
+        context keys fall out."""
+        cfg = self.config
+        b, t, de = local_features.shape
+        n = ctx_and_target_mask.shape[1]
+        pe, pd = cfg.pack_encoder, cfg.pack_decoder
+
+        # encoder on the packed visible context, positions in order
+        order_e = torch.argsort(ctx_mask.to(torch.uint8), dim=-1, stable=True)[:, :pe]
+        valid_e = torch.gather(~ctx_mask, 1, order_e)
+        xe = torch.gather(local_features, 1, order_e[..., None].expand(-1, -1, de))
+        projected = self.encoder_to_decoder_mapper(self.encoder(xe, key_padding_mask=~valid_e))
+
+        # scatter into the mask-token canvas (invalid slots to row t, which
+        # is dropped), add decoder positions
+        dd = projected.shape[-1]
+        canvas = self.mask_token.to(projected.dtype).expand(b, t + 1, dd)
+        index = torch.where(valid_e, order_e, t)[..., None].expand(-1, -1, dd)
+        canvas = canvas.scatter(1, index, projected)[:, :t]
+        dec_in = canvas + self.pos_encoding_decoder.to(canvas.dtype)
+
+        # decoder on the packed context ∪ group targets, targets first
+        visible_d = ~ctx_and_target_mask
+        is_target = visible_d & ctx_mask[:, None, :]
+        rank = torch.where(is_target, 0, torch.where(visible_d, 1, 2)).to(torch.int8)
+        order_d = torch.argsort(rank, dim=-1, stable=True)[..., :pd]  # (B, N, Pd)
+        valid_d = torch.gather(visible_d, 2, order_d)
+        dec_g = torch.gather(dec_in, 1, order_d.reshape(b, n * pd, 1).expand(-1, -1, dd))
+        dec_out = self.decoder(dec_g.reshape(b * n, pd, dd),
+                               key_padding_mask=(~valid_d).reshape(b * n, pd))
+        return self.decoder_to_encoder_mapper(dec_out), order_d, valid_d
+
+    def packed_prediction_loss(self, local_features, ctx_mask, ctx_and_target_mask,
+                               targets, target_masks, return_terms: bool = False):
+        """The masked MSE in packed space: teacher targets are gathered into
+        the pack instead of predictions scattered out of it. The
+        denominator is the full target count, as the reference's.
+        ``return_terms`` returns (numerator, denominator) for exact
+        accumulation over microbatches."""
+        preds_p, order_d, valid_d = self._packed_predictions(
+            local_features, ctx_mask, ctx_and_target_mask)
+        b, n, pd = order_d.shape
+        d = targets.shape[-1]
+        tgt_p = torch.gather(targets, 1, order_d.reshape(b, n * pd, 1).expand(-1, -1, d))
+        w_p = torch.gather(target_masks, 2, order_d) & valid_d
+        diff = preds_p.reshape(b, n, pd, -1).float() - tgt_p.reshape(b, n, pd, d).float()
+        num = (diff.square().mean(dim=-1) * w_p.float()).sum()
+        den = target_masks.float().sum()
+        if return_terms:
+            return num, den
+        return num / (den + 1e-8)
+
+    # ------------------------------------------------------------ teacher
+
+    def teacher_forward(self, local_features: torch.Tensor,
+                        encoder: Optional[TransformerEncoder] = None) -> torch.Tensor:
+        """Targets: the last k raw layer outputs of ``encoder`` (the EMA
+        teacher; this model's encoder by default), no mask and no final
+        norm, each instance-normed per (layer, sample) over (T, D) with the
+        biased variance and rsqrt(var + 1e-5) in f32, then averaged."""
+        k = self.config.average_top_k_layers
+        outs = (encoder or self.encoder).layer_outputs(local_features)[-k:]
+        if k <= 1:
+            return outs[-1]
+        acc = None
+        for x in outs:
+            x32 = x.float()
+            mean = x32.mean(dim=(1, 2), keepdim=True)
+            var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
+            normed = (x32 - mean) * torch.rsqrt(var + 1e-5)
+            acc = normed if acc is None else acc + normed
+        return acc / k
+
+
+def masked_prediction_loss(preds: torch.Tensor, targets: torch.Tensor,
+                           target_indices: torch.Tensor, return_terms: bool = False):
+    """MSE over target positions in f32: per-position mean over D, weighted
+    by the (B, N, T) target mask, normalised by its count. preds
+    (B, N, T, D), targets (B, T, D)."""
+    per_t = (preds.float() - targets.float()[:, None]).square().mean(dim=-1)
+    w = target_indices.float()
+    num, den = (per_t * w).sum(), w.sum()
+    if return_terms:
+        return num, den
+    return num / (den + 1e-8)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/wavjepa_tpu_torch/lib<name>-<hash>.so`` at the root of the checkout
-and loaded with ``ctypes``. The file name carries a hash of the source and
-the flags, so an edited source is never served by a stale library. Nothing
+and loaded with ``ctypes``. The file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is never served by a stale library. Nothing
 is built when a module is imported: the first call that needs a kernel
 builds it, or ``build_all()`` builds every source at once, one ``nvcc``
 process for each, all started together.
@@ -42,8 +43,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: its name carries a hash of the source, of every
+    header in ``csrc/`` (the sources include them) and of the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

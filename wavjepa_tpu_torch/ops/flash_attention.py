@@ -1,15 +1,20 @@
-"""Masked self-attention forward: a hand-written Hopper kernel and its plain
-PyTorch version.
+"""Masked self-attention, forward and backward: hand-written Hopper kernels
+and their plain PyTorch versions.
 
-Counterpart of ``wavjepa_tpu/ops/flash_attention.py:flash_attention`` (the
-forward, ``_fwd_kernel``). The kernel is ``csrc/flash_attention_fwd.cu``; its
-source says what bounds it on the card and how its design answers that.
+Counterpart of ``wavjepa_tpu/ops/flash_attention.py:flash_attention`` and
+its custom VJP (``_fwd_kernel`` and ``_bwd_kernel``). The kernels are
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``; their
+sources say what bounds them on the card and how their design answers that.
 
 ``flash_attention(q, k, v, mask)`` keeps the JAX layout: q, k, v are
-(B, H, T, d), mask is (B, T) bool with True = ignore that key. A CUDA tensor
-always goes to the kernel (bf16 or f32, d ∈ {32, 64}; anything else raises);
-a CPU tensor goes to ``flash_attention_reference``, the same maths in plain
-PyTorch. No gradient yet: inference runs under ``torch.inference_mode()``.
+(B, H, T, d), mask is (B, T) bool with True = ignore that key. When a
+gradient is wanted it goes through ``FlashAttention``, a
+``torch.autograd.Function`` whose backward has ``_bwd_kernel``'s maths on
+both devices: P is recomputed, and a fully masked row (uniform P) keeps a
+non-zero dS, as on the TPU, where autograd through ``masked_fill`` would
+zero it. A CUDA tensor always goes to the kernels (bf16 or f32,
+d ∈ {32, 64}; anything else raises); a CPU tensor goes to the plain
+versions.
 """
 
 from __future__ import annotations
@@ -28,19 +33,41 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 
 
+def _softmax_probs(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """f32 scores scaled by d^-½, masked keys at the f32 minimum (a fully
+    masked row is uniform), f32 softmax."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.softmax(s.masked_fill(mask[:, None, None, :], NEG_INF), dim=-1)
+
+
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
-    """Plain version of the kernel's maths: f32 scores scaled by d^-½,
-    masked keys set to the f32 minimum (a fully masked row is uniform), f32
-    softmax, P rounded to the input dtype, f32-accumulated P·V, output in
-    the input dtype."""
+    """Plain version of the forward kernel's maths: P rounded to the input
+    dtype, f32-accumulated P·V, output in the input dtype."""
+    p = _softmax_probs(q, k, mask)
+    return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    do: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``_bwd_kernel``: recompute P; dV = P_loᵀ·dO;
+    dP = dO·Vᵀ; dS = P⊙(dP − rowsum(dP⊙P)) in f32 with no zeroing at
+    masked keys; dQ = d^-½·dS_lo·K and dK = d^-½·dS_loᵀ·Q, where ``_lo`` is
+    rounded to the input dtype. Returns (dq, dk, dv) in the input dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    s = s.masked_fill(mask[:, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.matmul(p.to(q.dtype).float(), v.float())
-    return o.to(q.dtype)
+    p = _softmax_probs(q, k, mask)
+    dof = do.float()
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds_lo = ds.to(q.dtype).float()
+    dq = scale * torch.matmul(ds_lo, k.float())
+    dk = scale * torch.matmul(ds_lo.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _check(q, k, v, mask) -> None:
@@ -57,44 +84,139 @@ def _check(q, k, v, mask) -> None:
         raise ValueError("q, k, v and mask must be on one device")
 
 
-def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
-) -> torch.Tensor:
-    """Fused masked self-attention; returns (B, H, T, d) in q's dtype."""
-    _check(q, k, v, mask)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, mask)
+def _check_kernel_inputs(mask: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """What the kernels take: CUDA, bf16 or f32, head_dim 32 or 64, a
+    contiguous mask and contiguous, 16-byte aligned tensors (read 16 bytes
+    at a time)."""
+    q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got {q.shape[-1]}")
+    if not mask.is_contiguous():
+        raise ValueError("mask must be contiguous")
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in tensors):
+        raise ValueError("q, k, v (and dO, stats) must be contiguous and 16-byte aligned")
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    with_stats: bool = False,
+) -> tuple[torch.Tensor, "torch.Tensor | None"]:
+    """(out, stats) from the forward kernel: stats is each query row's f32
+    (max, sum) pair, (B, H, T, 2), for the backward when ``with_stats``,
+    else None. CUDA tensors only: the CPU path is
+    ``flash_attention_reference``."""
+    _check(q, k, v, mask)
+    _check_kernel_inputs(mask, q, k, v)
     b, h, t, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got {d}")
-    if not all(x.is_contiguous() for x in (q, k, v, mask)):
-        raise ValueError("q, k, v and mask must be contiguous")
-    fn = _kernel()
     out = torch.empty_like(q)
+    stats = (torch.empty((b, h, t, 2), dtype=torch.float32, device=q.device)
+             if with_stats else None)
     with torch.cuda.device(q.device):
-        err = fn(
+        err = _fwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             b, h, t, d, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
-    flash_attention.launches += 1
-    return out
+    flash_attention_fwd.launches += 1
+    return out, stats
 
 
-flash_attention.launches = 0  # kernel launches; the CPU path never counts
+flash_attention_fwd.launches = 0  # kernel launches; the CPU path never counts
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    do: torch.Tensor, stats: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the backward kernel, given the forward's row
+    statistics. CUDA tensors only: the CPU path is
+    ``flash_attention_bwd_reference``."""
+    _check(q, k, v, mask)
+    do = do.contiguous()
+    if do.data_ptr() % 16:
+        do = do.clone()
+    b, h, t, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q: {do.dtype} {tuple(do.shape)} on {do.device}")
+    if stats.shape != (b, h, t, 2) or stats.dtype != torch.float32:
+        raise ValueError(f"stats must be f32 ({b}, {h}, {t}, 2), got "
+                         f"{stats.dtype} {tuple(stats.shape)}")
+    _check_kernel_inputs(mask, q, k, v, do, stats)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)  # kernel scratch
+    with torch.cuda.device(q.device):
+        err = _bwd_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(),
+            stats.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, t, d, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0  # kernel launches; the CPU path never counts
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with ``_bwd_kernel``'s gradient: the kernels on CUDA
+    tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        if q.device.type == "cpu":
+            out, stats = flash_attention_reference(q, k, v, mask), None
+        else:
+            out, stats = flash_attention_fwd(q, k, v, mask, with_stats=True)
+        ctx.save_for_backward(q, k, v, mask, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, stats = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_reference(q, k, v, mask, do)
+        else:
+            dq, dk, dv = flash_attention_bwd(q, k, v, mask, do, stats)
+        return dq, dk, dv, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Fused masked self-attention; returns (B, H, T, d) in q's dtype.
+    Differentiable in q, k and v through ``FlashAttention``; without a
+    gradient to keep, the forward runs alone and keeps no statistics."""
+    _check(q, k, v, mask)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, mask)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, mask)
+    return flash_attention_fwd(q, k, v, mask)[0]
 
 
 @functools.cache
-def _kernel():
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.wavjepa_flash_attention_fwd
+def _fwd_fn():
+    fn = _build.load("flash_attention_fwd").wavjepa_flash_attention_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_fn():
+    fn = _build.load("flash_attention_bwd").wavjepa_flash_attention_bwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn

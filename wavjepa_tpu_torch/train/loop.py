@@ -1,0 +1,161 @@
+"""JEPA pretraining: state set-up or resume, the step loop with a
+threaded host-to-device prefetch, checkpoints and metrics.
+
+Counterpart of ``wavjepa_tpu/train/loop.py`` on one device. Every step
+draws its crops and masks from a generator on the device seeded from
+(seed, step), so a step depends on the run's seed and its index only, as
+the JAX package folds the step into its key; resuming from a checkpoint
+therefore repeats the steps an uninterrupted run would have taken.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from pathlib import Path
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from wavjepa_tpu_torch.api.runtime import DeviceLike, resolve_device
+from wavjepa_tpu_torch.data.synthetic import synthetic_audio_batches
+from wavjepa_tpu_torch.models.jepa import JEPA
+from wavjepa_tpu_torch.train.checkpoint import CheckpointManager, write_model_config
+from wavjepa_tpu_torch.train.config import Config
+from wavjepa_tpu_torch.train.state import TrainState
+from wavjepa_tpu_torch.train.step import make_jepa_train_step, make_optimizer
+from wavjepa_tpu_torch.utils.metrics import MetricLogger, Throughput
+
+
+def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator[np.ndarray]:
+    """The run's clip batches from ``start_step`` on. Only the synthetic
+    source is ported; shards and Nat scenes raise."""
+    if cfg.data.nat_scenes:
+        raise NotImplementedError("WavJEPA-Nat scene batches have no port yet")
+    if cfg.data.synthetic or not cfg.data.data_dirs:
+        return synthetic_audio_batches(
+            cfg.trainer.batch_size, in_channels=cfg.data.in_channels,
+            seconds=cfg.data.target_seconds, sr=cfg.data.sr, seed=cfg.trainer.seed,
+            start_batch=start_step,
+        )
+    raise NotImplementedError("the WebDataset shard pipeline has no port yet")
+
+
+def prefetch_to_device(iterator: Iterator[np.ndarray], device: torch.device,
+                       size: int = 2) -> Iterator[torch.Tensor]:
+    """Host batches → device tensors, ``size`` ahead, from a background
+    thread: each batch is copied into pinned memory and sent with
+    ``non_blocking`` while the current step runs. Closing the generator
+    stops the thread."""
+    buf: queue.Queue = queue.Queue(maxsize=max(1, size))
+    done = object()
+    errors: list = []
+    stop = threading.Event()
+
+    def put(item) -> bool:  # gives up once the consumer has gone
+        while not stop.is_set():
+            try:
+                buf.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for batch in iterator:
+                x = torch.from_numpy(np.ascontiguousarray(batch))
+                if device.type == "cuda":
+                    x = x.pin_memory().to(device, non_blocking=True)
+                if not put(x):
+                    return
+        except BaseException as exc:  # re-raised on the consumer's side
+            errors.append(exc)
+        finally:
+            put(done)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = buf.get()
+            if item is done:
+                if errors:
+                    raise errors[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        while not buf.empty():  # free a producer blocked on a full queue
+            try:
+                buf.get_nowait()
+            except queue.Empty:
+                break
+        thread.join(timeout=5.0)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of one step: a function of (seed, step) only."""
+    return (seed * 1_000_003 + step) % (2**63)
+
+
+def train_jepa(
+    cfg: Config,
+    data_iter: Optional[Iterator[np.ndarray]] = None,
+    max_steps: Optional[int] = None,
+    device: DeviceLike = None,
+) -> TrainState:
+    """Run (or resume) JEPA pretraining on ``device`` (cuda unless told
+    otherwise; raises without CUDA). Returns the final TrainState."""
+    dev = resolve_device(device)
+    model_cfg = cfg.build_model_config()
+    model = JEPA(model_cfg)
+    model.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
+    model.to(dev)
+    state = TrainState.create(model, make_optimizer(cfg.optimizer, model))
+    masker, masker_cfg = cfg.masker.build()
+    step_fn = make_jepa_train_step(
+        cfg.optimizer,
+        nr_samples_per_audio=cfg.data.samples_per_audio,
+        masker=masker,
+        masker_cfg=masker_cfg,
+        ema_cfg=cfg.ema,
+        accum_steps=cfg.resolved_accum_steps(),
+    )
+
+    run_dir = Path(cfg.trainer.save_dir) / cfg.run_identity()
+    write_model_config(run_dir, model_cfg)
+    ckpt = CheckpointManager(run_dir / "ckpt", keep=cfg.trainer.keep_ckpts,
+                             every=cfg.trainer.ckpt_every)
+    if ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        print(f"resumed from step {state.step}", flush=True)
+
+    logger = MetricLogger(str(run_dir / "logs"))
+    if data_iter is None:  # built after the restore: the stream starts at the next step
+        data_iter = build_data_iterator(cfg, start_step=state.step)
+    total = max_steps if max_steps is not None else cfg.trainer.steps
+    throughput = Throughput(cfg.trainer.batch_size,
+                            cfg.trainer.batch_size * cfg.data.samples_per_audio)
+    generator = torch.Generator(device=dev)
+    batches = prefetch_to_device(data_iter, dev)
+    try:
+        while state.step < total:
+            batch = next(batches)
+            generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
+            state, metrics = step_fn(state, batch, generator)
+            throughput.step()
+            if state.step % cfg.trainer.log_every == 0 or state.step == total:
+                scalars = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                scalars.update(throughput.rates())
+                throughput.start()
+                logger.log(state.step, scalars)
+            if ckpt.save(state.step, state):
+                print(f"checkpoint @ {state.step}", flush=True)
+    finally:
+        batches.close()
+        logger.close()
+    if ckpt.latest_step() != state.step:
+        ckpt.save(state.step, state, force=True)
+    return state

@@ -1,0 +1,238 @@
+"""The JEPA train step.
+
+Counterpart of ``wavjepa_tpu/train/step.py``. One call takes a batch of 10-s
+clips through the whole step on the device:
+
+  clips → wire format to f32 → n random 2.01-s crops a clip → per-crop
+  instance norm → compute dtype → masks for the whole crop batch → packing
+  canonicalisation → loss and gradients (one pass, or summed loss
+  numerators over microbatches divided by the global target count) → clip
+  by global norm as optax does → AdamW (weight decay on every parameter) at
+  the learning rate of the step before the increment → EMA of the teacher
+  from the student encoder before the update → step + 1.
+
+``JEPATrainStep.step_on`` runs the step from given crops and masks: torch
+cannot reproduce ``jax.random``, so the tests feed both packages the same
+crops and masks through it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from wavjepa_tpu_torch.masking import TimeInverseMaskConfig, time_inverse_block_masks
+from wavjepa_tpu_torch.models.jepa import JEPA, masked_prediction_loss
+from wavjepa_tpu_torch.ops.audio import instance_normalize, random_crops, wire_to_f32
+from wavjepa_tpu_torch.ops.transformer import TransformerEncoder
+from wavjepa_tpu_torch.train.schedule import ema_decay_schedule, warmup_cosine_schedule
+from wavjepa_tpu_torch.train.state import TrainState, ema_update
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """configs/optimizer/adamW.yaml + Lightning trainer flags."""
+
+    lr: float = 4e-4
+    b1: float = 0.9
+    b2: float = 0.98
+    eps: float = 1e-6
+    weight_decay: float = 0.04
+    grad_clip: float = 5.0
+    warmup_steps: int = 100_000
+    total_steps: int = 375_000
+
+
+@dataclasses.dataclass(frozen=True)
+class EMAConfig:
+    start_decay: float = 0.999
+    end_decay: float = 0.99999
+    anneal_end_step: int = 100_000
+
+
+@dataclasses.dataclass(frozen=True)
+class NatSceneConfig:
+    """Scene synthesis for WavJEPA-Nat: not ported yet."""
+
+    with_rir: bool = True
+    with_noise: bool = True
+    n_channels: int = 2
+    original_sr: int = 32000
+
+    def __post_init__(self):
+        raise NotImplementedError("WavJEPA-Nat scene synthesis has no port yet")
+
+
+def make_optimizer(cfg: OptimizerConfig, model: torch.nn.Module) -> torch.optim.AdamW:
+    """AdamW over every parameter of ``model`` in one group, weight decay
+    included (``optax.adamw`` with no mask): the same update as optax's,
+    eps outside the square root. The train step sets the group's learning
+    rate from the warmup-cosine schedule before each update."""
+    return torch.optim.AdamW(
+        model.parameters(), lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+        weight_decay=cfg.weight_decay,
+    )
+
+
+def jepa_loss_fn(
+    model: JEPA,
+    teacher_encoder: TransformerEncoder,
+    crops: torch.Tensor,
+    ctx_mask: torch.Tensor,
+    target_masks: torch.Tensor,
+    visible_masks: torch.Tensor,
+    return_terms: bool = False,
+):
+    """Student prediction loss against the teacher's targets. The student's
+    features are computed once; the teacher runs them, detached, through
+    its own encoder without a gradient. ``return_terms`` gives the
+    unreduced (numerator, denominator)."""
+    feats = model.encode_features(crops)
+    with torch.no_grad():
+        targets = model.teacher_forward(feats.detach(), teacher_encoder)
+    if model.config.pack_encoder is not None:
+        return model.packed_prediction_loss(feats, ctx_mask, visible_masks, targets,
+                                            target_masks, return_terms)
+    preds = model.student_forward(feats, ctx_mask, visible_masks)
+    return masked_prediction_loss(preds, targets, target_masks, return_terms)
+
+
+def canonicalize_for_packing(ctx_mask: torch.Tensor, target_masks: torch.Tensor,
+                             pack_encoder: int, channels: int = 1):
+    """Flip context-visible tokens past the ``pack_encoder`` budget to
+    masked (per channel for channel-tiled masks, whose copies stay equal),
+    and rebuild the predictor's masks as ctx XOR targets. Idempotent."""
+    if channels > 1:
+        vis = (~ctx_mask).reshape(ctx_mask.shape[0], channels, -1)
+        over = (vis.cumsum(dim=-1) > pack_encoder // channels).reshape(ctx_mask.shape)
+    else:
+        over = (~ctx_mask).cumsum(dim=-1) > pack_encoder
+    ctx_mask = ctx_mask | over
+    return ctx_mask, ctx_mask[:, None, :] ^ target_masks
+
+
+MaskerFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+class JEPATrainStep:
+    """``step(state, audio, generator) -> (state, metrics)``; see the module
+    docstring for the order. ``state`` is updated in place and returned.
+    ``metrics`` holds ``loss`` and ``grad_norm`` (the norm before clipping)
+    as device tensors, and ``lr`` and ``ema_decay`` as floats."""
+
+    def __init__(
+        self,
+        opt_cfg: OptimizerConfig,
+        nr_samples_per_audio: int = 8,
+        masker: Optional[MaskerFn] = None,
+        masker_cfg: Any = None,
+        ema_cfg: EMAConfig = EMAConfig(),
+        accum_steps: int = 1,
+    ):
+        self.grad_clip = opt_cfg.grad_clip
+        self.lr_schedule = warmup_cosine_schedule(opt_cfg.lr, opt_cfg.warmup_steps,
+                                                  opt_cfg.total_steps)
+        self.ema_schedule = ema_decay_schedule(ema_cfg.start_decay, ema_cfg.end_decay,
+                                               ema_cfg.anneal_end_step)
+        self.n_crops = nr_samples_per_audio
+        self.masker = masker or time_inverse_block_masks
+        self.masker_cfg = masker_cfg if masker_cfg is not None else TimeInverseMaskConfig()
+        self.accum_steps = accum_steps
+
+    def __call__(self, state: TrainState, audio: torch.Tensor, generator: torch.Generator,
+                 rir_bank=None):
+        if rir_bank is not None:
+            raise NotImplementedError("WavJEPA-Nat scene banks have no port yet")
+        crops, ctx_mask, target_masks, visible_masks = self.prepare(
+            state.model.config, audio, generator)
+        return self.step_on(state, crops, ctx_mask, target_masks, visible_masks)
+
+    def prepare(self, cfg, audio: torch.Tensor, generator: torch.Generator):
+        """(B, C, L) or (B, L) clips → crops (B·n, C, crop) in ``cfg.dtype``
+        and masks for the whole crop batch, drawn from ``generator``."""
+        audio = wire_to_f32(audio)
+        if audio.dim() == 2:
+            audio = audio[:, None, :]
+        crops = random_crops(generator, audio, cfg.target_length, self.n_crops)
+        crops = instance_normalize(crops, dims=(-2, -1))
+        b, s, c, length = crops.shape
+        crops = crops.reshape(b * s, c, length).to(cfg.dtype)
+        ctx_mask, target_masks, visible_masks = self.masker(
+            generator, batch_size=b * s, n_times=cfg.total_patches,
+            in_channels=cfg.in_channels, cfg=self.masker_cfg,
+        )
+        return crops, ctx_mask, target_masks, visible_masks
+
+    def step_on(self, state: TrainState, crops, ctx_mask, target_masks, visible_masks):
+        model, cfg = state.model, state.model.config
+        if cfg.pack_encoder is not None:
+            chans = cfg.in_channels if self.masker_cfg.channel_based_masking else 1
+            ctx_mask, visible_masks = canonicalize_for_packing(
+                ctx_mask, target_masks, cfg.pack_encoder, chans)
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        n_rows = crops.shape[0]
+        if self.accum_steps > 1:
+            if n_rows % self.accum_steps:
+                raise ValueError(f"crop batch {n_rows} not divisible by "
+                                 f"accum_steps={self.accum_steps}")
+            mb = n_rows // self.accum_steps
+            num_sum = den_sum = 0.0
+            for i in range(self.accum_steps):
+                part = slice(i * mb, (i + 1) * mb)
+                num, den = jepa_loss_fn(model, state.teacher_encoder, crops[part],
+                                        ctx_mask[part], target_masks[part],
+                                        visible_masks[part], return_terms=True)
+                num.backward()  # the gradients sum ∇num over microbatches
+                num_sum = num_sum + num.detach()
+                den_sum = den_sum + den
+            inv = 1.0 / (den_sum + 1e-8)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+            loss = num_sum * inv
+        else:
+            loss = jepa_loss_fn(model, state.teacher_encoder, crops, ctx_mask,
+                                target_masks, visible_masks)
+            loss.backward()
+            loss = loss.detach()
+        for p in params:  # optax decays every parameter, with or without a gradient
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+
+        # clip by global norm as optax does: t / ‖g‖ · max only when ‖g‖ ≥ max
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        keep = g_norm < self.grad_clip
+        torch._foreach_div_(grads, torch.where(keep, torch.ones_like(g_norm), g_norm))
+        torch._foreach_mul_(grads, torch.where(keep, 1.0, self.grad_clip).to(g_norm))
+
+        # EMA from the student encoder before its update, then the update
+        decay = self.ema_schedule(state.step)
+        ema_update(state.teacher_encoder, model.encoder, decay)
+        lr = self.lr_schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss, "ema_decay": decay, "lr": lr, "grad_norm": g_norm}
+
+
+def make_jepa_train_step(
+    opt_cfg: OptimizerConfig,
+    nr_samples_per_audio: int = 8,
+    masker: Optional[MaskerFn] = None,
+    masker_cfg: Any = None,
+    ema_cfg: EMAConfig = EMAConfig(),
+    scene_cfg: Optional[NatSceneConfig] = None,
+    accum_steps: int = 1,
+) -> JEPATrainStep:
+    """The train step for a run; ``accum_steps > 1`` splits the crop batch
+    into that many microbatches, exactly."""
+    if scene_cfg is not None:
+        raise NotImplementedError("WavJEPA-Nat scene synthesis has no port yet")
+    return JEPATrainStep(opt_cfg, nr_samples_per_audio, masker, masker_cfg, ema_cfg,
+                         accum_steps)

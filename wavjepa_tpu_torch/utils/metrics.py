@@ -1,0 +1,65 @@
+"""Training metrics: JSON lines, console lines, and throughput.
+
+Counterpart of ``wavjepa_tpu/utils/metrics.py`` without a TensorBoard
+writer. ``Throughput`` counts clips (what a data loader delivers) and crops
+(what the model trains on) apart: each clip yields ``samples_per_audio``
+crops.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Optional
+
+
+class MetricLogger:
+    """Appends ``{"step": N, ...}`` to ``<log_dir>/metrics.jsonl`` and
+    prints ``[step N] key=value ...``."""
+
+    def __init__(self, log_dir: Optional[str] = None):
+        self._jsonl = None
+        if log_dir:
+            Path(log_dir).mkdir(parents=True, exist_ok=True)
+            self._jsonl = open(Path(log_dir) / "metrics.jsonl", "a")
+
+    def log(self, step: int, metrics: dict) -> None:
+        scalars = {k: float(v) for k, v in metrics.items()}
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps({"step": step, **scalars}) + "\n")
+            self._jsonl.flush()
+        parts = " ".join(f"{k}={v:.5g}" for k, v in scalars.items())
+        print(f"[step {step}] {parts}", flush=True)
+
+    def close(self) -> None:
+        if self._jsonl is not None:
+            self._jsonl.close()
+            self._jsonl = None
+
+
+class Throughput:
+    """Clips and crops a second, and the mean step time, since ``start``,
+    on the host clock. Read it after the device has finished the steps
+    counted (the train loop reads it after fetching the metrics)."""
+
+    def __init__(self, clips_per_step: int, crops_per_step: int):
+        self.clips_per_step = clips_per_step
+        self.crops_per_step = crops_per_step
+        self._t0 = time.perf_counter()
+        self._steps = 0
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+        self._steps = 0
+
+    def step(self) -> None:
+        self._steps += 1
+
+    def rates(self) -> dict:
+        elapsed = max(time.perf_counter() - self._t0, 1e-9)
+        return {
+            "clips_per_sec": self.clips_per_step * self._steps / elapsed,
+            "crops_per_sec": self.crops_per_step * self._steps / elapsed,
+            "step_time_ms": 1000.0 * elapsed / max(self._steps, 1),
+        }
