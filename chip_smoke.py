@@ -12,13 +12,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             the shapes the serving and training paths give it, in bf16 and
             f32, and time kernel, plain version, one PyTorch library call,
             and the bound; the backward also with a fully masked row, whose
-            dq must be non-zero and equal the plain version's;
+            dq must be non-zero and equal the plain version's; the fused
+            block (forward and backward, weight gradients too) likewise at
+            the decoder's, the encoder's and serving's shapes, its backward
+            twice with equal bits;
 3. serve    load the HEAR runtime at base width with seeded random weights
             and answer requests: scene embeddings of 8 clips of 10 s,
             timestamp embeddings of a ragged batch (1.0, 2.01, 4.3, 30 s) and
             of one clip of exactly one window (32159 samples), and the whole-clip config (T=999) on
             4 clips of 10 s; check shapes, finiteness and that the attention
             kernel ran exactly once per encoder layer per request;
+3b. serve fused  the same requests and weights with ``attn_impl="fused_block"``:
+            the fused forward once per encoder layer, flash attention never,
+            and embeddings within 5e-2 (relative Frobenius) of phase 3's;
+            then both paths timed in turns on the same clips;
 4. parity   the same weights in f32 on the card (TF32 off) and on the CPU, and
             bf16 on the card against that f32 result;
 5. train    ``train_jepa`` on the AudioSet configuration as resolved (base
@@ -27,10 +34,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             teacher moving less than the student, exactly 36·a forward and
             24·a backward kernel launches a step (a microbatches), the
             checkpoint and its model_config.json, and a HEAR request served
-            from that checkpoint; then a few steps in one pass (accum 1);
+            from that checkpoint (bf16, unpacked); then a few steps in one
+            pass (accum 1);
+5b. train fused  the same with ``trainer.attn_impl_decoder=fused_block``:
+            12·a fused forward and backward launches a step, 24·a flash
+            forward and 12·a flash backward, and the override kept in the
+            checkpoint's model_config.json;
 6. train parity  one step from the same injected crops and masks at base
             width in f32 on the card (TF32 off) and on the CPU, and in bf16
-            on the card against that f32 step.
+            on the card against that f32 step;
+6b. train parity fused  the same with ``attn_impl="fused_block"`` (encoder,
+            teacher and predictor), and its f32 loss against phase 6's.
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -75,6 +89,14 @@ STEP_TEACHER_ATOL = 1e-6
 STEP_BF16_LOSS_REL = 5e-2  # bf16 step vs f32 step on the card, loss
 TRAIN_STEPS, TRAIN_WARMUP = 6, 2  # train phase: steps, and those left out of the p50
 TRAIN_STEPS_ONE_PASS = 3
+# the fused block against its plain version, relative to max(1, max |plain|):
+# bf16 two roundings (qkv, then o) ahead of the last product, each of which
+# the plain version may round the other way, then the output's own rounding;
+# f32 four chained products and weight gradients summed over up to 131k rows,
+# in another order
+FUSED_BF16_REL = 2e-2
+FUSED_F32_REL = 1e-4
+FUSED_PATH_LOSS_REL = 1e-4  # f32 step, fused path vs the default path, loss
 
 # (name, B, H, T): the windowed batch of 8 clips of 10 s (40 windows of 200
 # tokens), the whole-clip batch of 4 clips of 10 s (each gains a fully padded
@@ -86,6 +108,23 @@ ATTN_SHAPES = [
     ("large_windowed", 4, 16, 200),
 ]
 HEAD_DIM = 64
+# (name, B, T, D, heads) of the fused block: the packed decoder (4 groups a
+# crop) for one of 16 microbatches and for the whole batch (head_dim 32),
+# serving's windowed and whole-clip batches, the packed student encoder's
+# microbatch (head_dim 64) and the large model's windowed batch (16 heads of
+# 64); the backward also at a T that is not a multiple of the 64-row tiles,
+# and at an odd number of rows, which leaves the weight gradients' last
+# 32-row slice part empty
+FUSED_FWD_SHAPES = [
+    ("decoder_mb", 64, 128, 384, 12), ("decoder", 1024, 128, 384, 12),
+    ("windowed", 40, 200, 768, 12), ("whole_clip", 8, 999, 768, 12),
+    ("student_encoder_mb", 16, 88, 768, 12), ("large_windowed", 4, 200, 1024, 16),
+]
+FUSED_BWD_SHAPES = [
+    ("decoder_mb", 64, 128, 384, 12), ("decoder", 1024, 128, 384, 12),
+    ("student_encoder_mb", 16, 88, 768, 12), ("ragged_t100", 16, 100, 768, 12),
+    ("odd_rows", 3, 99, 384, 12),
+]
 # the training path's attention, AudioSet configuration (256 crops): the
 # packed student encoder, the packed decoder (4 groups a crop) and the
 # teacher, for the whole batch and for one of its 16 microbatches; the
@@ -279,16 +318,168 @@ def phase_train_kernels() -> tuple[list[dict], list[dict]]:
     return fwd_rows, bwd_rows
 
 
+def fused_bound(b: int, t: int, d: int, elem: int, backward: bool) -> tuple[float, str]:
+    """Least time for the fused block. Forward: x read and out written once,
+    the weights (4·D²) and the mask read once, against 8·B·T·D² operations
+    for the projections and 4·B·T²·D for attention. Backward: x and g read,
+    dx written, the weights read and their f32 gradients written, against
+    22·B·T·D² (the recomputed QKV, dO, dx, dWqkv, dWo) and 12·B·T²·D (the
+    recomputed Q·Kᵀ and P·V, then dP, dV, dQ, dK)."""
+    if backward:
+        bytes_moved = 3 * b * t * d * elem + 4 * d * d * (elem + 4) + b * t
+        ops = 22 * b * t * d * d + 12 * b * t * t * d
+    else:
+        bytes_moved = 2 * b * t * d * elem + 4 * d * d * elem + b * t
+        ops = 8 * b * t * d * d + 4 * b * t * t * d
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fused_inputs(b, t, d, heads, seed):
+    """x, the kernel-layout weights (scaled so that activations stay near
+    unit size), a mask with a fully masked first row and a clean last row,
+    and an upstream gradient g, drawn on the card in f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hd = d // heads
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    x, grad = rnd(b, t, d), rnd(b, t, d)
+    weights = [rnd(heads, d, 3 * hd) / d ** 0.5, 0.1 * rnd(heads, 1, 3 * hd),
+               rnd(heads, hd, d) / d ** 0.5, 0.1 * rnd(1, d)]
+    mask = torch.rand(b, t, generator=g, device="cuda") < 0.3
+    mask[0] = True
+    mask[-1] = False
+    return x, weights, mask, grad
+
+
+def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
+    """The fused block's kernels against their plain versions, and against
+    one library chain: F.linear, SDPA with the same boolean mask, F.linear
+    (the port never calls it)."""
+    from wavjepa_tpu_torch.ops import fused_attention_block as fab
+
+    F = torch.nn.functional
+
+    def torch_layout(wqkv, bqkv, wo, bo):
+        """The block's weights as F.linear takes them."""
+        heads, d, hd3 = wqkv.shape
+        w_in = wqkv.reshape(heads, d, 3, hd3 // 3).permute(2, 0, 3, 1).reshape(3 * d, d)
+        b_in = bqkv.reshape(heads, 3, hd3 // 3).permute(1, 0, 2).reshape(3 * d)
+        return [w.contiguous() for w in (w_in, b_in, wo.reshape(d, d).t(), bo.reshape(d))]
+
+    def library_chain(x, w_in, b_in, w_out, bo, keep, heads):
+        b, t, d = x.shape
+        qkv = F.linear(x, w_in, b_in).view(b, t, 3, heads, d // heads)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        return F.linear(o.transpose(1, 2).reshape(b, t, d), w_out, bo)
+
+    def check(name, key, outs, refs, rel, row):
+        """Records max |kernel − plain| over the outputs, and its largest
+        ratio to max(1, max |plain|) of the same output; raises past rel."""
+        errs, ratios = [], []
+        names = ("out",) if len(outs) == 1 else ("dx", "dwqkv", "dbqkv", "dwo", "dbo")
+        for gname, o, r in zip(names, outs, refs):
+            err, ok = scaled_err(o, r, rel)
+            if not torch.isfinite(o).all() or not ok or o.shape != r.shape:
+                raise AssertionError(f"{name} {key} {gname}: max |kernel - plain| {err}")
+            errs.append(err)
+            ratios.append(err / max(1.0, r.float().abs().max().item()))
+        row[f"max_abs_err_{key}"], row[f"scaled_err_{key}"] = max(errs), max(ratios)
+
+    fwd_rows = []
+    for i, (name, b, t, d, heads) in enumerate(FUSED_FWD_SHAPES):
+        x, weights, mask, _ = fused_inputs(b, t, d, heads, seed=300 + i)
+        row = {"shape": name, "B": b, "T": t, "D": d, "H": heads, "hd": d // heads}
+        for dtype, rel, key in ((torch.float32, FUSED_F32_REL, "f32"),
+                                (torch.bfloat16, FUSED_BF16_REL, "bf16")):
+            xx, (w1, b1, w2, b2) = x.to(dtype), [w.to(dtype) for w in weights]
+            out = fab.fused_attention_block_fwd(xx, w1, b1, w2, b2, mask)
+            ref = fab.fused_attention_block_reference(xx, w1, b1, w2, b2, mask)
+            torch.cuda.synchronize()
+            check(f"fused fwd {name}", key, [out], [ref], rel, row)
+        row["ms"] = cuda_ms(lambda: fab.fused_attention_block_fwd(xx, w1, b1, w2, b2, mask))
+        row["plain_ms"] = cuda_ms(lambda: fab.fused_attention_block_reference(
+            xx, w1, b1, w2, b2, mask))
+        lib_w = torch_layout(w1, b1, w2, b2)
+        row["library_ms"] = cuda_ms(lambda: library_chain(xx, *lib_w, ~mask[:, None, None, :],
+                                                          heads))
+        row["bound_ms"], row["bound_by"] = fused_bound(b, t, d, 2, backward=False)
+        print(f"[kernels] fused_attention_block_fwd {name} (B={b}, T={t}, D={d}, H={heads}): "
+              f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g} (scaled "
+              f"{row['scaled_err_f32']:.3g} / {row['scaled_err_bf16']:.3g}); "
+              f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"linear+sdpa+linear {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        fwd_rows.append(row)
+
+    bwd_rows = []
+    for i, (name, b, t, d, heads) in enumerate(FUSED_BWD_SHAPES):
+        x, weights, mask, grad = fused_inputs(b, t, d, heads, seed=400 + i)
+        row = {"shape": name, "B": b, "T": t, "D": d, "H": heads, "hd": d // heads}
+        for dtype, rel, key in ((torch.float32, FUSED_F32_REL, "f32"),
+                                (torch.bfloat16, FUSED_BF16_REL, "bf16")):
+            xx, gg = x.to(dtype), grad.to(dtype)
+            w1, b1, w2, _ = (w.to(dtype) for w in weights)
+            grads = fab.fused_attention_block_bwd(xx, w1, b1, w2, mask, gg)
+            again = fab.fused_attention_block_bwd(xx, w1, b1, w2, mask, gg)
+            refs = fab.fused_attention_block_bwd_reference(xx, w1, b1, w2, mask, gg)
+            torch.cuda.synchronize()
+            check(f"fused bwd {name}", key, grads, refs, rel, row)
+            if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+                raise AssertionError(f"fused bwd {name} {key}: two calls differ")
+            # the fully masked row keeps its dS: its dx is the plain version's
+            row0_err, ok = scaled_err(grads[0][0], refs[0][0], rel)
+            if not ok:
+                raise AssertionError(f"fused bwd {name} {key}: fully masked row dx ({row0_err})")
+            row[f"masked_row_dx_err_{key}"] = row0_err
+        row["deterministic"] = True
+        row["ms"] = cuda_ms(lambda: fab.fused_attention_block_bwd(xx, w1, b1, w2, mask, gg))
+        row["plain_ms"] = cuda_ms(lambda: fab.fused_attention_block_bwd_reference(
+            xx, w1, b1, w2, mask, gg))
+        # the library chain's backward: autograd through it less its forward,
+        # timed in the same turn (derived, not one call)
+        leaves = [a.detach().requires_grad_(True)
+                  for a in (xx, *torch_layout(w1, b1, w2, weights[3].to(torch.bfloat16)))]
+        keep = ~mask[:, None, None, :]
+        fwd_ms = cuda_ms(lambda: library_chain(*leaves, keep, heads))
+        both_ms = cuda_ms(lambda: torch.autograd.grad(library_chain(*leaves, keep, heads),
+                                                      leaves, gg))
+        row["library_ms"] = both_ms - fwd_ms
+        row["library_fwd_bwd_ms"], row["library_fwd_ms"] = both_ms, fwd_ms
+        row["bound_ms"], row["bound_by"] = fused_bound(b, t, d, 2, backward=True)
+        print(f"[kernels] fused_attention_block_bwd {name} (B={b}, T={t}, D={d}, H={heads}): "
+              f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g} (scaled "
+              f"{row['scaled_err_f32']:.3g} / {row['scaled_err_bf16']:.3g}, masked row dx "
+              f"{row['masked_row_dx_err_bf16']:.3g}), bitwise repeatable; bf16 "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, chain bwd (derived) "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+        bwd_rows.append(row)
+    return fwd_rows, bwd_rows
+
+
 def make_clips(seconds: list[float], seed: int, sr: int = 16000) -> list[np.ndarray]:
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(int(round(s * sr))).astype(np.float32) * 0.1
             for s in seconds]
 
 
-def phase_serve(fa_fwd, load_model, chunk_padding) -> tuple[dict, object]:
-    windowed = load_model("", model_size="base", seed=0)
-    whole = load_model("", model_size="base", process_seconds=10.0, seed=0)
+def phase_serve(counted, idle, load_model, chunk_padding, config=None,
+                reference=None) -> tuple[dict, object, dict]:
+    """The HEAR requests at base width with the weights of seed 0, on the
+    default path or, given ``config``, on its path: ``counted`` must launch
+    once per encoder layer per request and ``idle`` never. With
+    ``reference`` (phase 3's embeddings) each request's embeddings are held
+    to them. Returns the record, the requests (name, runtime, kind, clips)
+    and the embeddings."""
+    if config is None:
+        windowed = load_model("", model_size="base", seed=0)
+        whole = load_model("", model_size="base", process_seconds=10.0, seed=0)
+    else:
+        windowed = load_model("", config=config, seed=0)
+        whole = load_model("", config=dataclasses.replace(config, process_seconds=10.0), seed=0)
     layers = windowed.config.encoder_layers
+    tag = "serve" if config is None else f"serve {config.attn_impl}"
     requests = [
         ("scene_8x10s", windowed, "scene", make_clips([10.0] * 8, 1)),
         ("timestamps_ragged", windowed, "timestamps", make_clips([1.0, 2.01, 4.3, 30.0], 2)),
@@ -298,20 +489,17 @@ def phase_serve(fa_fwd, load_model, chunk_padding) -> tuple[dict, object]:
         ("whole_clip_4x10s", whole, "timestamps", make_clips([10.0] * 4, 4)),
     ]
 
-    def run(rt, kind, clips):
-        if kind == "scene":
-            return rt.get_scene_embeddings(clips), None
-        return rt.get_timestamp_embeddings(clips)
-
-    record = {}
-    fa_fwd.launches = 0  # the main path's run starts here
+    record, outputs = {}, {}
+    counted.launches = idle.launches = 0  # the main path's run starts here
     for name, rt, kind, clips in requests:
-        before = fa_fwd.launches
-        emb, ts = run(rt, kind, clips)
+        before = counted.launches
+        emb, ts = serve_request(rt, kind, clips)
         torch.cuda.synchronize()
-        if fa_fwd.launches - before != layers:
-            raise AssertionError(f"{name}: {fa_fwd.launches - before} kernel launches, "
-                                 f"expected {layers} (one per encoder layer)")
+        if counted.launches - before != layers or idle.launches:
+            raise AssertionError(f"{name}: {counted.launches - before} kernel launches, "
+                                 f"expected {layers} (one per encoder layer), and "
+                                 f"{idle.launches} of the other attention kernel")
+        outputs[name] = emb
         n = max(len(c) for c in clips)
         _, n_chunks, cut_off, _ = chunk_padding(n, rt.unit_frames, rt.sample_rate,
                                                 rt.output_steps)
@@ -334,7 +522,7 @@ def phase_serve(fa_fwd, load_model, chunk_padding) -> tuple[dict, object]:
         times = []
         for i in range(12):
             t0 = time.perf_counter()
-            run(rt, kind, clips)
+            serve_request(rt, kind, clips)
             torch.cuda.synchronize()
             if i >= 2:  # two warm-up requests
                 times.append((time.perf_counter() - t0) * 1e3)
@@ -343,16 +531,53 @@ def phase_serve(fa_fwd, load_model, chunk_padding) -> tuple[dict, object]:
             "tokens_per_window": rt.output_steps,
             "p50_ms": statistics.median(times), "n": len(times),
         }
-        print(f"[serve] {name}: out {tuple(emb.shape)}, {len(clips) * n_chunks} windows of "
+        vs = ""
+        if reference is not None:  # bf16 on both paths, the same weights
+            rel = (torch.linalg.norm(emb - reference[name]) / torch.linalg.norm(reference[name])).item()
+            if not rel <= BF16_REL_FRO:
+                raise AssertionError(f"{name}: relative Frobenius {rel} to the default path")
+            record[name]["rel_fro_vs_default"] = rel
+            vs = f", relative Frobenius to phase 3 {rel:.4g} (limit {BF16_REL_FRO})"
+        print(f"[{tag}] {name}: out {tuple(emb.shape)}, {len(clips) * n_chunks} windows of "
               f"{rt.output_steps} tokens, p50 {record[name]['p50_ms']:.3f} ms "
-              f"over {len(times)} requests", flush=True)
-    launches = fa_fwd.launches  # read just after the main path
+              f"over {len(times)} requests{vs}", flush=True)
+    launches, idle_launches = counted.launches, idle.launches  # read just after the main path
     expected = layers * 13 * len(requests)
-    if launches != expected:
-        raise AssertionError(f"main path launched the kernel {launches} times, not {expected}")
+    if launches != expected or idle_launches:
+        raise AssertionError(f"main path launched the kernel {launches} times, not {expected}, "
+                             f"and the other attention kernel {idle_launches} times")
     record["launches"] = launches
     record["launches_per_encoder_forward"] = layers
-    return record, windowed
+    return record, requests, outputs
+
+
+def serve_request(rt, kind, clips):
+    if kind == "scene":
+        return rt.get_scene_embeddings(clips), None
+    return rt.get_timestamp_embeddings(clips)
+
+
+def phase_serve_turns(default_requests, fused_requests) -> dict:
+    """Request p50 of both attention paths timed in turns on the same clips
+    (default, fused, then fused, default, ...), so that the host's drift
+    falls on both; these launches compare the paths and are not counted."""
+    record = {}
+    for (name, rt_d, kind, clips), (_, rt_f, _, _) in zip(default_requests, fused_requests):
+        times = {"default": [], "fused_block": []}
+        for i in range(14):
+            turn = [("default", rt_d), ("fused_block", rt_f)]
+            for key, rt in turn if i % 2 == 0 else turn[::-1]:
+                t0 = time.perf_counter()
+                serve_request(rt, kind, clips)
+                torch.cuda.synchronize()
+                if i >= 2:  # two warm-up turns
+                    times[key].append((time.perf_counter() - t0) * 1e3)
+        record[name] = {f"{k}_p50_ms": statistics.median(v) for k, v in times.items()}
+        record[name]["n"] = len(times["default"])
+        print(f"[serve turns] {name}: p50 default {record[name]['default_p50_ms']:.3f} ms, "
+              f"fused_block {record[name]['fused_block_p50_ms']:.3f} ms over "
+              f"{record[name]['n']} requests each, in turns", flush=True)
+    return record
 
 
 def phase_parity(load_model, JEPAConfig, bf16_runtime) -> dict:
@@ -379,10 +604,11 @@ def encoder_weights(model) -> dict:
     return {k: v.detach().float().cpu().clone() for k, v in model.encoder.state_dict().items()}
 
 
-def phase_train(fa_fwd, fa_bwd) -> dict:
-    """train_jepa on the AudioSet configuration as resolved, then in one
-    pass; the launch counts are set to 0 just before each run and read just
-    after it."""
+def phase_train(counters: dict, runs: list) -> dict:
+    """train_jepa on the AudioSet configuration as resolved, once per run
+    (name, overrides, steps, launches of each counted wrapper a microbatch,
+    whether to serve from its checkpoint); the launch counts are set to 0
+    just before each run and read just after it."""
     import shutil
 
     from wavjepa_tpu_torch.api.runtime import load_model
@@ -391,8 +617,7 @@ def phase_train(fa_fwd, fa_bwd) -> dict:
     from wavjepa_tpu_torch.train.loop import train_jepa
 
     record = {}
-    for name, extra, steps in (("accum_auto", [], TRAIN_STEPS),
-                               ("accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS_ONE_PASS)):
+    for name, extra, steps, per_microbatch, serve in runs:
         save_dir = os.path.join("build", "chip_smoke_train", name)
         shutil.rmtree(save_dir, ignore_errors=True)
         # the warmup is cut to 2 steps so that these few steps take real
@@ -407,14 +632,16 @@ def phase_train(fa_fwd, fa_bwd) -> dict:
         start = encoder_weights(init)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa_fwd.launches = fa_bwd.launches = 0  # the main path's run starts here
+        for counter in counters.values():  # the main path's run starts here
+            counter.launches = 0
         state = train_jepa(cfg, max_steps=steps, device="cuda")
         torch.cuda.synchronize()
-        fwd, bwd = fa_fwd.launches, fa_bwd.launches  # read just after
+        launches = {k: c.launches for k, c in counters.items()}  # read just after
         peak = torch.cuda.max_memory_allocated()
-        if (fwd, bwd) != (36 * a * steps, 24 * a * steps):
-            raise AssertionError(f"{name}: {fwd} forward and {bwd} backward launches, expected "
-                                 f"{36 * a * steps} and {24 * a * steps} ({a} microbatches)")
+        expected = {k: n * a * steps for k, n in per_microbatch.items()}
+        if launches != expected:
+            raise AssertionError(f"{name}: launches {launches}, expected {expected} "
+                                 f"({a} microbatches)")
         run_dir = os.path.join(save_dir, cfg.run_identity())
         with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
             lines = [json.loads(line) for line in f]
@@ -437,10 +664,11 @@ def phase_train(fa_fwd, fa_bwd) -> dict:
             "step_ms": [line["step_time_ms"] for line in lines], "step_p50_ms": p50,
             "clips_per_s": b / (p50 / 1e3),
             "crops_per_s": b * cfg.data.samples_per_audio / (p50 / 1e3),
-            "max_memory_allocated_bytes": peak, "launches_fwd": fwd, "launches_bwd": bwd,
+            "max_memory_allocated_bytes": peak, "launches": launches,
             "student_encoder_moved": d_student, "teacher_moved": d_teacher,
+            "attn_impl": model_cfg.attn_impl, "attn_impl_decoder": model_cfg.attn_impl_decoder,
         }
-        if name == "accum_auto":
+        if serve:
             ckpt = os.path.join(run_dir, "ckpt", f"step_{steps:08d}.ckpt")
             if not (os.path.isfile(ckpt) and os.path.isfile(os.path.join(run_dir,
                                                                           "model_config.json"))):
@@ -450,7 +678,11 @@ def phase_train(fa_fwd, fa_bwd) -> dict:
             torch.cuda.synchronize()
             if tuple(emb.shape) != (2, rt.embedding_size) or not torch.isfinite(emb).all():
                 raise AssertionError(f"{name}: served {tuple(emb.shape)} from the checkpoint")
-            if rt.config.dtype != torch.bfloat16 or rt.config.pack_encoder != model_cfg.pack_encoder:
+            # served as the JAX package serves a sidecar: bf16, unpacked,
+            # with the run's attention choices
+            if (rt.config.dtype != torch.bfloat16 or rt.config.pack_encoder is not None
+                    or rt.config.pack_decoder is not None
+                    or rt.config.attn_impl_decoder != model_cfg.attn_impl_decoder):
                 raise AssertionError(f"{name}: sidecar not read ({rt.config})")
             rec["served_from_checkpoint"] = list(emb.shape)
         shutil.rmtree(save_dir)  # ~1.7 GB of base-width checkpoint
@@ -460,12 +692,12 @@ def phase_train(fa_fwd, fa_bwd) -> dict:
               f"{', '.join(f'{x:.5f}' for x in losses)}; step p50 {p50:.1f} ms "
               f"(after {TRAIN_WARMUP} warm-up steps), {rec['clips_per_s']:.2f} clips/s, "
               f"{rec['crops_per_s']:.1f} crops/s, peak memory {peak / 2**30:.2f} GiB; "
-              f"launches fwd {fwd} bwd {bwd}; teacher moved {d_teacher:.4g} < student "
+              f"launches {launches}; teacher moved {d_teacher:.4g} < student "
               f"{d_student:.4g}", flush=True)
     return record
 
 
-def phase_train_parity() -> dict:
+def phase_train_parity(overrides: tuple = (), tag: str = "train parity") -> dict:
     """One injected step at base width: f32 on the card against the CPU,
     then bf16 on the card against that f32 step."""
     from wavjepa_tpu_torch.models.jepa import JEPA
@@ -475,7 +707,7 @@ def phase_train_parity() -> dict:
     from wavjepa_tpu_torch.train.step import OptimizerConfig, make_jepa_train_step, make_optimizer
 
     cfg = apply_overrides(Config(), ["trainer.precision=f32", "trainer.batch_size=1",
-                                     "data.samples_per_audio=2"])
+                                     "data.samples_per_audio=2", *overrides])
     f32_cfg = cfg.build_model_config()  # base width, packing 88/128, one pass
     opt_cfg = OptimizerConfig(warmup_steps=1)  # step 1: lr = the peak, 4e-4
     masker, masker_cfg = cfg.masker.build()
@@ -514,7 +746,7 @@ def phase_train_parity() -> dict:
     bf16_rel = abs(bf16[0] - card[0]) / abs(card[0])
     if not bf16_rel <= STEP_BF16_LOSS_REL:
         raise AssertionError(f"bf16 step vs f32 step on the card: loss rel {bf16_rel}")
-    print(f"[train parity] f32 step card vs CPU: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel "
+    print(f"[{tag}] f32 step card vs CPU: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel "
           f"{loss_rel:.3g}, limit {STEP_LOSS_REL}), grad_norm rel {gn_rel:.3g} (limit "
           f"{STEP_GRAD_NORM_REL}), weights max abs {w_err:.3g} (limit "
           f"{STEP_PARAM_ATOL_LR * lr:.3g} = {STEP_PARAM_ATOL_LR}·lr), teacher {t_err:.3g} "
@@ -534,6 +766,7 @@ def main() -> int:
     from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
     from wavjepa_tpu_torch.models.jepa import JEPAConfig
     from wavjepa_tpu_torch.ops import _build
+    from wavjepa_tpu_torch.ops import fused_attention_block as fab
     from wavjepa_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_bwd,
@@ -556,10 +789,59 @@ def main() -> int:
 
     kernel_rows = phase_kernels(flash_attention)
     train_fwd_rows, train_bwd_rows = phase_train_kernels()
-    serve, bf16_runtime = phase_serve(flash_attention_fwd, load_model, chunk_padding)
+    fused_fwd_rows, fused_bwd_rows = phase_fused_kernels()
+    serve, default_requests, served = phase_serve(
+        flash_attention_fwd, fab.fused_attention_block_fwd, load_model, chunk_padding)
+    serve_fused, fused_requests, _ = phase_serve(
+        fab.fused_attention_block_fwd, flash_attention_fwd, load_model, chunk_padding,
+        config=JEPAConfig(attn_impl="fused_block", dtype=torch.bfloat16), reference=served)
+    serve_fused["in_turns"] = phase_serve_turns(default_requests, fused_requests)
+    bf16_runtime = default_requests[0][1]  # the windowed runtime
+    del served, fused_requests
     parity = phase_parity(load_model, JEPAConfig, bf16_runtime)
-    train = phase_train(flash_attention_fwd, flash_attention_bwd)
+    counters = {"flash_attention_fwd": flash_attention_fwd,
+                "flash_attention_bwd": flash_attention_bwd,
+                "fused_attention_block_fwd": fab.fused_attention_block_fwd,
+                "fused_attention_block_bwd": fab.fused_attention_block_bwd}
+    # launches a microbatch: 12 layers each of the student encoder, the
+    # teacher and the predictor forward, the student encoder and the
+    # predictor backward
+    default_path = dict(zip(counters, (36, 24, 0, 0)))
+    fused_decoder = dict(zip(counters, (24, 12, 12, 12)))
+    train = phase_train(counters, [
+        ("accum_auto", [], TRAIN_STEPS, default_path, True),
+        ("accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS_ONE_PASS, default_path, False),
+    ])
+    train_fused = phase_train(counters, [
+        ("fused_decoder", ["trainer.attn_impl_decoder=fused_block"], TRAIN_STEPS,
+         fused_decoder, True),
+    ])
+    base, fused = train["accum_auto"], train_fused["fused_decoder"]
+    print(f"[train fused] beside phase 5 at accum {base['accum_steps']}: step p50 "
+          f"{fused['step_p50_ms']:.1f} vs {base['step_p50_ms']:.1f} ms, "
+          f"{fused['clips_per_s']:.2f} vs {base['clips_per_s']:.2f} clips/s, "
+          f"{fused['crops_per_s']:.1f} vs {base['crops_per_s']:.1f} crops/s, peak memory "
+          f"{fused['max_memory_allocated_bytes'] / 2**30:.2f} vs "
+          f"{base['max_memory_allocated_bytes'] / 2**30:.2f} GiB", flush=True)
     train_parity = phase_train_parity()
+    for counter in counters.values():
+        counter.launches = 0
+    train_parity_fused = phase_train_parity(("trainer.attn_impl=fused_block",),
+                                            "train parity fused")
+    # two steps on the card (f32, bf16), every stack fused: 36 forward and
+    # 24 backward launches a step, flash attention none
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches != dict(zip(counters, (0, 0, 72, 48))):
+        raise AssertionError(f"fused train parity launched {launches}")
+    train_parity_fused["launches"] = launches
+    path_rel = abs(train_parity_fused["loss_card"] - train_parity["loss_card"]) / abs(
+        train_parity["loss_card"])
+    if not path_rel <= FUSED_PATH_LOSS_REL:
+        raise AssertionError(f"f32 step, fused path vs default path: loss rel {path_rel}")
+    train_parity_fused["loss_rel_vs_default_path"] = path_rel
+    print(f"[train parity fused] f32 step loss, fused vs default path on the card: "
+          f"{train_parity_fused['loss_card']:.6f} vs {train_parity['loss_card']:.6f} "
+          f"(rel {path_rel:.3g}, limit {FUSED_PATH_LOSS_REL})", flush=True)
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -569,22 +851,40 @@ def main() -> int:
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shapes": rows}
 
-    train_fwd = sum(r["launches_fwd"] for r in train.values())
-    fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39",
-                serve["launches"] + train_fwd,
+    def by_path(kernel, serving=None):
+        paths = {"serve": serving["launches"] if serving else 0}
+        paths.update({f"train {name}": r["launches"][kernel]
+                      for runs in (train, train_fused) for name, r in runs.items()})
+        return paths
+
+    fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39", 0,
                 kernel_rows[0],  # the windowed HEAR batch, the default serving shape
                 kernel_rows + train_fwd_rows)
-    fwd["launches_by_path"] = {"serve": serve["launches"], "train": train_fwd}
-    bwd = entry("flash_attention_bwd", "wavjepa_tpu/ops/flash_attention.py:58",
-                sum(r["launches_bwd"] for r in train.values()),
+    fwd["launches_by_path"] = by_path("flash_attention_fwd", serve)
+    bwd = entry("flash_attention_bwd", "wavjepa_tpu/ops/flash_attention.py:58", 0,
                 train_bwd_rows[2],  # one microbatch of the packed student encoder
                 train_bwd_rows)
+    bwd["launches_by_path"] = by_path("flash_attention_bwd")
     bwd["library_ms_is"] = "autograd through SDPA (same mask, dO) less SDPA's forward"
-    kernels = [fwd, bwd]
+    fused_fwd = entry("fused_attention_block_fwd", "wavjepa_tpu/ops/fused_attention_block.py:47",
+                      0, fused_fwd_rows[0],  # one microbatch of the packed decoder
+                      fused_fwd_rows)
+    fused_fwd["launches_by_path"] = by_path("fused_attention_block_fwd", serve_fused)
+    fused_fwd["library_ms_is"] = "F.linear, SDPA (same mask), F.linear"
+    fused_bwd = entry("fused_attention_block_bwd", "wavjepa_tpu/ops/fused_attention_block.py:71",
+                      0, fused_bwd_rows[0], fused_bwd_rows)
+    fused_bwd["launches_by_path"] = by_path("fused_attention_block_bwd")
+    fused_bwd["library_ms_is"] = ("autograd through F.linear, SDPA, F.linear (same mask, g) "
+                                  "less that chain's forward")
+    for k in (fwd, bwd, fused_fwd, fused_bwd):
+        k["launches"] = sum(k["launches_by_path"].values())
+    kernels = [fwd, bwd, fused_fwd, fused_bwd]
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernels": kernels, "serve": serve,
-                   "parity": parity, "train": train, "train_parity": train_parity,
+                   "serve_fused": serve_fused, "parity": parity, "train": train,
+                   "train_fused": train_fused, "train_parity": train_parity,
+                   "train_parity_fused": train_parity_fused,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

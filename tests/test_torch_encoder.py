@@ -89,9 +89,7 @@ def test_layernorm32_runs_f32_and_returns_compute_dtype():
 
 
 def test_attn_impl_choices():
-    for impl in ("auto", "einsum", "einsum_bthd", "sdpa", "pallas"):
+    for impl in ("auto", "einsum", "einsum_bthd", "sdpa", "pallas", "fused_block"):
         assert check_attn_impl(impl) == impl
-    with pytest.raises(NotImplementedError):
-        check_attn_impl("fused_block")
     with pytest.raises(ValueError):
         check_attn_impl("xla")

@@ -98,8 +98,6 @@ def test_config_rewrites_and_roundtrip():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        JEPA(JEPAConfig(**TINY, attn_impl="fused_block"))
-    with pytest.raises(NotImplementedError):
         JEPA(JEPAConfig(**{**TINY, "extractor": "conv_channel", "in_channels": 2}))
 
 

@@ -120,3 +120,36 @@ def test_reference_ckpt_loads_in_both_packages(runtimes, tmp_path):
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
     args = (jc.encoder_dim, jc.frames_per_window, jc.total_patches)
     assert detect_pos_embed(blob, *args) == jax_detect_pos_embed(sd, *args) == "time"
+
+
+def test_sidecar_serves_bf16_unpacked_and_an_explicit_pos_embed_wins(tmp_path):
+    # a checkpoint trained in f32 with packing: the sidecar's architecture is
+    # served as the JAX package serves it (api/runtime.py:269-277), in bf16
+    # without packing, and pos_embed / process_seconds given here win
+    import dataclasses
+
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.loop import train_jepa
+
+    # the AudioSet window (200 tokens, so packing 88/128) through a narrow
+    # frontend of the same strides, and the tiny transformer
+    cfg = apply_overrides(Config(), [
+        "data.synthetic=true", "trainer.size=tiny", "trainer.batch_size=1",
+        "data.samples_per_audio=2", "data.target_seconds=3.0",
+        "extractor.conv_spec=[[16,10,5],[16,3,2],[16,3,2],[16,3,2],[16,3,2],[16,2,2],[16,2,2]]",
+        "trainer.average_top_k_layers=2", "trainer.precision=f32",
+        "trainer.attn_impl_decoder=fused_block", f"trainer.save_dir={tmp_path}",
+    ])
+    trained = cfg.build_model_config()
+    assert trained.dtype == torch.float32 and trained.pack_encoder is not None
+    train_jepa(cfg, max_steps=1, device="cpu")
+    ckpt = tmp_path / cfg.run_identity() / "ckpt" / "step_00000001.ckpt"
+    rt = trt.load_model(str(ckpt), device="cpu")
+    assert rt.config == dataclasses.replace(trained, dtype=torch.bfloat16, pack_encoder=None,
+                                            pack_decoder=None)
+    assert rt.config.attn_impl_decoder == "fused_block"
+    emb, _ = rt.get_timestamp_embeddings(_clips([500], seed=3))
+    assert torch.isfinite(emb).all()
+    rt = trt.load_model(str(ckpt), pos_embed="binaural", process_seconds=0.5, device="cpu")
+    assert (rt.config.pos_embed, rt.config.process_seconds) == ("binaural", 0.5)
+    assert rt.config.dtype == torch.bfloat16 and rt.config.pack_decoder is None

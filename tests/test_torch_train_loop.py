@@ -3,6 +3,7 @@ configuration: a run end to end, resume equivalence, and a port checkpoint
 served by the HEAR runtimes of both packages (embeddings f32, atol 5e-5,
 rtol 1e-4, as tests/test_torch_runtime.py)."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -76,8 +77,11 @@ def test_a_port_checkpoint_serves_in_both_packages(tmp_path):
     train_jepa(cfg, max_steps=1, device="cpu")
     run = _run_dir(cfg)
     ckpt = str(run / "ckpt" / "step_00000001.ckpt")
-    port = trt.load_model(ckpt, device="cpu")  # the architecture from model_config.json
-    assert port.config == cfg.build_model_config()
+    # the architecture from model_config.json, served in bf16 as the JAX
+    # package serves a sidecar; both packages compared in the run's f32
+    served = trt.load_model(ckpt, device="cpu")
+    assert served.config == dataclasses.replace(cfg.build_model_config(), dtype=torch.bfloat16)
+    port = trt.load_model(ckpt, config=read_model_config(run), device="cpu")
     jax_rt = jrt.load_model(ckpt, config=jax_read_model_config(run))
     rng = np.random.default_rng(0)
     clips = [rng.standard_normal(n).astype(np.float32) for n in (200, 700)]

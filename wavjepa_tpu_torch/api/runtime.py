@@ -174,8 +174,10 @@ def load_model(
 
     The architecture comes from ``config``; else, for a checkpoint, from
     the ``model_config.json`` a training run writes beside it (the JAX
-    package's sidecar format; a ``process_seconds`` given here overrides its
-    window); else it is ``JEPAConfig(size=model_size)`` in bfloat16 with
+    package's sidecar format), served in bfloat16 without packing, with its
+    ``attn_impl`` fields, and with the ``pos_embed`` and ``process_seconds``
+    given here winning over its own; else it is
+    ``JEPAConfig(size=model_size)`` in bfloat16 with
     ``process_seconds`` windows (2.01 s by default), whose position table is
     detected from the table the checkpoint stores unless ``pos_embed`` is
     given. Orbax directories have no port."""
@@ -188,9 +190,18 @@ def load_model(
             raise NotImplementedError("orbax checkpoint directories have no port yet")
         state_dict = unwrap_state_dict(load_torch_checkpoint(str(path)))
         if config is None:
-            config = read_model_config(path.parent)
-            if config is not None and process_seconds is not None:
-                config = dataclasses.replace(config, process_seconds=process_seconds)
+            sidecar = read_model_config(path.parent)
+            if sidecar is not None:
+                # served as the JAX package serves a sidecar: bf16, no packing
+                config = dataclasses.replace(
+                    sidecar,
+                    pos_embed=pos_embed or sidecar.pos_embed,
+                    pack_encoder=None,
+                    pack_decoder=None,
+                    dtype=torch.bfloat16,
+                )
+                if process_seconds is not None:
+                    config = dataclasses.replace(config, process_seconds=process_seconds)
         if config is None and pos_embed is None:
             probe = JEPAConfig(in_channels=in_channels, process_seconds=window_s,
                                size=model_size)

@@ -1,620 +1,16 @@
-// Masked self-attention backward for Hopper (sm_90a): dq, dk, dv of
-// flash_attention_fwd.cu, recomputing the probabilities from q, k and the
-// forward's row statistics instead of storing them.
-//
-// Replaces the TPU kernel wavjepa_tpu/ops/flash_attention.py:_bwd_kernel
-// (launched by _bwd through pl.pallas_call). Per (batch, head), with
-// s = d^-1/2 · q kᵀ in f32 and masked keys at the finite f32 minimum:
-//     P  = softmax(s)                       f32, rebuilt as exp(s − m) / l
-//     dV = P_lo^T dO                        P_lo = P rounded to the input type
-//     dP = dO Vᵀ                            f32
-//     dS = P ⊙ (dP − rowsum(dP ⊙ P))        f32, no zeroing at masked keys
-//     dQ = d^-1/2 · dS_lo K,  dK = d^-1/2 · dS_loᵀ Q
-// with q, k, v, dO, dq, dk, dv of shape (B, H, T, d) in bf16 or f32, the
-// mask (B, T) bytes (true = ignore that key) and (m, l) per query row from
-// the forward, (B, H, T, 2) f32. A fully masked row keeps the TPU kernel's
-// maths: its P is uniform, so its dS is not zero and dq, dk get its share.
-// A slot past T in a ragged last tile is neither a key nor a query: it gets
-// weight 0 and contributes nothing.
-//
-// What bounds it on an H100. The five T×T×d products of the maths (the
-// recomputed Q Kᵀ, then dO Vᵀ, P_loᵀ dO, dS_lo K, dS_loᵀ Q) are about
-// 10·B·H·T²·d operations; the bytes are q, k, v and dO read once, dq, dk,
-// dv written once (about 7·B·H·T·d elements), plus the mask and the row
-// statistics: about 0.7·T operations a byte in bf16. At the training shapes
-// (T = 88 in the packed student encoder, T = 128 in the packed decoder) that
-// is 63 and 91, far below the ~295 at which the tensor cores become the
-// limit: the bound
-// is the bytes (about 72 µs at (256, 12, 88, 64) and 210 µs at
-// (1024, 12, 128, 32) at the data sheet's 3.35 TB/s, against 15 and 65 µs
-// of operations at 989 TFLOP/s).
-//
-// What the design does about that. The TPU kernel holds (H, T, T) f32
-// blocks in VMEM; a Hopper block has 227 KB. Two deterministic passes, no
-// atomics, each block of 64 rows walking the other side in tiles of 64:
-//   1. one block per (query block, head, batch) makes dQ. Its first sweep
-//      over the keys sums D = rowsum(dP ⊙ P) exactly as the TPU kernel does
-//      (rowsum(dO ⊙ O) would differ by the forward's bf16 rounding of P and
-//      O), and writes D for pass 2; its second sweep forms dS and dQ.
-//   2. one block per (key block, head, batch) makes dK and dV, walking the
-//      query tiles with their (m, l, D).
-// Nothing of size T² reaches device memory. The passes re-read q, k, v, dO
-// once per 64-row block and recompute Q Kᵀ and dO Vᵀ three times in all
-// (nine products instead of five). At these T one (batch, head) holds 11-22
-// KB of each of q, k, v and dO, so the re-reads are meant to come from the
-// 50 MB L2, and the extra products are tensor-core work the bound leaves
-// room for; PERF.md has the measured time beside the bound.
-//   * bf16 (training): four warps of 16 rows each, every product on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). The
-//     f32 fragments of P and dS become, rounded to bf16, the A operands of
-//     the next products in registers. Tiles read as B with k along the row
-//     are staged row-major, those read with k down the column transposed;
-//     each staged row is padded by 8 values so that fragment loads hit 32
-//     distinct banks. Overlapping loads with the products (cp.async or TMA,
-//     wgmma) is later work.
-//   * f32 (parity checks): 256 threads of CUDA-core FMAs, 4×4 of each 64×64
-//     tile a thread, products through shared memory.
+// The masked self-attention backward (flash_attention_bwd.cuh, which says
+// what it computes, what bounds it and how) as a library with a plain C
+// entry point, for ops/flash_attention.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_attention_bwd.cuh"
 
-#include "attention_common.cuh"
-
-namespace {
-
-using namespace wavjepa;
-
-constexpr int kBlock = 64;  // rows a block owns, and rows of a tile it walks
-constexpr int kPad = 8;     // bf16 values of padding at the end of a staged row
-
-// ---------------------------------------------------------------- bf16, mma
-
-constexpr int kMmaThreads = (kBlock / 16) * 32;  // one warp per 16 rows
-constexpr int kNTiles = kBlock / 8;               // 8-wide C tiles across a tile
-
-// Copy rows r0 .. r0+63 of a row-major (T, D) bf16 matrix into shared
-// memory, row-major into `rows` (stride D + kPad) and, when `cols` is not
-// null, transposed into `cols` (stride kBlock + kPad). Rows past T are zero.
-template <int D>
-__device__ __forceinline__ void stage(const __nv_bfloat16* src, int r0, int seq,
-                                      __nv_bfloat16* rows, __nv_bfloat16* cols) {
-  constexpr int kChunks = kBlock * D / 8;  // 16-byte chunks of a tile
-  for (int i = threadIdx.x; i < kChunks; i += kMmaThreads) {
-    const int r = i / (D / 8), col = (i % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < seq) x = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + col);
-    *reinterpret_cast<uint4*>(&rows[r * (D + kPad) + col]) = x;
-    if (cols != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cols[(col + j) * (kBlock + kPad) + r] = e[j];
-    }
-  }
-}
-
-// C (16 × 64) = A (16 × D) · Bᵀ for a row-major staged tile B (64 × D).
-template <int D>
-__device__ __forceinline__ void product_rows(float (&acc)[kNTiles][4],
-                                             const uint32_t (&a)[D / 16][4],
-                                             const __nv_bfloat16* tile, int g, int c) {
-#pragma unroll
-  for (int nt = 0; nt < kNTiles; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const __nv_bfloat16* p = &tile[(nt * 8 + g) * (D + kPad) + ks * 16 + 2 * c];
-      mma_16x8x16(acc[nt], a[ks], load_u32(p), load_u32(p + 8));
-    }
-  }
-}
-
-// C (16 × D) += A (16 × 64) · B for a tile B (64 × D) staged transposed.
-template <int D>
-__device__ __forceinline__ void product_cols(float (&acc)[D / 8][4],
-                                             const uint32_t (&a)[kBlock / 16][4],
-                                             const __nv_bfloat16* tile_t, int g, int c) {
-#pragma unroll
-  for (int j = 0; j < kBlock / 16; ++j) {
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const __nv_bfloat16* p = &tile_t[(dt * 8 + g) * (kBlock + kPad) + j * 16 + 2 * c];
-      mma_16x8x16(acc[dt], a[j], load_u32(p), load_u32(p + 8));
-    }
-  }
-}
-
-// C tiles 2j and 2j+1 of a 16 × 64 f32 product, rounded to bf16, are the A
-// fragment of columns 16j .. 16j+15 for the next product.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[kBlock / 16][4], int nt, const float (&x)[4]) {
-  a[nt / 2][(nt & 1) * 2 + 0] = pack_bf16x2(x[0], x[1]);
-  a[nt / 2][(nt & 1) * 2 + 1] = pack_bf16x2(x[2], x[3]);
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[D / 8][4],
-                                           int row0, bool in0, bool in1, float mul, int c) {
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * c;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * D + col) =
-          pack_bf16x2(acc[dt][0] * mul, acc[dt][1] * mul);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)(row0 + 8) * D + col) =
-          pack_bf16x2(acc[dt][2] * mul, acc[dt][3] * mul);
-  }
-}
-
-// Pass 1: dQ, and D = rowsum(dP ⊙ P) for pass 2.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-            const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
-            float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq, int H, int seq,
-            float scale) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBlock * (D + kPad)];
-  __shared__ __align__(16) __nv_bfloat16 Kt[D * (kBlock + kPad)];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBlock * (D + kPad)];
-  __shared__ uint8_t Ms[kBlock];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int row0 = blockIdx.x * kBlock + (tid >> 5) * 16 + g;  // and row0 + 8
-  const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = rows * D;
-  const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  const bool in[2] = {row0 < seq, row0 + 8 < seq};
-
-  uint32_t qa[D / 16][4], da[D / 16][4];  // the warp's rows of Q and dO
-  load_a_rows<D>(qa, q + head, row0, in[0], in[1], c);
-  load_a_rows<D>(da, dout + head, row0, in[0], in[1], c);
-  float m[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (in[i]) {
-      const float2 st = *reinterpret_cast<const float2*>(stats + 2 * (rows + row0 + 8 * i));
-      m[i] = st.x;
-      inv_l[i] = 1.f / st.y;
-    }
-  }
-
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  float part[2] = {0.f, 0.f};  // this lane's share of rowsum(dP ⊙ P)
-  float Drow[2] = {0.f, 0.f};  // set after the first sweep
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * kBlock;
-      __syncthreads();  // the previous tile is consumed
-      stage<D>(k + head, k0, seq, Ks, sweep == 1 ? Kt : nullptr);
-      stage<D>(v + head, k0, seq, Vs, nullptr);
-      for (int i = tid; i < kBlock; i += kMmaThreads) Ms[i] = k0 + i < seq ? mrow[k0 + i] : 0;
-      __syncthreads();
-
-      float s[kNTiles][4], dp[kNTiles][4];
-      product_rows<D>(s, qa, Ks, g, c);
-      product_rows<D>(dp, da, Vs, g, c);
-      uint32_t dsa[kBlock / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * c + (e & 1), i = e >> 1;
-          const float x = Ms[col] ? -FLT_MAX : s[nt][e] * scale;
-          const float p = in[i] && k0 + col < seq ? expf(x - m[i]) * inv_l[i] : 0.f;
-          if (sweep == 0) part[i] += p * dp[nt][e];
-          ds[e] = sweep == 0 ? 0.f : p * (dp[nt][e] - Drow[i]);
-        }
-        pack_a(dsa, nt, ds);
-      }
-      if (sweep == 1) product_cols<D>(acc, dsa, Kt, g, c);
-    }
-    if (sweep == 0) {
-      Drow[0] = quad_sum(part[0]);
-      Drow[1] = quad_sum(part[1]);
-      if (c == 0) {
-        if (in[0]) dsum[rows + row0] = Drow[0];
-        if (in[1]) dsum[rows + row0 + 8] = Drow[1];
-      }
-    }
-  }
-  store_rows<D>(dq + head, acc, row0, in[0], in[1], scale, c);
-}
-
-// Pass 2: dK and dV. Each warp owns 16 keys and walks the query tiles; the
-// products run transposed (keys as rows), so Sᵀ = K Qᵀ and dPᵀ = V dOᵀ.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
-              const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
-              __nv_bfloat16* __restrict__ dv, int H, int seq, float scale) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBlock * (D + kPad)];
-  __shared__ __align__(16) __nv_bfloat16 Qt[D * (kBlock + kPad)];
-  __shared__ __align__(16) __nv_bfloat16 Os[kBlock * (D + kPad)];  // dO rows
-  __shared__ __align__(16) __nv_bfloat16 Ot[D * (kBlock + kPad)];  // dO transposed
-  __shared__ float Mq[kBlock], Lq[kBlock], Dq[kBlock];  // m, 1/l, D of the query rows
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int key0 = blockIdx.x * kBlock + (tid >> 5) * 16 + g;  // and key0 + 8
-  const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = rows * D;
-  const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  const bool kin[2] = {key0 < seq, key0 + 8 < seq};
-  const bool masked[2] = {kin[0] && mrow[key0] != 0, kin[1] && mrow[key0 + 8] != 0};
-
-  uint32_t ka[D / 16][4], va[D / 16][4];  // the warp's keys of K and V
-  load_a_rows<D>(ka, k + head, key0, kin[0], kin[1], c);
-  load_a_rows<D>(va, v + head, key0, kin[0], kin[1], c);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kBlock;
-    __syncthreads();  // the previous tile is consumed
-    stage<D>(q + head, q0, seq, Qs, Qt);
-    stage<D>(dout + head, q0, seq, Os, Ot);
-    for (int i = tid; i < kBlock; i += kMmaThreads) {
-      const bool valid = q0 + i < seq;
-      const float2 st = valid ? *reinterpret_cast<const float2*>(stats + 2 * (rows + q0 + i))
-                              : make_float2(0.f, 1.f);
-      Mq[i] = st.x;
-      Lq[i] = valid ? 1.f / st.y : 0.f;
-      Dq[i] = valid ? dsum[rows + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kNTiles][4], dp[kNTiles][4];
-    product_rows<D>(s, ka, Qs, g, c);   // Sᵀ: 16 keys × 64 queries
-    product_rows<D>(dp, va, Os, g, c);  // dPᵀ
-    uint32_t pa[kBlock / 16][4], dsa[kBlock / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * c + (e & 1), i = e >> 1;
-        const float x = masked[i] ? -FLT_MAX : s[nt][e] * scale;
-        p[e] = kin[i] && q0 + col < seq ? expf(x - Mq[col]) * Lq[col] : 0.f;
-        ds[e] = p[e] * (dp[nt][e] - Dq[col]);
-      }
-      pack_a(pa, nt, p);
-      pack_a(dsa, nt, ds);
-    }
-    product_cols<D>(dv_acc, pa, Ot, g, c);
-    product_cols<D>(dk_acc, dsa, Qt, g, c);
-  }
-  store_rows<D>(dk + head, dk_acc, key0, kin[0], kin[1], scale, c);
-  store_rows<D>(dv + head, dv_acc, key0, kin[0], kin[1], 1.f, c);
-}
-
-// ------------------------------------------------------------ f32, CUDA cores
-
-constexpr int kThreads = 256;  // 16 row groups × 16 column lanes
-constexpr int kRows = 4;       // rows ty*4 .. ty*4+3 of a 64 × 64 tile
-constexpr int kCols = 4;       // columns tx + 16·j of a 64 × 64 tile
-constexpr int kTS = kBlock + 1;  // stride of a 64 × 64 f32 tile in shared memory
-
-// Copy rows r0 .. r0+63 of a row-major (T, D) f32 matrix into shared memory
-// with a one-float pad per row; rows past T are zero.
-template <int D>
-__device__ __forceinline__ void stage_f32(const float* src, int r0, int seq, float* dst) {
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, col = i % D;
-    dst[r * (D + 1) + col] = r0 + r < seq ? src[(size_t)(r0 + r) * D + col] : 0.f;
-  }
-}
-
-// a (4 × 4 of a 64 × 64 tile) = rows ty·4+r of A · rows tx+16j of B, both
-// (64 × D) staged with stride D + 1
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&a)[kRows][kCols], const float* A, const float* B,
-                                         int ty, int tx) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) a[r][j] = 0.f;
-#pragma unroll 8
-  for (int dd = 0; dd < D; ++dd) {
-    float x[kRows], y[kCols];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) x[r] = A[(ty * kRows + r) * (D + 1) + dd];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) y[j] = B[(tx + 16 * j) * (D + 1) + dd];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) a[r][j] = fmaf(x[r], y[j], a[r][j]);
-  }
-}
-
-// acc (rows ty·4+r, columns tx+16j of D) += P (64 × 64, stride kTS) · B (64 × D)
-template <int D>
-__device__ __forceinline__ void acc_tile(float (&acc)[kRows][D / 16], const float* P,
-                                         const float* B, int used, int ty, int tx) {
-  for (int kk = 0; kk < used; ++kk) {
-    float y[D / 16];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) y[j] = B[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float p = P[(ty * kRows + r) * kTS + kk];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[r][j] = fmaf(p, y[j], acc[r][j]);
-    }
-  }
-}
-
-template <int D>
-constexpr int dq_smem_floats() {  // Q, dO, K, V tiles and the dS tile
-  return 4 * kBlock * (D + 1) + kBlock * kTS;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const uint8_t* __restrict__ mask, const float* __restrict__ dout,
-           const float* __restrict__ stats, float* __restrict__ dsum, float* __restrict__ dq,
-           int H, int seq, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Os = Qs + kBlock * (D + 1);
-  float* Ks = Os + kBlock * (D + 1);
-  float* Vs = Ks + kBlock * (D + 1);
-  float* Ss = Vs + kBlock * (D + 1);  // dS
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * kBlock;
-  const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = rows * D;
-  const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  stage_f32<D>(q + head, q0, seq, Qs);
-  stage_f32<D>(dout + head, q0, seq, Os);
-
-  float m[kRows], inv_l[kRows], part[kRows], Drow[kRows], acc[kRows][D / 16];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + ty * kRows + r;
-    const float2 st = row < seq ? *reinterpret_cast<const float2*>(stats + 2 * (rows + row))
-                                : make_float2(0.f, 0.f);
-    m[r] = st.x;
-    inv_l[r] = row < seq ? 1.f / st.y : 0.f;
-    part[r] = Drow[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[r][j] = 0.f;
-  }
-
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * kBlock;
-      __syncthreads();
-      stage_f32<D>(k + head, k0, seq, Ks);
-      stage_f32<D>(v + head, k0, seq, Vs);
-      __syncthreads();
-      float s[kRows][kCols], dp[kRows][kCols];
-      dot_tile<D>(s, Qs, Ks, ty, tx);
-      dot_tile<D>(dp, Os, Vs, ty, tx);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const bool row_in = q0 + ty * kRows + r < seq;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int key = k0 + tx + 16 * j;
-          const bool valid = row_in && key < seq;
-          const float x = valid && mrow[key] ? -FLT_MAX : s[r][j] * scale;
-          const float p = valid ? expf(x - m[r]) * inv_l[r] : 0.f;
-          if (sweep == 0)
-            part[r] += p * dp[r][j];
-          else
-            Ss[(ty * kRows + r) * kTS + tx + 16 * j] = p * (dp[r][j] - Drow[r]);
-        }
-      }
-      if (sweep == 1) {
-        __syncthreads();
-        acc_tile<D>(acc, Ss, Ks, min(kBlock, seq - k0), ty, tx);
-      }
-    }
-    if (sweep == 0) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        Drow[r] = half_warp_sum(part[r]);
-        const int row = q0 + ty * kRows + r;
-        if (tx == 0 && row < seq) dsum[rows + row] = Drow[r];
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + ty * kRows + r;
-    if (row < seq) {
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) dq[head + (size_t)row * D + tx + 16 * j] = acc[r][j] * scale;
-    }
-  }
-}
-
-template <int D>
-constexpr int dkdv_smem_floats() {  // K, V, Q, dO tiles, the P and dS tiles, m, 1/l, D
-  return 4 * kBlock * (D + 1) + 2 * kBlock * kTS + 3 * kBlock;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const uint8_t* __restrict__ mask,
-             const float* __restrict__ dout, const float* __restrict__ stats,
-             const float* __restrict__ dsum, float* __restrict__ dk, float* __restrict__ dv,
-             int H, int seq, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBlock * (D + 1);
-  float* Qs = Vs + kBlock * (D + 1);
-  float* Os = Qs + kBlock * (D + 1);
-  float* Ps = Os + kBlock * (D + 1);  // Pᵀ: keys × queries
-  float* Ss = Ps + kBlock * kTS;      // dSᵀ
-  float* Mq = Ss + kBlock * kTS;
-  float* Lq = Mq + kBlock;
-  float* Dq = Lq + kBlock;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int key_base = blockIdx.x * kBlock;
-  const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = rows * D;
-  const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  stage_f32<D>(k + head, key_base, seq, Ks);
-  stage_f32<D>(v + head, key_base, seq, Vs);
-
-  bool kin[kRows], masked[kRows];
-  float dk_acc[kRows][D / 16], dv_acc[kRows][D / 16];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int key = key_base + ty * kRows + r;
-    kin[r] = key < seq;
-    masked[r] = kin[r] && mrow[key] != 0;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) dk_acc[r][j] = dv_acc[r][j] = 0.f;
-  }
-
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kBlock;
-    __syncthreads();
-    stage_f32<D>(q + head, q0, seq, Qs);
-    stage_f32<D>(dout + head, q0, seq, Os);
-    for (int i = tid; i < kBlock; i += kThreads) {
-      const bool valid = q0 + i < seq;
-      const float2 st = valid ? *reinterpret_cast<const float2*>(stats + 2 * (rows + q0 + i))
-                              : make_float2(0.f, 1.f);
-      Mq[i] = st.x;
-      Lq[i] = valid ? 1.f / st.y : 0.f;
-      Dq[i] = valid ? dsum[rows + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    float s[kRows][kCols], dp[kRows][kCols];
-    dot_tile<D>(s, Ks, Qs, ty, tx);  // Sᵀ
-    dot_tile<D>(dp, Vs, Os, ty, tx);  // dPᵀ
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + 16 * j;
-        const bool valid = kin[r] && q0 + col < seq;
-        const float x = masked[r] ? -FLT_MAX : s[r][j] * scale;
-        const float p = valid ? expf(x - Mq[col]) * Lq[col] : 0.f;
-        Ps[(ty * kRows + r) * kTS + col] = p;
-        Ss[(ty * kRows + r) * kTS + col] = p * (dp[r][j] - Dq[col]);
-      }
-    }
-    __syncthreads();
-    const int used = min(kBlock, seq - q0);
-    acc_tile<D>(dv_acc, Ps, Os, used, ty, tx);
-    acc_tile<D>(dk_acc, Ss, Qs, used, ty, tx);
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int key = key_base + ty * kRows + r;
-    if (key < seq) {
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        dk[head + (size_t)key * D + tx + 16 * j] = dk_acc[r][j] * scale;
-        dv[head + (size_t)key * D + tx + 16 * j] = dv_acc[r][j];
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------------ launch
-
-struct Args {
-  const void *q, *k, *v, *dout;
-  const uint8_t* mask;
-  const float* stats;
-  float* dsum;
-  void *dq, *dk, *dv;
-  int B, H, seq;
-  float scale;
-  cudaStream_t stream;
-};
-
-template <int D>
-cudaError_t launch_bf16(const Args& a) {
-  using bf = __nv_bfloat16;
-  dim3 grid((a.seq + kBlock - 1) / kBlock, a.H, a.B);
-  bwd_dq_bf16<D><<<grid, kMmaThreads, 0, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
-      a.mask, static_cast<const bf*>(a.dout), a.stats, a.dsum, static_cast<bf*>(a.dq), a.H,
-      a.seq, a.scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dkdv_bf16<D><<<grid, kMmaThreads, 0, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
-      a.mask, static_cast<const bf*>(a.dout), a.stats, a.dsum, static_cast<bf*>(a.dk),
-      static_cast<bf*>(a.dv), a.H, a.seq, a.scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_f32(const Args& a) {
-  const int smem_dq = dq_smem_floats<D>() * sizeof(float);
-  const int smem_dkdv = dkdv_smem_floats<D>() * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkdv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dkdv);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.seq + kBlock - 1) / kBlock, a.H, a.B);
-  bwd_dq_f32<D><<<grid, kThreads, smem_dq, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), a.mask, static_cast<const float*>(a.dout), a.stats,
-      a.dsum, static_cast<float*>(a.dq), a.H, a.seq, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dkdv_f32<D><<<grid, kThreads, smem_dkdv, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), a.mask, static_cast<const float*>(a.dout), a.stats,
-      a.dsum, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.seq, a.scale);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t
-// (0 = launched); cudaErrorInvalidValue for a shape or type it does not take.
-// q, k, v, dout, dq, dk, dv contiguous (B, H, T, head_dim); mask contiguous
-// (B, T) bytes; stats the forward's (B, H, T, 2) f32 row (m, l); dsum (B, H, T)
-// f32 scratch that pass 1 fills and pass 2 reads.
 extern "C" int wavjepa_flash_attention_bwd(const void* q, const void* k, const void* v,
                                            const void* mask, const void* dout, const void* stats,
                                            void* dsum, void* dq, void* dk, void* dv, int B, int H,
                                            int seq, int head_dim, int dtype, float scale,
                                            void* stream) {
-  if (B <= 0 || H <= 0 || seq <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, static_cast<const uint8_t*>(mask), static_cast<const float*>(stats),
-               static_cast<float*>(dsum), dq, dk, dv, B, H, seq, scale,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0 && head_dim == 32) return launch_f32<32>(a);
-  if (dtype == 0 && head_dim == 64) return launch_f32<64>(a);
-  if (dtype == 1 && head_dim == 32) return launch_bf16<32>(a);
-  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(a);
-  return cudaErrorInvalidValue;
+  return wavjepa::flash_attention_bwd(q, k, v, static_cast<const uint8_t*>(mask), dout,
+                                      static_cast<const float*>(stats), static_cast<float*>(dsum),
+                                      dq, dk, dv, B, H, seq, head_dim, dtype, scale,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -177,10 +177,12 @@ class JEPA(nn.Module):
         self.encoder = TransformerEncoder(
             cfg.encoder_layers, cfg.encoder_dim, cfg.encoder_heads,
             int(cfg.encoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
+            cfg.attn_impl,
         )
         self.decoder = TransformerEncoder(
             cfg.decoder_layers, cfg.decoder_dim, cfg.decoder_heads,
             int(cfg.decoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
+            cfg.attn_impl if cfg.attn_impl_decoder is None else cfg.attn_impl_decoder,
         )
         self.encoder_to_decoder_mapper = Linear(cfg.encoder_dim, cfg.decoder_dim, dtype=cfg.dtype)
         self.decoder_to_encoder_mapper = Linear(cfg.decoder_dim, cfg.encoder_dim, dtype=cfg.dtype)
@@ -210,7 +212,8 @@ class JEPA(nn.Module):
         self.mask_token.copy_(0.02 * torch.randn(self.mask_token.shape, generator=generator))
 
     def build_teacher_encoder(self) -> TransformerEncoder:
-        """A copy of the context encoder, outside autograd, for the EMA
+        """A copy of the context encoder (its attn_impl too, as the JAX
+        teacher runs the encoder module), outside autograd, for the EMA
         teacher."""
         teacher = copy.deepcopy(self.encoder)
         teacher.requires_grad_(False)

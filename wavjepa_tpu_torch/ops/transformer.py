@@ -7,7 +7,9 @@ the encoder's final ``norm``), so a reference ``state_dict`` loads as is.
 The modules are written here rather than taken from ``torch.nn``: the fast
 paths of ``nn.MultiheadAttention`` and ``nn.TransformerEncoderLayer`` call
 library attention kernels, and the port's attention is its own kernel
-(``ops/flash_attention.py``).
+(``ops/flash_attention.py``), or, with ``attn_impl="fused_block"``, the
+projection-fused block (``ops/fused_attention_block.py``), which takes the
+same parameters.
 
 Mixed precision follows flax: parameters stay float32 and are cast to the
 compute ``dtype`` (bfloat16 on the card) at use; LayerNorm and softmax run in
@@ -24,16 +26,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavjepa_tpu_torch.ops.flash_attention import flash_attention
+from wavjepa_tpu_torch.ops.fused_attention_block import fused_attention_block, pack_weights
 
 # every attn_impl the JAX package names; all but "fused_block" mean the
-# flash-attention kernel on CUDA tensors and its plain version on the CPU
+# flash-attention kernel on CUDA tensors and its plain version on the CPU;
+# "fused_block" means the projection-fused block's kernels and plain versions
 ATTN_IMPLS = ("auto", "einsum", "einsum_bthd", "sdpa", "pallas", "fused_block")
 
 
 def check_attn_impl(impl: str) -> str:
     """``JEPAConfig.attn_impl`` as the port reads it (see ATTN_IMPLS)."""
-    if impl == "fused_block":
-        raise NotImplementedError("attn_impl='fused_block' has no port yet")
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r}")
     return impl
@@ -110,15 +112,19 @@ class MultiHeadSelfAttention(nn.Module):
     """Packed-QKV multi-head self-attention with a key-padding mask.
 
     ``in_proj_weight`` is (3D, D): q | k | v along the output, each split
-    head-major, as torch's ``nn.MultiheadAttention`` packs it."""
+    head-major, as torch's ``nn.MultiheadAttention`` packs it. With
+    ``attn_impl="fused_block"`` the projections and attention run as one
+    fused block on the same parameters."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto"):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by {num_heads} heads")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.dtype = dtype
+        self.attn_impl = check_attn_impl(attn_impl)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim, dtype=dtype)
@@ -127,6 +133,16 @@ class MultiHeadSelfAttention(nn.Module):
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, d = x.shape
         h = self.num_heads
+        if key_padding_mask is None:
+            key_padding_mask = torch.zeros((b, t), dtype=torch.bool, device=x.device)
+        if self.attn_impl == "fused_block":
+            wqkv, bqkv, wo = pack_weights(
+                self.in_proj_weight.to(self.dtype), self.in_proj_bias.to(self.dtype),
+                self.out_proj.weight.to(self.dtype), h,
+            )
+            return fused_attention_block(x.to(self.dtype), wqkv, bqkv, wo,
+                                         self.out_proj.bias.to(self.dtype)[None],
+                                         key_padding_mask.contiguous())
         qkv = F.linear(
             x.to(self.dtype), self.in_proj_weight.to(self.dtype),
             self.in_proj_bias.to(self.dtype),
@@ -135,8 +151,6 @@ class MultiHeadSelfAttention(nn.Module):
             a.reshape(b, t, h, d // h).transpose(1, 2).contiguous()
             for a in qkv.split(d, dim=-1)
         )
-        if key_padding_mask is None:
-            key_padding_mask = torch.zeros((b, t), dtype=torch.bool, device=x.device)
         out = flash_attention(q, k, v, key_padding_mask.contiguous())
         return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
 
@@ -145,9 +159,10 @@ class TransformerEncoderLayer(nn.Module):
     """Post-norm block: x = norm1(x + SA(x)); x = norm2(x + MLP(x))."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
-                 layer_norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+                 layer_norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto"):
         super().__init__()
-        self.self_attn = MultiHeadSelfAttention(embed_dim, num_heads, dtype)
+        self.self_attn = MultiHeadSelfAttention(embed_dim, num_heads, dtype, attn_impl)
         self.linear1 = Linear(embed_dim, mlp_dim, dtype=dtype)
         self.linear2 = Linear(mlp_dim, embed_dim, dtype=dtype)
         self.norm1 = LayerNorm32(embed_dim, layer_norm_eps, dtype)
@@ -167,10 +182,12 @@ class TransformerEncoder(nn.Module):
     layer's output before the final norm (the teacher's targets)."""
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int, mlp_dim: int,
-                 layer_norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+                 layer_norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(embed_dim, num_heads, mlp_dim, layer_norm_eps, dtype)
+            TransformerEncoderLayer(embed_dim, num_heads, mlp_dim, layer_norm_eps, dtype,
+                                    attn_impl)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm32(embed_dim, layer_norm_eps, dtype)
