@@ -6,8 +6,10 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. build    compile every CUDA source of ``wavjepa_tpu_torch/csrc`` with nvcc
-            (one process each, all at once) and print the card and its power
-            limit;
+            (one process each, all at once), print the card and its power
+            limit, ptxas's register and spill report, and the count of
+            wgmma instructions (``HGMMA`` in ``cuobjdump -sass``) in each
+            library: none in a fused library fails the run;
 2. kernels  hold each kernel against its plain PyTorch version on the card at
             the shapes the serving and training paths give it, in bf16 and
             f32, and time kernel, plain version, one PyTorch library call,
@@ -15,7 +17,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             dq must be non-zero and equal the plain version's; the fused
             block (forward and backward, weight gradients too) likewise at
             the decoder's, the encoder's and serving's shapes, its backward
-            twice with equal bits;
+            twice with equal bits; and the fused block's bf16 product alone
+            (``csrc/hopper_gemm.cu``) against ``torch.matmul`` at the QKV and
+            weight-gradient products of the decoder batch and serving's QKV
+            product, both timed in turns, in TFLOP/s;
 3. serve    load the HEAR runtime at base width with seeded random weights
             and answer requests: scene embeddings of 8 clips of 10 s,
             timestamp embeddings of a ragged batch (1.0, 2.01, 4.3, 30 s) and
@@ -327,12 +332,17 @@ def fused_bound(b: int, t: int, d: int, elem: int, backward: bool) -> tuple[floa
     recomputed Q·Kᵀ and P·V, then dP, dV, dQ, dK)."""
     if backward:
         bytes_moved = 3 * b * t * d * elem + 4 * d * d * (elem + 4) + b * t
-        ops = 22 * b * t * d * d + 12 * b * t * t * d
     else:
         bytes_moved = 2 * b * t * d * elem + 4 * d * d * elem + b * t
-        ops = 8 * b * t * d * d + 4 * b * t * t * d
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, fused_ops(b, t, d, backward) / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fused_ops(b: int, t: int, d: int, backward: bool) -> int:
+    """Operations of the fused block: the products and attention."""
+    if backward:
+        return 22 * b * t * d * d + 12 * b * t * t * d
+    return 8 * b * t * d * d + 4 * b * t * t * d
 
 
 def fused_inputs(b, t, d, heads, seed):
@@ -360,11 +370,9 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
     F = torch.nn.functional
 
     def torch_layout(wqkv, bqkv, wo, bo):
-        """The block's weights as F.linear takes them."""
-        heads, d, hd3 = wqkv.shape
-        w_in = wqkv.reshape(heads, d, 3, hd3 // 3).permute(2, 0, 3, 1).reshape(3 * d, d)
-        b_in = bqkv.reshape(heads, 3, hd3 // 3).permute(1, 0, 2).reshape(3 * d)
-        return [w.contiguous() for w in (w_in, b_in, wo.reshape(d, d).t(), bo.reshape(d))]
+        """The block's weights as the torch module holds them, which is how
+        the kernels and F.linear take them."""
+        return [w.contiguous() for w in (*fab.unpack_weights(wqkv, bqkv, wo), bo.reshape(-1))]
 
     def library_chain(x, w_in, b_in, w_out, bo, keep, heads):
         b, t, d = x.shape
@@ -377,7 +385,7 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
         """Records max |kernel − plain| over the outputs, and its largest
         ratio to max(1, max |plain|) of the same output; raises past rel."""
         errs, ratios = [], []
-        names = ("out",) if len(outs) == 1 else ("dx", "dwqkv", "dbqkv", "dwo", "dbo")
+        names = ("out",) if len(outs) == 1 else ("dx", "dw_in", "db_in", "dw_out", "db_out")
         for gname, o, r in zip(names, outs, refs):
             err, ok = scaled_err(o, r, rel)
             if not torch.isfinite(o).all() or not ok or o.shape != r.shape:
@@ -393,23 +401,24 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
         for dtype, rel, key in ((torch.float32, FUSED_F32_REL, "f32"),
                                 (torch.bfloat16, FUSED_BF16_REL, "bf16")):
             xx, (w1, b1, w2, b2) = x.to(dtype), [w.to(dtype) for w in weights]
-            out = fab.fused_attention_block_fwd(xx, w1, b1, w2, b2, mask)
+            params = torch_layout(w1, b1, w2, b2)
+            out = fab.fused_attention_block_fwd(xx, *params, mask, heads)
             ref = fab.fused_attention_block_reference(xx, w1, b1, w2, b2, mask)
             torch.cuda.synchronize()
             check(f"fused fwd {name}", key, [out], [ref], rel, row)
-        row["ms"] = cuda_ms(lambda: fab.fused_attention_block_fwd(xx, w1, b1, w2, b2, mask))
+        row["ms"] = cuda_ms(lambda: fab.fused_attention_block_fwd(xx, *params, mask, heads))
         row["plain_ms"] = cuda_ms(lambda: fab.fused_attention_block_reference(
             xx, w1, b1, w2, b2, mask))
-        lib_w = torch_layout(w1, b1, w2, b2)
-        row["library_ms"] = cuda_ms(lambda: library_chain(xx, *lib_w, ~mask[:, None, None, :],
+        row["library_ms"] = cuda_ms(lambda: library_chain(xx, *params, ~mask[:, None, None, :],
                                                           heads))
         row["bound_ms"], row["bound_by"] = fused_bound(b, t, d, 2, backward=False)
+        row["tflops"] = fused_ops(b, t, d, backward=False) / row["ms"] / 1e9
         print(f"[kernels] fused_attention_block_fwd {name} (B={b}, T={t}, D={d}, H={heads}): "
               f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g} (scaled "
               f"{row['scaled_err_f32']:.3g} / {row['scaled_err_bf16']:.3g}); "
               f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"linear+sdpa+linear {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
+              f"({row['bound_by']}); {row['tflops']:.1f} TFLOP/s", flush=True)
         fwd_rows.append(row)
 
     bwd_rows = []
@@ -419,10 +428,13 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
         for dtype, rel, key in ((torch.float32, FUSED_F32_REL, "f32"),
                                 (torch.bfloat16, FUSED_BF16_REL, "bf16")):
             xx, gg = x.to(dtype), grad.to(dtype)
-            w1, b1, w2, _ = (w.to(dtype) for w in weights)
-            grads = fab.fused_attention_block_bwd(xx, w1, b1, w2, mask, gg)
-            again = fab.fused_attention_block_bwd(xx, w1, b1, w2, mask, gg)
-            refs = fab.fused_attention_block_bwd_reference(xx, w1, b1, w2, mask, gg)
+            w1, b1, w2, b2 = (w.to(dtype) for w in weights)
+            w_in, b_in, w_out, _ = torch_layout(w1, b1, w2, b2)
+            grads = fab.fused_attention_block_bwd(xx, w_in, b_in, w_out, mask, gg, heads)
+            again = fab.fused_attention_block_bwd(xx, w_in, b_in, w_out, mask, gg, heads)
+            dx, dwqkv, dbqkv, dwo, dbo = fab.fused_attention_block_bwd_reference(
+                xx, w1, b1, w2, mask, gg)  # in the JAX layouts: to the module's
+            refs = (dx, *fab.unpack_weights(dwqkv, dbqkv, dwo), dbo.reshape(-1))
             torch.cuda.synchronize()
             check(f"fused bwd {name}", key, grads, refs, rel, row)
             if not all(torch.equal(a, c) for a, c in zip(grads, again)):
@@ -433,13 +445,14 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
                 raise AssertionError(f"fused bwd {name} {key}: fully masked row dx ({row0_err})")
             row[f"masked_row_dx_err_{key}"] = row0_err
         row["deterministic"] = True
-        row["ms"] = cuda_ms(lambda: fab.fused_attention_block_bwd(xx, w1, b1, w2, mask, gg))
+        row["ms"] = cuda_ms(lambda: fab.fused_attention_block_bwd(xx, w_in, b_in, w_out, mask, gg,
+                                                                  heads))
         row["plain_ms"] = cuda_ms(lambda: fab.fused_attention_block_bwd_reference(
             xx, w1, b1, w2, mask, gg))
         # the library chain's backward: autograd through it less its forward,
         # timed in the same turn (derived, not one call)
         leaves = [a.detach().requires_grad_(True)
-                  for a in (xx, *torch_layout(w1, b1, w2, weights[3].to(torch.bfloat16)))]
+                  for a in (xx, *torch_layout(w1, b1, w2, b2))]
         keep = ~mask[:, None, None, :]
         fwd_ms = cuda_ms(lambda: library_chain(*leaves, keep, heads))
         both_ms = cuda_ms(lambda: torch.autograd.grad(library_chain(*leaves, keep, heads),
@@ -447,15 +460,99 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
         row["library_ms"] = both_ms - fwd_ms
         row["library_fwd_bwd_ms"], row["library_fwd_ms"] = both_ms, fwd_ms
         row["bound_ms"], row["bound_by"] = fused_bound(b, t, d, 2, backward=True)
+        row["tflops"] = fused_ops(b, t, d, backward=True) / row["ms"] / 1e9
         print(f"[kernels] fused_attention_block_bwd {name} (B={b}, T={t}, D={d}, H={heads}): "
               f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g} (scaled "
               f"{row['scaled_err_f32']:.3g} / {row['scaled_err_bf16']:.3g}, masked row dx "
               f"{row['masked_row_dx_err_bf16']:.3g}), bitwise repeatable; bf16 "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, chain bwd (derived) "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
-              flush=True)
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"{row['tflops']:.1f} TFLOP/s", flush=True)
         bwd_rows.append(row)
     return fwd_rows, bwd_rows
+
+
+# (name, weight_grad, M, N, K) of the fused block's bf16 product alone: the
+# QKV product of the full decoder batch (1024 × 128 tokens, D = 384), its
+# weight gradient xᵀ·dqkv over those tokens, and serving's windowed QKV
+# product (40 × 200 tokens, D = 768)
+PRODUCT_SHAPES = [
+    ("decoder_qkv", 0, 131072, 1152, 384),
+    ("decoder_dwqkv", 1, 384, 1152, 131072),
+    ("serve_qkv", 0, 8000, 2304, 768),
+]
+PRODUCT_BF16_REL = 1e-2  # bf16 output: one rounding of an f32 sum
+PRODUCT_F32_REL = 1e-4   # f32 output: the same sums over 131k rows in another order
+
+
+def sass_wgmma_counts(build) -> dict[str, int]:
+    """HGMMA instructions (wgmma) in each built library's machine code."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    counts = {}
+    for name in sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+    return counts
+
+
+def phase_products() -> list[dict]:
+    """The fused block's bf16 product alone (hopper_gemm.cu's entry point,
+    which no module of the main path calls) against torch.matmul, its plain
+    version and its yardstick: checked against an f32 product of the same
+    bf16 inputs (TF32 off), then both timed in turns (kernel, matmul,
+    matmul, kernel)."""
+    import ctypes
+
+    from wavjepa_tpu_torch.ops import _build
+    from wavjepa_tpu_torch.ops import fused_attention_block as fab
+
+    fn = _build.load("hopper_gemm").wavjepa_hopper_gemm
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    fn.restype = i
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for n, (name, wgrad, m, nn, k) in enumerate(PRODUCT_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(500 + n)
+        # weight_grad: a (K, M), b (K, N), c = aᵀ·b in f32 from split-K
+        # partials; else a (M, K), b (N, K), c = a·bᵀ in bf16
+        a = torch.randn(*((k, m) if wgrad else (m, k)), generator=g, device="cuda").bfloat16()
+        b = torch.randn(*((k, nn) if wgrad else (nn, k)), generator=g, device="cuda").bfloat16()
+        splits = fab.weight_grad_splits(k, -(-m // 128) * -(-nn // 128), sms) if wgrad else 1
+        c = torch.empty(m, nn, device="cuda", dtype=torch.float32 if wgrad else torch.bfloat16)
+        part = torch.empty(splits * m * nn, device="cuda") if wgrad else None
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def kernel():
+            err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                     None if part is None else part.data_ptr(), m, nn, k, wgrad, splits, stream)
+            if err != 0:
+                raise RuntimeError(f"hopper_gemm {name}: cudaError_t {err}")
+
+        plain = (lambda: torch.matmul(a.T, b)) if wgrad else (lambda: torch.matmul(a, b.T))
+        kernel()
+        ref = torch.matmul(a.float().T, b.float()) if wgrad else torch.matmul(a.float(), b.float().T)
+        torch.cuda.synchronize()
+        err, ok = scaled_err(c, ref, PRODUCT_F32_REL if wgrad else PRODUCT_BF16_REL)
+        if not ok or not torch.isfinite(c).all():
+            raise AssertionError(f"product {name}: max |kernel - f32 product| {err}")
+        del ref
+        times = {"kernel": [], "matmul": []}
+        for key, f in (("kernel", kernel), ("matmul", plain), ("matmul", plain), ("kernel", kernel)):
+            times[key].append(cuda_ms(f))
+        ms, lib_ms = min(times["kernel"]), min(times["matmul"])
+        flop = 2 * m * nn * k
+        row = {"shape": name, "M": m, "N": nn, "K": k, "splits": splits, "max_abs_err": err,
+               "ms": ms, "matmul_ms": lib_ms, "tflops": flop / ms / 1e9,
+               "matmul_tflops": flop / lib_ms / 1e9, "ms_turns": times}
+        row["share_of_matmul"] = row["tflops"] / row["matmul_tflops"]
+        print(f"[kernels] hopper_gemm {name} ({m} × {k})·({k} × {nn}){' over split-K ' + str(splits) if wgrad else ''}: "
+              f"err {err:.3g}; kernel {ms:.4f} ms = {row['tflops']:.1f} TFLOP/s, torch.matmul "
+              f"{lib_ms:.4f} ms = {row['matmul_tflops']:.1f} TFLOP/s "
+              f"({row['share_of_matmul']:.2f} of it), in turns", flush=True)
+        rows.append(row)
+    return rows
 
 
 def make_clips(seconds: list[float], seed: int, sr: int = 16000) -> list[np.ndarray]:
@@ -786,10 +883,16 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    wgmma = sass_wgmma_counts(_build)
+    print(f"[build] HGMMA instructions (cuobjdump -sass): {wgmma}", flush=True)
+    for name in ("fused_attention_block_fwd", "fused_attention_block_bwd"):
+        if not wgmma.get(name):
+            raise AssertionError(f"{name}: no wgmma (HGMMA) in its machine code")
 
     kernel_rows = phase_kernels(flash_attention)
     train_fwd_rows, train_bwd_rows = phase_train_kernels()
     fused_fwd_rows, fused_bwd_rows = phase_fused_kernels()
+    products = phase_products()
     serve, default_requests, served = phase_serve(
         flash_attention_fwd, fab.fused_attention_block_fwd, load_model, chunk_padding)
     serve_fused, fused_requests, _ = phase_serve(
@@ -881,7 +984,8 @@ def main() -> int:
     kernels = [fwd, bwd, fused_fwd, fused_bwd]
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "build_s": build_s, "kernels": kernels, "serve": serve,
+        json.dump({"card": card, "build_s": build_s, "hgmma": wgmma, "products": products,
+                   "kernels": kernels, "serve": serve,
                    "serve_fused": serve_fused, "parity": parity, "train": train,
                    "train_fused": train_fused, "train_parity": train_parity,
                    "train_parity_fused": train_parity_fused,

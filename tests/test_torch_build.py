@@ -66,3 +66,12 @@ def test_failed_source_raises_and_leaves_no_library(fake_tree):
         _build.build_all()
     assert _build.library_path("good").exists()
     assert [p.name for p in build.iterdir()] == [_build.library_path("good").name]
+
+
+def test_flash_ab_needs_another_checkout_and_a_card(monkeypatch):
+    import torch
+
+    from wavjepa_tpu_torch.tools import flash_ab
+    assert flash_ab.main([]) == 2  # usage
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert flash_ab.main(["."]) == 1  # nothing is built without a card

@@ -1,6 +1,6 @@
 // Helpers shared by the attention kernels (flash_attention_fwd.cu and
-// flash_attention_bwd.cu): the bf16 tensor-core product, fragment packing and
-// the reductions over the lanes that share a row.
+// flash_attention_bwd.cu): the bf16 tensor-core product, fragment packing,
+// the reductions over the lanes that share a row, and the per-head strides.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,15 +52,36 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// Where element (b, h, t, i) of a per-head tensor lies: p[b·batch + h·head
+// + t·row + i]. The attention kernels read and write q, k, v, o and their
+// gradients through it, so one kernel serves two layouts:
+//   * (B, H, T, d) contiguous, the flash-attention path's;
+//   * token-major (B·T, ld) with head h at columns h·d, the fused block's
+//     (q, k, v as column blocks of one (B·T, 3D) matrix, o as (B·T, D)),
+//     which is what its products read and write.
+struct HeadStrides {
+  long long batch, head;
+  int row;
+  __host__ __device__ __forceinline__ size_t at(int b, int h) const {
+    return (size_t)(b * batch + h * head);
+  }
+};
+
+inline HeadStrides contiguous_heads(int H, int seq, int d) {
+  return {(long long)H * seq * d, (long long)seq * d, d};
+}
+inline HeadStrides token_major(int seq, int ld, int d) { return {(long long)seq * ld, d, ld}; }
+
 // The A fragments of 16 rows (row0 and row0 + 8 for this lane) of a
-// row-major (T, D) bf16 matrix, all of D; rows past the end read as zero.
+// row-major bf16 matrix with rows ld apart, all of D; rows past the end read
+// as zero.
 template <int D>
 __device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const __nv_bfloat16* base,
-                                            int row0, bool in0, bool in1, int c) {
+                                            int ld, int row0, bool in0, bool in1, int c) {
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
-    const __nv_bfloat16* p0 = base + (size_t)row0 * D + ks * 16 + 2 * c;
-    const __nv_bfloat16* p1 = p0 + 8 * D;
+    const __nv_bfloat16* p0 = base + (size_t)row0 * ld + ks * 16 + 2 * c;
+    const __nv_bfloat16* p1 = p0 + 8 * (size_t)ld;
     a[ks][0] = in0 ? load_u32(p0) : 0u;
     a[ks][1] = in1 ? load_u32(p1) : 0u;
     a[ks][2] = in0 ? load_u32(p0 + 8) : 0u;

@@ -9,8 +9,9 @@ extern "C" int wavjepa_flash_attention_bwd(const void* q, const void* k, const v
                                            void* dsum, void* dq, void* dk, void* dv, int B, int H,
                                            int seq, int head_dim, int dtype, float scale,
                                            void* stream) {
+  const wavjepa::HeadStrides heads = wavjepa::contiguous_heads(H, seq, head_dim);
   return wavjepa::flash_attention_bwd(q, k, v, static_cast<const uint8_t*>(mask), dout,
                                       static_cast<const float*>(stats), static_cast<float*>(dsum),
-                                      dq, dk, dv, B, H, seq, head_dim, dtype, scale,
+                                      dq, dk, dv, B, H, seq, head_dim, dtype, scale, heads, heads,
                                       static_cast<cudaStream_t>(stream));
 }

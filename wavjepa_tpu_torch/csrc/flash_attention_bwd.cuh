@@ -10,7 +10,8 @@
 //     dP = dO Vᵀ                            f32
 //     dS = P ⊙ (dP − rowsum(dP ⊙ P))        f32, no zeroing at masked keys
 //     dQ = d^-1/2 · dS_lo K,  dK = d^-1/2 · dS_loᵀ Q
-// with q, k, v, dO, dq, dk, dv of shape (B, H, T, d) in bf16 or f32, the
+// with q, k, v, dO, dq, dk, dv of shape (B, H, T, d) in bf16 or f32 (each
+// addressed through HeadStrides, attention_common.cuh), the
 // mask (B, T) bytes (true = ignore that key) and (m, l) per query row from
 // the forward, (B, H, T, 2) f32. A fully masked row keeps the TPU kernel's
 // maths: its P is uniform, so its dS is not zero and dq, dk get its share.
@@ -76,17 +77,19 @@ constexpr int kPad = 8;     // bf16 values of padding at the end of a staged row
 constexpr int kMmaThreads = (kBlock / 16) * 32;  // one warp per 16 rows
 constexpr int kNTiles = kBlock / 8;               // 8-wide C tiles across a tile
 
-// Copy rows r0 .. r0+63 of a row-major (T, D) bf16 matrix into shared
-// memory, row-major into `rows` (stride D + kPad) and, when `cols` is not
-// null, transposed into `cols` (stride kBlock + kPad). Rows past T are zero.
+// Copy rows r0 .. r0+63 of a row-major bf16 matrix of D columns (rows ld
+// apart) into shared memory, row-major into `rows` (stride D + kPad) and,
+// when `cols` is not null, transposed into `cols` (stride kBlock + kPad).
+// Rows past T are zero.
 template <int D>
-__device__ __forceinline__ void stage(const __nv_bfloat16* src, int r0, int seq,
+__device__ __forceinline__ void stage(const __nv_bfloat16* src, int ld, int r0, int seq,
                                       __nv_bfloat16* rows, __nv_bfloat16* cols) {
   constexpr int kChunks = kBlock * D / 8;  // 16-byte chunks of a tile
+  src += (size_t)r0 * ld;  // in-tile offsets fit an int
   for (int i = threadIdx.x; i < kChunks; i += kMmaThreads) {
     const int r = i / (D / 8), col = (i % (D / 8)) * 8;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < seq) x = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + col);
+    if (r0 + r < seq) x = *reinterpret_cast<const uint4*>(src + (r * ld + col));
     *reinterpret_cast<uint4*>(&rows[r * (D + kPad) + col]) = x;
     if (cols != nullptr) {
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
@@ -135,16 +138,16 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[kBlock / 16][4], int nt, co
 }
 
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[D / 8][4],
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int ld, const float (&acc)[D / 8][4],
                                            int row0, bool in0, bool in1, float mul, int c) {
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * c;
     if (in0)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * D + col) =
+      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + col) =
           pack_bf16x2(acc[dt][0] * mul, acc[dt][1] * mul);
     if (in1)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)(row0 + 8) * D + col) =
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(row0 + 8) * ld + col) =
           pack_bf16x2(acc[dt][2] * mul, acc[dt][3] * mul);
   }
 }
@@ -156,7 +159,7 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
             const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
             const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
             float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq, int H, int seq,
-            float scale) {
+            float scale, HeadStrides in, HeadStrides out) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   __shared__ __align__(16) __nv_bfloat16 Ks[kBlock * (D + kPad)];
   __shared__ __align__(16) __nv_bfloat16 Kt[D * (kBlock + kPad)];
@@ -168,17 +171,17 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   const int g = lane >> 2, c = lane & 3;
   const int row0 = blockIdx.x * kBlock + (tid >> 5) * 16 + g;  // and row0 + 8
   const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = rows * D;
+  const size_t head = in.at(blockIdx.z, blockIdx.y), ohead = out.at(blockIdx.z, blockIdx.y);
   const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  const bool in[2] = {row0 < seq, row0 + 8 < seq};
+  const bool row_in[2] = {row0 < seq, row0 + 8 < seq};
 
   uint32_t qa[D / 16][4], da[D / 16][4];  // the warp's rows of Q and dO
-  load_a_rows<D>(qa, q + head, row0, in[0], in[1], c);
-  load_a_rows<D>(da, dout + head, row0, in[0], in[1], c);
+  load_a_rows<D>(qa, q + head, in.row, row0, row_in[0], row_in[1], c);
+  load_a_rows<D>(da, dout + ohead, out.row, row0, row_in[0], row_in[1], c);
   float m[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (in[i]) {
+    if (row_in[i]) {
       const float2 st = *reinterpret_cast<const float2*>(stats + 2 * (rows + row0 + 8 * i));
       m[i] = st.x;
       inv_l[i] = 1.f / st.y;
@@ -196,8 +199,8 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     for (int t = 0; t < n_tiles; ++t) {
       const int k0 = t * kBlock;
       __syncthreads();  // the previous tile is consumed
-      stage<D>(k + head, k0, seq, Ks, sweep == 1 ? Kt : nullptr);
-      stage<D>(v + head, k0, seq, Vs, nullptr);
+      stage<D>(k + head, in.row, k0, seq, Ks, sweep == 1 ? Kt : nullptr);
+      stage<D>(v + head, in.row, k0, seq, Vs, nullptr);
       for (int i = tid; i < kBlock; i += kMmaThreads) Ms[i] = k0 + i < seq ? mrow[k0 + i] : 0;
       __syncthreads();
 
@@ -212,7 +215,7 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
         for (int e = 0; e < 4; ++e) {
           const int col = nt * 8 + 2 * c + (e & 1), i = e >> 1;
           const float x = Ms[col] ? -FLT_MAX : s[nt][e] * scale;
-          const float p = in[i] && k0 + col < seq ? expf(x - m[i]) * inv_l[i] : 0.f;
+          const float p = row_in[i] && k0 + col < seq ? expf(x - m[i]) * inv_l[i] : 0.f;
           if (sweep == 0) part[i] += p * dp[nt][e];
           ds[e] = sweep == 0 ? 0.f : p * (dp[nt][e] - Drow[i]);
         }
@@ -224,12 +227,12 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
       Drow[0] = quad_sum(part[0]);
       Drow[1] = quad_sum(part[1]);
       if (c == 0) {
-        if (in[0]) dsum[rows + row0] = Drow[0];
-        if (in[1]) dsum[rows + row0 + 8] = Drow[1];
+        if (row_in[0]) dsum[rows + row0] = Drow[0];
+        if (row_in[1]) dsum[rows + row0 + 8] = Drow[1];
       }
     }
   }
-  store_rows<D>(dq + head, acc, row0, in[0], in[1], scale, c);
+  store_rows<D>(dq + head, in.row, acc, row0, row_in[0], row_in[1], scale, c);
 }
 
 // Pass 2: dK and dV. Each warp owns 16 keys and walks the query tiles; the
@@ -240,7 +243,8 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
               const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
               const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
               const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
-              __nv_bfloat16* __restrict__ dv, int H, int seq, float scale) {
+              __nv_bfloat16* __restrict__ dv, int H, int seq, float scale, HeadStrides in,
+              HeadStrides out) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   __shared__ __align__(16) __nv_bfloat16 Qs[kBlock * (D + kPad)];
   __shared__ __align__(16) __nv_bfloat16 Qt[D * (kBlock + kPad)];
@@ -253,14 +257,14 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int g = lane >> 2, c = lane & 3;
   const int key0 = blockIdx.x * kBlock + (tid >> 5) * 16 + g;  // and key0 + 8
   const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = rows * D;
+  const size_t head = in.at(blockIdx.z, blockIdx.y), ohead = out.at(blockIdx.z, blockIdx.y);
   const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
   const bool kin[2] = {key0 < seq, key0 + 8 < seq};
   const bool masked[2] = {kin[0] && mrow[key0] != 0, kin[1] && mrow[key0 + 8] != 0};
 
   uint32_t ka[D / 16][4], va[D / 16][4];  // the warp's keys of K and V
-  load_a_rows<D>(ka, k + head, key0, kin[0], kin[1], c);
-  load_a_rows<D>(va, v + head, key0, kin[0], kin[1], c);
+  load_a_rows<D>(ka, k + head, in.row, key0, kin[0], kin[1], c);
+  load_a_rows<D>(va, v + head, in.row, key0, kin[0], kin[1], c);
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
@@ -271,8 +275,8 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   for (int t = 0; t < n_tiles; ++t) {
     const int q0 = t * kBlock;
     __syncthreads();  // the previous tile is consumed
-    stage<D>(q + head, q0, seq, Qs, Qt);
-    stage<D>(dout + head, q0, seq, Os, Ot);
+    stage<D>(q + head, in.row, q0, seq, Qs, Qt);
+    stage<D>(dout + ohead, out.row, q0, seq, Os, Ot);
     for (int i = tid; i < kBlock; i += kMmaThreads) {
       const bool valid = q0 + i < seq;
       const float2 st = valid ? *reinterpret_cast<const float2*>(stats + 2 * (rows + q0 + i))
@@ -303,8 +307,8 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     product_cols<D>(dv_acc, pa, Ot, g, c);
     product_cols<D>(dk_acc, dsa, Qt, g, c);
   }
-  store_rows<D>(dk + head, dk_acc, key0, kin[0], kin[1], scale, c);
-  store_rows<D>(dv + head, dv_acc, key0, kin[0], kin[1], 1.f, c);
+  store_rows<D>(dk + head, in.row, dk_acc, key0, kin[0], kin[1], scale, c);
+  store_rows<D>(dv + head, in.row, dv_acc, key0, kin[0], kin[1], 1.f, c);
 }
 
 // ------------------------------------------------------------ f32, CUDA cores
@@ -314,13 +318,14 @@ constexpr int kRows = 4;       // rows ty*4 .. ty*4+3 of a 64 × 64 tile
 constexpr int kCols = 4;       // columns tx + 16·j of a 64 × 64 tile
 constexpr int kTS = kBlock + 1;  // stride of a 64 × 64 f32 tile in shared memory
 
-// Copy rows r0 .. r0+63 of a row-major (T, D) f32 matrix into shared memory
-// with a one-float pad per row; rows past T are zero.
+// Copy rows r0 .. r0+63 of a row-major f32 matrix of D columns (rows ld
+// apart) into shared memory with a one-float pad per row; rows past T are
+// zero.
 template <int D>
-__device__ __forceinline__ void stage_f32(const float* src, int r0, int seq, float* dst) {
+__device__ __forceinline__ void stage_f32(const float* src, int ld, int r0, int seq, float* dst) {
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
     const int r = i / D, col = i % D;
-    dst[r * (D + 1) + col] = r0 + r < seq ? src[(size_t)(r0 + r) * D + col] : 0.f;
+    dst[r * (D + 1) + col] = r0 + r < seq ? src[(size_t)(r0 + r) * ld + col] : 0.f;
   }
 }
 
@@ -374,7 +379,7 @@ __global__ void __launch_bounds__(kThreads)
 bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            const uint8_t* __restrict__ mask, const float* __restrict__ dout,
            const float* __restrict__ stats, float* __restrict__ dsum, float* __restrict__ dq,
-           int H, int seq, float scale) {
+           int H, int seq, float scale, HeadStrides in, HeadStrides out) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Os = Qs + kBlock * (D + 1);
@@ -385,10 +390,10 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * kBlock;
   const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = rows * D;
+  const size_t head = in.at(blockIdx.z, blockIdx.y), ohead = out.at(blockIdx.z, blockIdx.y);
   const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  stage_f32<D>(q + head, q0, seq, Qs);
-  stage_f32<D>(dout + head, q0, seq, Os);
+  stage_f32<D>(q + head, in.row, q0, seq, Qs);
+  stage_f32<D>(dout + ohead, out.row, q0, seq, Os);
 
   float m[kRows], inv_l[kRows], part[kRows], Drow[kRows], acc[kRows][D / 16];
 #pragma unroll
@@ -408,8 +413,8 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float
     for (int t = 0; t < n_tiles; ++t) {
       const int k0 = t * kBlock;
       __syncthreads();
-      stage_f32<D>(k + head, k0, seq, Ks);
-      stage_f32<D>(v + head, k0, seq, Vs);
+      stage_f32<D>(k + head, in.row, k0, seq, Ks);
+      stage_f32<D>(v + head, in.row, k0, seq, Vs);
       __syncthreads();
       float s[kRows][kCols], dp[kRows][kCols];
       dot_tile<D>(s, Qs, Ks, ty, tx);
@@ -448,7 +453,7 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float
     const int row = q0 + ty * kRows + r;
     if (row < seq) {
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) dq[head + (size_t)row * D + tx + 16 * j] = acc[r][j] * scale;
+      for (int j = 0; j < D / 16; ++j) dq[head + (size_t)row * in.row + tx + 16 * j] = acc[r][j] * scale;
     }
   }
 }
@@ -464,7 +469,7 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const uint8_t* __restrict__ mask,
              const float* __restrict__ dout, const float* __restrict__ stats,
              const float* __restrict__ dsum, float* __restrict__ dk, float* __restrict__ dv,
-             int H, int seq, float scale) {
+             int H, int seq, float scale, HeadStrides in, HeadStrides out) {
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + kBlock * (D + 1);
@@ -479,10 +484,10 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int key_base = blockIdx.x * kBlock;
   const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = rows * D;
+  const size_t head = in.at(blockIdx.z, blockIdx.y), ohead = out.at(blockIdx.z, blockIdx.y);
   const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  stage_f32<D>(k + head, key_base, seq, Ks);
-  stage_f32<D>(v + head, key_base, seq, Vs);
+  stage_f32<D>(k + head, in.row, key_base, seq, Ks);
+  stage_f32<D>(v + head, in.row, key_base, seq, Vs);
 
   bool kin[kRows], masked[kRows];
   float dk_acc[kRows][D / 16], dv_acc[kRows][D / 16];
@@ -499,8 +504,8 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int q0 = t * kBlock;
     __syncthreads();
-    stage_f32<D>(q + head, q0, seq, Qs);
-    stage_f32<D>(dout + head, q0, seq, Os);
+    stage_f32<D>(q + head, in.row, q0, seq, Qs);
+    stage_f32<D>(dout + ohead, out.row, q0, seq, Os);
     for (int i = tid; i < kBlock; i += kThreads) {
       const bool valid = q0 + i < seq;
       const float2 st = valid ? *reinterpret_cast<const float2*>(stats + 2 * (rows + q0 + i))
@@ -536,8 +541,8 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (key < seq) {
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) {
-        dk[head + (size_t)key * D + tx + 16 * j] = dk_acc[r][j] * scale;
-        dv[head + (size_t)key * D + tx + 16 * j] = dv_acc[r][j];
+        dk[head + (size_t)key * in.row + tx + 16 * j] = dk_acc[r][j] * scale;
+        dv[head + (size_t)key * in.row + tx + 16 * j] = dv_acc[r][j];
       }
     }
   }
@@ -553,6 +558,7 @@ struct Args {
   void *dq, *dk, *dv;
   int B, H, seq;
   float scale;
+  HeadStrides in, out;  // q, k, v, dq, dk, dv; dO
   cudaStream_t stream;
 };
 
@@ -563,13 +569,13 @@ cudaError_t launch_bf16(const Args& a) {
   bwd_dq_bf16<D><<<grid, kMmaThreads, 0, a.stream>>>(
       static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
       a.mask, static_cast<const bf*>(a.dout), a.stats, a.dsum, static_cast<bf*>(a.dq), a.H,
-      a.seq, a.scale);
+      a.seq, a.scale, a.in, a.out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dkdv_bf16<D><<<grid, kMmaThreads, 0, a.stream>>>(
       static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
       a.mask, static_cast<const bf*>(a.dout), a.stats, a.dsum, static_cast<bf*>(a.dk),
-      static_cast<bf*>(a.dv), a.H, a.seq, a.scale);
+      static_cast<bf*>(a.dv), a.H, a.seq, a.scale, a.in, a.out);
   return cudaGetLastError();
 }
 
@@ -587,13 +593,14 @@ cudaError_t launch_f32(const Args& a) {
   bwd_dq_f32<D><<<grid, kThreads, smem_dq, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.mask, static_cast<const float*>(a.dout), a.stats,
-      a.dsum, static_cast<float*>(a.dq), a.H, a.seq, a.scale);
+      a.dsum, static_cast<float*>(a.dq), a.H, a.seq, a.scale, a.in, a.out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dkdv_f32<D><<<grid, kThreads, smem_dkdv, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.mask, static_cast<const float*>(a.dout), a.stats,
-      a.dsum, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.seq, a.scale);
+      a.dsum, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.seq, a.scale, a.in,
+      a.out);
   return cudaGetLastError();
 }
 
@@ -601,17 +608,18 @@ cudaError_t launch_f32(const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t
 // (0 = launched); cudaErrorInvalidValue for a shape or type it does not take.
-// q, k, v, dout, dq, dk, dv contiguous (B, H, T, head_dim); mask contiguous
-// (B, T) bytes; stats the forward's (B, H, T, 2) f32 row (m, l); dsum (B, H, T)
-// f32 scratch that pass 1 fills and pass 2 reads.
+// q, k, v, dq, dk, dv at `in` and dout at `out` (see HeadStrides; rows
+// 16-byte aligned); mask contiguous (B, T) bytes; stats the forward's
+// (B, H, T, 2) f32 row (m, l); dsum (B, H, T) f32 scratch that pass 1 fills
+// and pass 2 reads.
 inline cudaError_t flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const uint8_t* mask, const void* dout, const float* stats,
                                        float* dsum, void* dq, void* dk, void* dv, int B, int H,
                                        int seq, int head_dim, int dtype, float scale,
-                                       cudaStream_t stream) {
+                                       HeadStrides in, HeadStrides out, cudaStream_t stream) {
   using namespace flash_bwd;
   if (B <= 0 || H <= 0 || seq <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, mask, stats, dsum, dq, dk, dv, B, H, seq, scale, stream};
+  const Args a{q, k, v, dout, mask, stats, dsum, dq, dk, dv, B, H, seq, scale, in, out, stream};
   if (dtype == 0 && head_dim == 32) return launch_f32<32>(a);
   if (dtype == 0 && head_dim == 64) return launch_f32<64>(a);
   if (dtype == 1 && head_dim == 32) return launch_bf16<32>(a);

@@ -8,7 +8,8 @@ extern "C" int wavjepa_flash_attention_fwd(const void* q, const void* k, const v
                                            const void* mask, void* o, void* stats, int B, int H,
                                            int seq, int head_dim, int dtype, float scale,
                                            void* stream) {
+  const wavjepa::HeadStrides heads = wavjepa::contiguous_heads(H, seq, head_dim);
   return wavjepa::flash_attention_fwd(q, k, v, static_cast<const uint8_t*>(mask), o,
                                       static_cast<float*>(stats), B, H, seq, head_dim, dtype,
-                                      scale, static_cast<cudaStream_t>(stream));
+                                      scale, heads, heads, static_cast<cudaStream_t>(stream));
 }

@@ -4,10 +4,12 @@
 // Replaces the TPU kernel wavjepa_tpu/ops/flash_attention.py:_fwd_kernel
 // (launched by _fwd through pl.pallas_call). It computes, per (batch, head):
 //     o = softmax(d^-1/2 * q k^T, masked keys set to the f32 minimum) v
-// with q, k, v, o of shape (B, H, T, d) in bf16 or f32 and mask (B, T) bool,
-// true = ignore that key. Scores and softmax are f32, the scale multiplies
-// the f32 scores, P is rounded to the input type before P·V, and P·V
-// accumulates in f32; the output is in the input type.
+// with q, k, v, o of shape (B, H, T, d) in bf16 or f32, each addressed
+// through HeadStrides (attention_common.cuh): contiguous for the flash path,
+// token-major column blocks for the fused block, with no copy between; and
+// mask (B, T) bool, true = ignore that key. Scores and softmax are f32, the
+// scale multiplies the f32 scores, P is rounded to the input type before
+// P·V, and P·V accumulates in f32; the output is in the input type.
 //
 // What bounds it on an H100. The work is 4·B·H·T²·d operations over
 // 8·B·H·T·d bytes in bf16 (q, k, v read once, o written once), an intensity
@@ -73,7 +75,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
                          __nv_bfloat16* __restrict__ o, float* __restrict__ stats, int H,
-                         int seq, float scale) {
+                         int seq, float scale, HeadStrides in, HeadStrides out) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int KS = D + kPad;        // K row stride
   constexpr int VS = kBlockK + kPad;  // Vᵀ row stride
@@ -91,13 +93,13 @@ flash_attention_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t rows = ((size_t)b * H + h) * (size_t)seq;  // first row of this (b, h)
-  const size_t head = rows * D;
+  const size_t head = in.at(b, h), ohead = out.at(b, h);
   const uint8_t* mrow = mask + (size_t)b * seq;
   const bool in0 = row0 < seq, in1 = row0 + 8 < seq;
 
   // the warp's 16 query rows, all of d, as A fragments
   uint32_t qa[kDSteps][4];
-  load_a_rows<D>(qa, q + head, row0, in0, in1, c);
+  load_a_rows<D>(qa, q + head, in.row, row0, in0, in1, c);
 
   float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8
   float l[2] = {0.f, 0.f};              // this lane's share of the row sums
@@ -110,12 +112,13 @@ flash_attention_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     const int k0 = t * kBlockK;
     __syncthreads();  // the previous tile is consumed
     constexpr int kChunks = kBlockK * D / 8;  // 16-byte chunks of a tile
+    const size_t tile = head + (size_t)k0 * in.row;  // in-tile offsets fit an int
     for (int i = tid; i < kChunks; i += kMmaThreads) {
       const int r = i / (D / 8), col = (i % (D / 8)) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (k0 + r < seq) {
-        kv = *reinterpret_cast<const uint4*>(k + head + (size_t)(k0 + r) * D + col);
-        vv = *reinterpret_cast<const uint4*>(v + head + (size_t)(k0 + r) * D + col);
+        kv = *reinterpret_cast<const uint4*>(k + tile + (r * in.row + col));
+        vv = *reinterpret_cast<const uint4*>(v + tile + (r * in.row + col));
       }
       *reinterpret_cast<uint4*>(&Ks[r * KS + col]) = kv;
       const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
@@ -203,10 +206,10 @@ flash_attention_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   for (int dt = 0; dt < kOTiles; ++dt) {
     const int col = dt * 8 + 2 * c;
     if (in0)
-      *reinterpret_cast<uint32_t*>(o + head + (size_t)row0 * D + col) =
+      *reinterpret_cast<uint32_t*>(o + ohead + (size_t)row0 * out.row + col) =
           pack_bf16x2(acc[dt][0] * inv0, acc[dt][1] * inv0);
     if (in1)
-      *reinterpret_cast<uint32_t*>(o + head + (size_t)(row0 + 8) * D + col) =
+      *reinterpret_cast<uint32_t*>(o + ohead + (size_t)(row0 + 8) * out.row + col) =
           pack_bf16x2(acc[dt][2] * inv1, acc[dt][3] * inv1);
   }
 }
@@ -229,7 +232,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const uint8_t* __restrict__ mask,
                         float* __restrict__ o, float* __restrict__ stats, int H, int seq,
-                        float scale) {
+                        float scale, HeadStrides in, HeadStrides out) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int kOutCols = D / 16;  // output columns tx + 16·j a thread owns
 
@@ -246,13 +249,13 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t rows = ((size_t)b * H + h) * (size_t)seq;
-  const size_t head = rows * D;
+  const size_t head = in.at(b, h), ohead = out.at(b, h);
   const uint8_t* mrow = mask + (size_t)b * seq;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int row = q0 + r;
-    Qs[r * (D + 1) + c] = row < seq ? q[head + (size_t)row * D + c] : 0.f;
+    Qs[r * (D + 1) + c] = row < seq ? q[head + (size_t)row * in.row + c] : 0.f;
   }
 
   float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][kOutCols];
@@ -271,9 +274,9 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
     for (int i = tid; i < kBlockK * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const int key = k0 + r;
-      const bool in = key < seq;
-      Ks[r * (D + 1) + c] = in ? k[head + (size_t)key * D + c] : 0.f;
-      Vs[r * D + c] = in ? v[head + (size_t)key * D + c] : 0.f;
+      const bool valid = key < seq;
+      Ks[r * (D + 1) + c] = valid ? k[head + (size_t)key * in.row + c] : 0.f;
+      Vs[r * D + c] = valid ? v[head + (size_t)key * in.row + c] : 0.f;
     }
     __syncthreads();
 
@@ -351,38 +354,46 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
       *reinterpret_cast<float2*>(stats + 2 * (rows + row)) = make_float2(m[r], lr);
     if (row < seq) {
 #pragma unroll
-      for (int j = 0; j < kOutCols; ++j) o[head + (size_t)row * D + tx + 16 * j] = acc[r][j] * inv;
+      for (int j = 0; j < kOutCols; ++j) o[ohead + (size_t)row * out.row + tx + 16 * j] = acc[r][j] * inv;
     }
   }
 }
 
 // ------------------------------------------------------------------ launch
 
+struct Args {
+  const void *q, *k, *v;
+  const uint8_t* mask;
+  void* o;
+  float* stats;
+  int B, H, seq;
+  float scale;
+  HeadStrides in, out;  // q, k, v; o
+  cudaStream_t stream;
+};
+
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const uint8_t* mask,
-                        void* o, float* stats, int B, int H, int seq, float scale,
-                        cudaStream_t stream) {
-  dim3 grid((seq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_fwd_bf16<D><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(o), stats, H, seq,
-      scale);
+cudaError_t launch_bf16(const Args& a) {
+  dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.H, a.B);
+  flash_attention_fwd_bf16<D><<<grid, kMmaThreads, 0, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.mask, static_cast<__nv_bfloat16*>(a.o), a.stats,
+      a.H, a.seq, a.scale, a.in, a.out);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const uint8_t* mask, void* o,
-                       float* stats, int B, int H, int seq, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const Args& a) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   auto kernel = flash_attention_fwd_f32<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((seq + kBlockQ - 1) / kBlockQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q),
-                                           static_cast<const float*>(k),
-                                           static_cast<const float*>(v), mask,
-                                           static_cast<float*>(o), stats, H, seq, scale);
+  dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.H, a.B);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, static_cast<float*>(a.o), a.stats, a.H, a.seq,
+      a.scale, a.in, a.out);
   return cudaGetLastError();
 }
 
@@ -390,18 +401,20 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const uint8_
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t
 // (0 = launched); cudaErrorInvalidValue for a shape or type it does not take.
-// q, k, v, o contiguous (B, H, T, head_dim); mask contiguous (B, T) bytes;
-// stats null, or contiguous (B, H, T, 2) f32 to receive each row's (m, l).
+// q, k, v at `in` and o at `out` (see HeadStrides; rows 16-byte aligned);
+// mask contiguous (B, T) bytes; stats null, or contiguous (B, H, T, 2) f32
+// to receive each row's (m, l).
 inline cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const uint8_t* mask, void* o, float* stats, int B, int H,
                                        int seq, int head_dim, int dtype, float scale,
-                                       cudaStream_t s) {
+                                       HeadStrides in, HeadStrides out, cudaStream_t s) {
   using namespace flash_fwd;
   if (B <= 0 || H <= 0 || seq <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 32) return launch_f32<32>(q, k, v, mask, o, stats, B, H, seq, scale, s);
-  if (dtype == 0 && head_dim == 64) return launch_f32<64>(q, k, v, mask, o, stats, B, H, seq, scale, s);
-  if (dtype == 1 && head_dim == 32) return launch_bf16<32>(q, k, v, mask, o, stats, B, H, seq, scale, s);
-  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(q, k, v, mask, o, stats, B, H, seq, scale, s);
+  const Args a{q, k, v, mask, o, stats, B, H, seq, scale, in, out, s};
+  if (dtype == 0 && head_dim == 32) return launch_f32<32>(a);
+  if (dtype == 0 && head_dim == 64) return launch_f32<64>(a);
+  if (dtype == 1 && head_dim == 32) return launch_bf16<32>(a);
+  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(a);
   return cudaErrorInvalidValue;
 }
 

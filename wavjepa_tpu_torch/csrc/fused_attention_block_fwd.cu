@@ -29,17 +29,21 @@
 // the sum over heads fits a block. Three launches on the caller's stream,
 // each on the tensor cores in bf16:
 //   1. the QKV projection, a product (B·T × D)·(D × 3D) with the bias added
-//      and rounded in its epilogue, written split by head as (3, B, H, T,
-//      hd) (block_gemm.cuh);
+//      and rounded in its epilogue, written token-major as (B·T, 3D) —
+//      q, k, v are its three column blocks (hopper_gemm.cuh: TMA, wgmma);
 //   2. attention per (batch, head, 64 query rows) with an online softmax
-//      over 64-key tiles, o rounded to x's type as (B, H, T, hd)
+//      over 64-key tiles, reading each head's q, k, v with a row stride of
+//      3D and writing o rounded to x's type as (B·T, D)
 //      (flash_attention_fwd.cuh, the same core as the unfused path);
-//   3. the output projection, (B·T × D)·(D × D) reading o across heads, so
-//      the sum over heads is one f32 sum rounded once, plus bo.
+//   3. the output projection, (B·T × D)·(D × D) over o's columns, which are
+//      (head, i): the sum over heads is one f32 sum rounded once, plus bo.
+// Every operand of both products is then a plain row-major matrix, so one
+// 2-D TMA descriptor loads each tile; nothing is permuted in device memory.
 // q, k, v and o make one round trip through device memory (8·B·T·D·e bytes
 // more than the bound counts, 50 MB at the decoder microbatch, largely
 // within the 50 MB L2 at the smaller shapes); nothing of size T² does. The
-// caller passes that scratch: the kernels allocate nothing.
+// caller passes that scratch: the kernels allocate nothing. f32 (parity
+// checks) runs the same three steps with block_gemm.cuh's FMA products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,43 +51,51 @@
 
 #include "block_gemm.cuh"
 #include "flash_attention_fwd.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
-using namespace wavjepa::block_gemm;
+namespace bg = wavjepa::block_gemm;
+namespace hg = wavjepa::hopper_gemm;
 using wavjepa::flash_attention_fwd;
+using wavjepa::token_major;
 
 template <typename T>
 cudaError_t forward(const T* x, const T* w_in, const T* b_in, const T* w_out, const T* b_out,
                     const uint8_t* mask, T* out, T* scratch, int B, int seq, int H, int hd,
                     int dtype, float scale, cudaStream_t s) {
   const int D = H * hd, M = B * seq;
-  const size_t md = (size_t)M * D;
-  T* qkv = scratch;    // (3, B, H, T, hd)
-  T* o = scratch + 3 * md;  // (B, H, T, hd)
-  // 1. qkv[m, (p, h, i)] = x[m, :] · w_in[(p, h, i), :] + b_in
-  cudaError_t err = gemm<T>(Along<T, RowMajor<const T>>{{x, D}, M},
-                            Along<T, RowMajor<const T>>{{w_in, D}, 3 * D},
-                            ToHeads<T>{{qkv, B, H, seq, hd}, b_in}, M, 3 * D, D, 1, nullptr, 0, s);
+  T* qkv = scratch;                      // (B·T, 3D): q | k | v, each (head, i)
+  T* o = scratch + (size_t)3 * M * D;    // (B·T, D)
+  // 1. qkv[m, j] = x[m, :] · w_in[j, :] + b_in[j]
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2)
+    err = hg::gemm<0, 0>(x, D, w_in, D, hg::ToBf16{qkv, 3 * D, b_in}, M, 3 * D, D, 1, s);
+  else
+    err = bg::gemm(bg::Along{{x, D}, M}, bg::Along{{w_in, D}, 3 * D}, bg::ToRows{qkv, 3 * D, b_in},
+                   M, 3 * D, D, 1, s);
   if (err != cudaSuccess) return err;
   // 2. o = attention of each (batch, head)
-  err = flash_attention_fwd(qkv, qkv + md, qkv + 2 * md, mask, o, nullptr, B, H, seq, hd, dtype,
-                            scale, s);
+  err = flash_attention_fwd(qkv, qkv + D, qkv + 2 * D, mask, o, nullptr, B, H, seq, hd, dtype,
+                            scale, token_major(seq, 3 * D, hd), token_major(seq, D, hd), s);
   if (err != cudaSuccess) return err;
-  // 3. out[m, n] = o[m, (h, i)] · w_out[(h, i), n] + b_out
-  return gemm<T>(Along<T, Heads<const T>>{{o, B, H, seq, hd}, M},
-                 Across<T, RowMajor<const T>>{{w_out, D}, D}, ToRows<T>{out, D, b_out}, M, D, D, 1,
-                 nullptr, 0, s);
+  // 3. out[m, n] = o[m, :] · w_out[n, :] + b_out[n]
+  if constexpr (sizeof(T) == 2)
+    return hg::gemm<0, 0>(o, D, w_out, D, hg::ToBf16{out, D, b_out}, M, D, D, 1, s);
+  else
+    return bg::gemm(bg::Along{{o, D}, M}, bg::Along{{w_out, D}, D}, bg::ToRows{out, D, b_out}, M,
+                    D, D, 1, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t
 // (0 = launched); cudaErrorInvalidValue for a shape or type it does not take.
-// All contiguous: x, out (B, T, D); w_in (3D, D), rows (part, head, i), the
-// torch in_proj layout of Wqkv; b_in (3D,) in the same order; w_out (D, D),
-// rows (head, i), which is Wo (H, hd, D); b_out (D,); mask (B, T) bytes;
-// scratch 4·B·T·D elements of x's type.
+// All contiguous and 16-byte aligned, in the torch module's layouts: x, out
+// (B, T, D); w_in (3D, D), rows (part, head, i), MultiheadAttention's
+// in_proj_weight; b_in (3D,) in the same order; w_out (D, D), out_proj.weight,
+// columns (head, i); b_out (D,); mask (B, T) bytes; scratch 4·B·T·D elements
+// of x's type.
 extern "C" int wavjepa_fused_attention_block_fwd(const void* x, const void* w_in,
                                                  const void* b_in, const void* w_out,
                                                  const void* b_out, const void* mask, void* out,

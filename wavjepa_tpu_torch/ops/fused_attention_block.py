@@ -5,20 +5,24 @@ Counterpart of ``wavjepa_tpu/ops/fused_attention_block.py``:
 ``fused_attention_block`` and its custom VJP (``_fwd_kernel`` and
 ``_bwd_kernel``), which compute OutProj(MHSA(QKVProj(x))) per batch row.
 The kernels are ``csrc/fused_attention_block_fwd.cu`` and
-``csrc/fused_attention_block_bwd.cu``; their sources say what bounds them on
-the card and how their design answers that.
+``csrc/fused_attention_block_bwd.cu`` (their products in
+``csrc/hopper_gemm.cuh``); their sources say what bounds them on the card
+and how their design answers that.
 
-``fused_attention_block(x, wqkv, bqkv, wo, bo, mask)`` keeps the JAX
-signature (``interpret`` dropped) and layouts: x (B, T, D); wqkv (H, D, 3·hd)
-with column blocks [Wq_h | Wk_h | Wv_h]; bqkv (H, 1, 3·hd); wo (H, hd, D);
-bo (1, D); mask (B, T) bool, True = ignore that key. ``pack_weights`` makes
-those layouts from the port's torch parameters. When a gradient is wanted it
-goes through ``FusedAttentionBlock``, a ``torch.autograd.Function`` that
-saves only its inputs and whose backward has ``_bwd_kernel``'s maths on both
-devices: a fully masked row (uniform P) keeps a non-zero dS, where autograd
-through ``masked_fill`` would zero it. A CUDA tensor always goes to the
-kernels (bf16 or f32, head_dim 32 or 64; anything else raises); a CPU tensor
-goes to the plain versions.
+Two entries. ``fused_self_attention(x, in_proj_weight, in_proj_bias,
+out_proj_weight, out_proj_bias, mask, heads)`` takes the torch module's
+parameters as they lie, which are the kernels' layouts: the transformer
+calls it. ``fused_attention_block(x, wqkv, bqkv, wo, bo, mask)`` keeps the
+JAX signature (``interpret`` dropped) and layouts: x (B, T, D); wqkv
+(H, D, 3·hd) with column blocks [Wq_h | Wk_h | Wv_h]; bqkv (H, 1, 3·hd); wo
+(H, hd, D); bo (1, D); mask (B, T) bool, True = ignore that key. It unpacks
+them (views) and calls the first; ``pack_weights`` goes the other way. When
+a gradient is wanted both go through ``FusedAttentionBlock``, a
+``torch.autograd.Function`` that saves only its inputs and whose backward
+has ``_bwd_kernel``'s maths on both devices: a fully masked row (uniform P)
+keeps a non-zero dS, where autograd through ``masked_fill`` would zero it. A
+CUDA tensor always goes to the kernels (bf16 or f32, head_dim 32 or 64;
+anything else raises); a CPU tensor goes to the plain versions.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
-_TILE = 64  # rows and columns of a weight gradient a kernel block owns
+_TILE = 128  # rows and columns of a weight gradient a kernel tile owns (bf16)
 
 
 def pack_weights(
@@ -44,9 +48,9 @@ def pack_weights(
     out_proj_weight: torch.Tensor, heads: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The port's (3D, D) packed-QKV weight (rows q | k | v, each head-major),
-    (3D,) bias and (D, D) ``out_proj.weight`` → the kernels' per-head layouts
-    ((H, D, 3·hd), (H, 1, 3·hd), (H, hd, D)). Reshapes and permutes only, so
-    autograd carries the gradients back to the parameters."""
+    (3D,) bias and (D, D) ``out_proj.weight`` → the JAX package's per-head
+    layouts ((H, D, 3·hd), (H, 1, 3·hd), (H, hd, D)). Reshapes and permutes
+    only, so autograd carries the gradients back to the parameters."""
     d = in_proj_weight.shape[1]
     hd = d // heads
     wqkv = in_proj_weight.reshape(3, heads, hd, d).permute(1, 3, 0, 2).reshape(heads, d, 3 * hd)
@@ -141,57 +145,139 @@ def _check(x, wqkv, bqkv, wo, mask, bo=None) -> None:
         raise ValueError("x, the weights and mask must be on one device")
 
 
+def _check_params(x, w_in, b_in, w_out, b_out, mask, heads) -> None:
+    """The module's parameters: in_proj_weight (3D, D), in_proj_bias (3D,),
+    out_proj.weight (D, D), out_proj.bias (D,) or None."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, T, D), got {tuple(x.shape)}")
+    b, t, d = x.shape
+    if d % heads:
+        raise ValueError(f"D={d} is not divisible by {heads} heads")
+    want = {"in_proj_weight": (w_in, (3 * d, d)), "in_proj_bias": (b_in, (3 * d,)),
+            "out_proj.weight": (w_out, (d, d))}
+    if b_out is not None:
+        want["out_proj.bias"] = (b_out, (d,))
+    for name, (w, shape) in want.items():
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{name} must be {shape} for D={d}, got {tuple(w.shape)}")
+    if mask.shape != (b, t) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool ({b}, {t}), got {mask.dtype} {tuple(mask.shape)}")
+    weights = [w for w, _ in want.values()]
+    if any(w.dtype != x.dtype for w in weights):
+        raise TypeError(f"x and the weights must share a dtype, got {x.dtype} and "
+                        f"{[w.dtype for w in weights]}")
+    if any(a.device != x.device for a in (*weights, mask)):
+        raise ValueError("x, the weights and mask must be on one device")
+
+
 def _check_kernel_inputs(x: torch.Tensor, heads: int) -> None:
-    """What the kernels take: CUDA, bf16 or f32, head_dim 32 or 64."""
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attention_block runs on cuda or cpu, not {x.device}")
+    """What the kernels take: bf16 (wgmma products) or f32 (parity checks);
+    head_dim 32 or 64 (the attention core), which also makes every row a
+    multiple of the 16 bytes a TMA descriptor's stride must be; fewer
+    elements than the TMA's 32-bit coordinates reach; a CUDA tensor."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.shape[-1] // heads not in _HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got {x.shape[-1] // heads}")
+    b, t, d = x.shape
+    if d % heads or d // heads not in _HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got D={d} over {heads} heads")
+    if b * t * 3 * d >= 2 ** 31:
+        raise ValueError(f"kernel takes fewer than 2^31 elements of qkv, got {b}·{t}·3·{d}")
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attention_block runs on cuda or cpu, not {x.device}")
 
 
-def _kernel_operands(x, wqkv, bqkv, wo, mask):
-    """Contiguous, 16-byte aligned operands in the kernels' layouts (a few
-    copies of D² weights): Wqkv as (3D, D) rows (part, head, i), which is
-    torch's in_proj layout, its bias (3D,) in the same order, Wo as (D, D)
-    rows (head, i)."""
-    heads, d, hd3 = wqkv.shape
-    hd = hd3 // 3
-    w_in = wqkv.reshape(heads, d, 3, hd).permute(2, 0, 3, 1).reshape(3 * d, d).contiguous()
-    b_in = bqkv.reshape(heads, 3, hd).permute(1, 0, 2).reshape(3 * d).contiguous()
-    w_out = wo.reshape(d, d).contiguous()
-    x, mask = x.contiguous(), mask.contiguous()
-    out = [x, w_in, b_in, w_out, mask]
+def _aligned(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Contiguous and 16-byte aligned, copying only what is not."""
+    out = [a.contiguous() for a in tensors]
     return [a if a.data_ptr() % 16 == 0 else a.clone() for a in out]
 
 
+def unpack_weights(
+    wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The inverse of ``pack_weights``: the JAX layouts ((H, D, 3·hd),
+    (H, 1, 3·hd), (H, hd, D)) → the module's (3D, D) in_proj_weight, (3D,)
+    bias and (D, D) out_proj.weight, which the kernels take as they lie.
+    Reshapes and permutes only (a gradient in the JAX layout maps the same
+    way)."""
+    heads, d, hd3 = wqkv.shape
+    hd = hd3 // 3
+    w_in = wqkv.reshape(heads, d, 3, hd).permute(2, 0, 3, 1).reshape(3 * d, d)
+    b_in = bqkv.reshape(heads, 3, hd).permute(1, 0, 2).reshape(3 * d)
+    return w_in, b_in, wo.reshape(d, d).t()
+
+
+def scratch_from_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernels' token-major layout of q, k, v (B, H, T, hd): one
+    (B·T, 3D) matrix whose row b·T + t holds q | k | v, each (head, i) —
+    the QKV product's natural output, and what the attention core reads
+    with a row stride of 3D. dq, dk, dv share it; o and dO are (B·T, D)."""
+    b, _, t, _ = q.shape
+    return torch.cat([a.permute(0, 2, 1, 3).reshape(b * t, -1) for a in (q, k, v)], dim=1)
+
+
+def heads_from_scratch(qkv: torch.Tensor, b: int, heads: int) -> list[torch.Tensor]:
+    """q, k, v (B, H, T, hd) read back from ``scratch_from_heads``' layout,
+    as the attention core addresses them: element (b, h, t, i) of part p at
+    row b·T + t, column p·D + h·hd + i."""
+    rows, d3 = qkv.shape
+    hd = d3 // 3 // heads
+    return [part.reshape(b, rows // b, heads, hd).permute(0, 2, 1, 3)
+            for part in qkv.split(d3 // 3, dim=1)]
+
+
+def _reference_params(x, w_in, b_in, w_out, b_out, mask, heads):
+    """``fused_attention_block_reference`` on the module's parameters."""
+    wqkv, bqkv, wo = pack_weights(w_in, b_in, w_out, heads)
+    return fused_attention_block_reference(x, wqkv, bqkv, wo, b_out[None], mask)
+
+
+def _bwd_reference_params(x, w_in, b_in, w_out, mask, g, heads):
+    """``fused_attention_block_bwd_reference`` on the module's parameters,
+    the weight gradients in their layouts: (dx, dw_in, db_in, dw_out, db_out)."""
+    dx, dwqkv, dbqkv, dwo, dbo = fused_attention_block_bwd_reference(
+        x, *pack_weights(w_in, b_in, w_out, heads), mask, g)
+    return (dx, *unpack_weights(dwqkv, dbqkv, dwo), dbo.reshape(-1))
+
+
+def weight_grad_tiles(d: int) -> tuple[int, int]:
+    """Output tiles of the weight-gradient products at width D: dW_in is
+    (3D, D), dWo (D, D)."""
+    t = -(-d // _TILE)
+    return 3 * t * t, t * t
+
+
 def weight_grad_splits(rows: int, tiles: int, sms: int) -> int:
-    """Chunks of the rows a weight gradient sums over, each summed by its own
-    blocks into an f32 partial and the partials then summed in order: enough
-    blocks for about four waves of the card's ``sms`` multiprocessors, at
-    least 256 rows a chunk and at most 16 chunks, so that the partials never
-    scale with the batch."""
-    return max(1, min(16, -(-4 * sms // tiles), rows // 256))
+    """Chunks of the rows a weight gradient sums over, each an f32 partial
+    that is then summed in order: at most 16 chunks and at least 256 rows a
+    chunk, so that the partials never scale with the batch. Within that, the
+    count that leaves the card's ``sms`` persistent blocks the least work
+    each — rounds of the tiles·chunks over the card, over the chunks — the
+    smaller count on a tie."""
+    best = 1
+    for s in range(2, max(1, min(16, rows // 256)) + 1):
+        if -(-tiles * s // sms) * best < -(-tiles * best // sms) * s:
+            best = s
+    return best
 
 
 def fused_attention_block_fwd(
-    x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor,
-    bo: torch.Tensor, mask: torch.Tensor,
+    x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+    b_out: torch.Tensor, mask: torch.Tensor, heads: int,
 ) -> torch.Tensor:
-    """(B, T, D) in x's dtype from the forward kernel. CUDA tensors only:
-    the CPU path is ``fused_attention_block_reference``."""
-    _check(x, wqkv, bqkv, wo, mask, bo)
-    heads = wqkv.shape[0]
+    """(B, T, D) in x's dtype from the forward kernel, on the module's
+    parameters (in_proj_weight (3D, D), in_proj_bias (3D,), out_proj.weight
+    (D, D), out_proj.bias (D,)). CUDA tensors only: the CPU path is
+    ``fused_attention_block_reference``."""
+    _check_params(x, w_in, b_in, w_out, b_out, mask, heads)
     _check_kernel_inputs(x, heads)
     b, t, d = x.shape
-    x, w_in, b_in, w_out, mask = _kernel_operands(x, wqkv, bqkv, wo, mask)
-    bo = bo.reshape(d).contiguous()
+    x, w_in, b_in, w_out, b_out, mask = _aligned(x, w_in, b_in, w_out, b_out, mask)
     out = torch.empty_like(x)
-    scratch = torch.empty((4, b * t * d), dtype=x.dtype, device=x.device)  # q, k, v, o
+    scratch = torch.empty(b * t * 4 * d, dtype=x.dtype, device=x.device)  # qkv, o
     with torch.cuda.device(x.device):
         err = _fwd_fn()(
-            x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(), w_out.data_ptr(), bo.data_ptr(),
+            x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
             mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             b, t, heads, d // heads, _DTYPE_CODES[x.dtype], 1.0 / math.sqrt(d // heads),
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -206,35 +292,32 @@ fused_attention_block_fwd.launches = 0  # kernel launches; the CPU path never co
 
 
 def fused_attention_block_bwd(
-    x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor,
-    mask: torch.Tensor, g: torch.Tensor,
+    x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+    mask: torch.Tensor, g: torch.Tensor, heads: int,
 ) -> tuple[torch.Tensor, ...]:
-    """(dx, dwqkv, dbqkv, dwo, dbo) from the backward kernel: dx in x's dtype,
-    the weight gradients in f32, summed over the batch in a fixed order (two
-    calls give equal bits). CUDA tensors only: the CPU path is
-    ``fused_attention_block_bwd_reference``."""
-    b, t, d = x.shape
-    _check(x, wqkv, bqkv, wo, mask)
+    """(dx, dw_in, db_in, dw_out, db_out) from the backward kernel: dx in x's
+    dtype, the weight gradients in f32 and in the parameters' layouts,
+    summed over the batch in a fixed order (two calls give equal bits). CUDA
+    tensors only: the CPU path is ``fused_attention_block_bwd_reference``."""
+    _check_params(x, w_in, b_in, w_out, None, mask, heads)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"g must match x: {g.dtype} {tuple(g.shape)} on {g.device}")
-    heads = wqkv.shape[0]
     _check_kernel_inputs(x, heads)
+    b, t, d = x.shape
     hd = d // heads
-    x, w_in, b_in, w_out, mask = _kernel_operands(x, wqkv, bqkv, wo, mask)
-    g = g.contiguous()
-    if g.data_ptr() % 16:
-        g = g.clone()
+    x, w_in, b_in, w_out, mask, g = _aligned(x, w_in, b_in, w_out, mask, g)
     dev = x.device
-    rows, tiles = b * t, -(-d // _TILE)
+    rows = b * t
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits_in = weight_grad_splits(rows, 3 * tiles * tiles, sms)
-    splits_out = weight_grad_splits(rows, tiles * tiles, sms)
+    tiles_in, tiles_out = weight_grad_tiles(d)
+    splits_in = weight_grad_splits(rows, tiles_in, sms)
+    splits_out = weight_grad_splits(rows, tiles_out, sms)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    grad_in = torch.empty(3 * d * d + 3 * d, **f32)  # dW (D, 3D) columns (part, head, i), then db
-    grad_out = torch.empty(d * d + d, **f32)         # dWo (D, D) rows (head, i), then dbo
-    # kernel scratch: q, k, v, o, dO, dq, dk, dv; row statistics; f32 partials
-    acts = torch.empty((8, rows * d), dtype=x.dtype, device=dev)
+    grad_in = torch.empty(3 * d * d + 3 * d, **f32)  # dW_in (3D, D), then db_in
+    grad_out = torch.empty(d * d + d, **f32)         # dW_out (D, D), then db_out
+    # kernel scratch: qkv, o, dO, dqkv; row statistics; f32 partials
+    acts = torch.empty(rows * 8 * d, dtype=x.dtype, device=dev)
     stats = torch.empty((b, heads, t, 2), **f32)
     dsum = torch.empty((b, heads, t), **f32)
     part_in = torch.empty((splits_in, grad_in.numel()), **f32)
@@ -250,58 +333,70 @@ def fused_attention_block_bwd(
     if err != 0:
         raise RuntimeError(f"fused_attention_block_bwd launch failed: cudaError_t {err}")
     fused_attention_block_bwd.launches += 1
-    dw_in, db_in = grad_in[: 3 * d * d].view(d, 3, heads, hd), grad_in[3 * d * d:]
-    dwqkv = dw_in.permute(2, 0, 1, 3).reshape(heads, d, 3 * hd)
-    dbqkv = db_in.view(3, heads, hd).permute(1, 0, 2).reshape(heads, 1, 3 * hd)
-    dwo = grad_out[: d * d].view(heads, hd, d)
-    dbo = grad_out[d * d:].view(1, d)
-    return dx, dwqkv, dbqkv, dwo, dbo
+    return (dx, grad_in[: 3 * d * d].view(3 * d, d), grad_in[3 * d * d:],
+            grad_out[: d * d].view(d, d), grad_out[d * d:])
 
 
 fused_attention_block_bwd.launches = 0  # kernel launches; the CPU path never counts
 
 
 class FusedAttentionBlock(torch.autograd.Function):
-    """The block with ``_bwd_kernel``'s gradient: the kernels on CUDA
-    tensors, the plain versions on CPU tensors. Saves only its inputs, as
-    the JAX ``_fwd`` does; the weight gradients come back in the weights'
-    dtype, as ``_bwd`` returns them."""
+    """The block on the module's parameters with ``_bwd_kernel``'s gradient:
+    the kernels on CUDA tensors, the plain versions on CPU tensors. Saves
+    only its inputs, as the JAX ``_fwd`` does; the weight gradients come
+    back in the parameters' layouts and dtype, as ``_bwd`` returns them."""
 
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wo, bo, mask):
+    def forward(ctx, x, w_in, b_in, w_out, b_out, mask, heads):
         if x.device.type == "cpu":
-            out = fused_attention_block_reference(x, wqkv, bqkv, wo, bo, mask)
+            out = _reference_params(x, w_in, b_in, w_out, b_out, mask, heads)
         else:
-            out = fused_attention_block_fwd(x, wqkv, bqkv, wo, bo, mask)
-        ctx.save_for_backward(x, wqkv, bqkv, wo, bo, mask)
+            out = fused_attention_block_fwd(x, w_in, b_in, w_out, b_out, mask, heads)
+        ctx.save_for_backward(x, w_in, b_in, w_out, b_out, mask)
+        ctx.heads = heads
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, wqkv, bqkv, wo, bo, mask = ctx.saved_tensors
+        x, w_in, b_in, w_out, b_out, mask = ctx.saved_tensors
         g = g.to(x.dtype)
         if x.device.type == "cpu":
-            grads = fused_attention_block_bwd_reference(x, wqkv, bqkv, wo, mask, g)
+            grads = _bwd_reference_params(x, w_in, b_in, w_out, mask, g, ctx.heads)
         else:
-            grads = fused_attention_block_bwd(x, wqkv, bqkv, wo, mask, g)
-        dx, dwqkv, dbqkv, dwo, dbo = grads
-        return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwo.to(wo.dtype),
-                dbo.to(bo.dtype), None)
+            grads = fused_attention_block_bwd(x, w_in, b_in, w_out, mask, g, ctx.heads)
+        dx, dw_in, db_in, dw_out, db_out = grads
+        return (dx, dw_in.to(w_in.dtype), db_in.to(b_in.dtype), dw_out.to(w_out.dtype),
+                db_out.to(b_out.dtype), None, None)
+
+
+def fused_self_attention(
+    x: torch.Tensor, in_proj_weight: torch.Tensor, in_proj_bias: torch.Tensor,
+    out_proj_weight: torch.Tensor, out_proj_bias: torch.Tensor, mask: torch.Tensor,
+    heads: int,
+) -> torch.Tensor:
+    """The block on the torch module's parameters as they lie (no packing):
+    (B, T, D) in x's dtype, differentiable in x and every parameter through
+    ``FusedAttentionBlock``; without a gradient to keep, the forward runs
+    alone."""
+    _check_params(x, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_bias, mask, heads)
+    params = (in_proj_weight, in_proj_bias, out_proj_weight, out_proj_bias)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, *params)):
+        return FusedAttentionBlock.apply(x, *params, mask, heads)
+    if x.device.type == "cpu":
+        return _reference_params(x, *params, mask, heads)
+    return fused_attention_block_fwd(x, *params, mask, heads)
 
 
 def fused_attention_block(
     x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor,
     bo: torch.Tensor, mask: torch.Tensor,
 ) -> torch.Tensor:
-    """OutProj(MHSA(QKVProj(x))), (B, T, D) in x's dtype. Differentiable in
-    x and every weight through ``FusedAttentionBlock``; without a gradient
-    to keep, the forward runs alone."""
+    """OutProj(MHSA(QKVProj(x))) with the JAX signature and layouts, (B, T, D)
+    in x's dtype: the weights are unpacked to the module's layouts (views)
+    and go through ``fused_self_attention``, so gradients reach them."""
     _check(x, wqkv, bqkv, wo, mask, bo)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, wqkv, bqkv, wo, bo)):
-        return FusedAttentionBlock.apply(x, wqkv, bqkv, wo, bo, mask)
-    if x.device.type == "cpu":
-        return fused_attention_block_reference(x, wqkv, bqkv, wo, bo, mask)
-    return fused_attention_block_fwd(x, wqkv, bqkv, wo, bo, mask)
+    return fused_self_attention(x, *unpack_weights(wqkv, bqkv, wo), bo.reshape(-1), mask,
+                                wqkv.shape[0])
 
 
 @functools.cache

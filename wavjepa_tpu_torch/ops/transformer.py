@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavjepa_tpu_torch.ops.flash_attention import flash_attention
-from wavjepa_tpu_torch.ops.fused_attention_block import fused_attention_block, pack_weights
+from wavjepa_tpu_torch.ops.fused_attention_block import fused_self_attention
 
 # every attn_impl the JAX package names; all but "fused_block" mean the
 # flash-attention kernel on CUDA tensors and its plain version on the CPU;
@@ -135,14 +135,12 @@ class MultiHeadSelfAttention(nn.Module):
         h = self.num_heads
         if key_padding_mask is None:
             key_padding_mask = torch.zeros((b, t), dtype=torch.bool, device=x.device)
-        if self.attn_impl == "fused_block":
-            wqkv, bqkv, wo = pack_weights(
-                self.in_proj_weight.to(self.dtype), self.in_proj_bias.to(self.dtype),
-                self.out_proj.weight.to(self.dtype), h,
+        if self.attn_impl == "fused_block":  # the parameters as they lie
+            return fused_self_attention(
+                x.to(self.dtype), self.in_proj_weight.to(self.dtype),
+                self.in_proj_bias.to(self.dtype), self.out_proj.weight.to(self.dtype),
+                self.out_proj.bias.to(self.dtype), key_padding_mask.contiguous(), h,
             )
-            return fused_attention_block(x.to(self.dtype), wqkv, bqkv, wo,
-                                         self.out_proj.bias.to(self.dtype)[None],
-                                         key_padding_mask.contiguous())
         qkv = F.linear(
             x.to(self.dtype), self.in_proj_weight.to(self.dtype),
             self.in_proj_bias.to(self.dtype),
