@@ -9,12 +9,16 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             (one process each, all at once), print the card and its power
             limit, ptxas's register and spill report, and the count of
             wgmma instructions (``HGMMA`` in ``cuobjdump -sass``) in each
-            library: none in a fused library fails the run;
+            library: none in a flash or fused library fails the run;
 2. kernels  hold each kernel against its plain PyTorch version on the card at
             the shapes the serving and training paths give it, in bf16 and
             f32, and time kernel, plain version, one PyTorch library call,
-            and the bound; the backward also with a fully masked row, whose
-            dq must be non-zero and equal the plain version's; the fused
+            and the bound; also where the kernels change tile or route (the
+            forward at T = 64, 65 and 999, the backward at T = 128 and past
+            it on its two-pass route), each row naming the route it took;
+            the backward also with a fully masked row, whose dq must be
+            non-zero and equal the plain version's, and twice with equal
+            bits; the fused
             block (forward and backward, weight gradients too) likewise at
             the decoder's, the encoder's and serving's shapes, its backward
             twice with equal bits; and the fused block's bf16 product alone
@@ -144,6 +148,18 @@ TRAIN_BWD_SHAPES = [
     ("student_encoder_mb", 16, 12, 88, 64), ("decoder_mb", 64, 12, 128, 32),
     ("ragged_t100", 16, 12, 100, 64),
 ]
+# where the kernels change tile or route: the forward at one 64-row tile and
+# one row past it, and the whole clip at head_dim 32; the backward at the
+# largest T of its one-pass kernel (128) and past it, where the two-pass
+# kernel takes over (129, and the unpacked 200-token encoder)
+EDGE_FWD_SHAPES = [
+    ("edge_t64", 16, 12, 64, 64), ("edge_t65", 16, 12, 65, 32),
+    ("edge_t999_d32", 4, 12, 999, 32),
+]
+EDGE_BWD_SHAPES = [
+    ("edge_t128_d64", 16, 12, 128, 64), ("edge_t129", 16, 12, 129, 64),
+    ("edge_t129_d32", 16, 12, 129, 32), ("unpacked_encoder_t200", 16, 12, 200, 64),
+]
 
 
 def card_line() -> str:
@@ -210,7 +226,7 @@ def phase_kernels(fa) -> list[dict]:
     results = []
     for i, (name, b, h, t) in enumerate(ATTN_SHAPES):
         (q, k, v), mask = card_inputs(b, h, t, HEAD_DIM, seed=i)
-        row = {"shape": name, "B": b, "H": h, "T": t, "d": HEAD_DIM}
+        row = {"shape": name, "B": b, "H": h, "T": t, "d": HEAD_DIM, "route_bf16": "wgmma"}
         for dtype, atol, key in ((torch.float32, F32_ATOL, "f32"),
                                  (torch.bfloat16, BF16_ATOL, "bf16")):
             qq, kk, vv = (x.to(dtype) for x in (q, k, v))
@@ -250,9 +266,9 @@ def phase_train_kernels() -> tuple[list[dict], list[dict]]:
 
     F = torch.nn.functional
     fwd_rows = []
-    for i, (name, b, h, t, d) in enumerate(TRAIN_FWD_SHAPES):
+    for i, (name, b, h, t, d) in enumerate(TRAIN_FWD_SHAPES + EDGE_FWD_SHAPES):
         (q, k, v), mask = card_inputs(b, h, t, d, seed=100 + i)
-        row = {"shape": name, "B": b, "H": h, "T": t, "d": d}
+        row = {"shape": name, "B": b, "H": h, "T": t, "d": d, "route_bf16": "wgmma"}
         stats = not name.startswith("teacher")  # the teacher runs without a gradient
         for dtype, rel, key in ((torch.float32, F32_REL, "f32"), (torch.bfloat16, BF16_REL, "bf16")):
             qq, kk, vv = (x.to(dtype) for x in (q, k, v))
@@ -277,15 +293,19 @@ def phase_train_kernels() -> tuple[list[dict], list[dict]]:
         fwd_rows.append(row)
 
     bwd_rows = []
-    for i, (name, b, h, t, d) in enumerate(TRAIN_BWD_SHAPES):
+    for i, (name, b, h, t, d) in enumerate(TRAIN_BWD_SHAPES + EDGE_BWD_SHAPES):
         (q, k, v, do), mask = card_inputs(b, h, t, d, seed=200 + i, n=4)
-        row = {"shape": name, "B": b, "H": h, "T": t, "d": d}
+        row = {"shape": name, "B": b, "H": h, "T": t, "d": d,
+               "route_bf16": fam.flash_attention_bwd_route(t, d, torch.bfloat16)}
         for dtype, rel, key in ((torch.float32, F32_REL, "f32"), (torch.bfloat16, BF16_REL, "bf16")):
             qq, kk, vv, dd = (x.to(dtype) for x in (q, k, v, do))
             _, stats = fam.flash_attention_fwd(qq, kk, vv, mask, True)
             grads = fam.flash_attention_bwd(qq, kk, vv, mask, dd, stats)
+            again = fam.flash_attention_bwd(qq, kk, vv, mask, dd, stats)
             refs = fam.flash_attention_bwd_reference(qq, kk, vv, mask, dd)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+                raise AssertionError(f"bwd {name} {key}: two calls differ")
             errs = []
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
                 err, ok = scaled_err(g, r, rel)
@@ -298,6 +318,7 @@ def phase_train_kernels() -> tuple[list[dict], list[dict]]:
                 raise AssertionError(f"bwd {name} {key}: fully masked row dq wrong ({row0_err})")
             row[f"max_abs_err_{key}"] = max(errs)
             row[f"masked_row_dq_err_{key}"] = row0_err
+        row["deterministic"] = True
         row["ms"] = cuda_ms(lambda: fam.flash_attention_bwd(qq, kk, vv, mask, dd, stats))
         row["plain_ms"] = cuda_ms(lambda: fam.flash_attention_bwd_reference(qq, kk, vv, mask, dd))
         # SDPA's backward: autograd through SDPA with the same mask and dO,
@@ -313,9 +334,10 @@ def phase_train_kernels() -> tuple[list[dict], list[dict]]:
         row["library_ms"] = both_ms - fwd_ms
         row["library_fwd_bwd_ms"], row["library_fwd_ms"] = both_ms, fwd_ms
         row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, t, d, 2)
-        print(f"[kernels] flash_attention_bwd {name} (B={b}, H={h}, T={t}, d={d}): "
-              f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g} "
-              f"(masked row dq {row['masked_row_dq_err_bf16']:.3g}); bf16 kernel "
+        print(f"[kernels] flash_attention_bwd {name} (B={b}, H={h}, T={t}, d={d}, bf16 route "
+              f"{row['route_bf16']}): err f32 {row['max_abs_err_f32']:.3g} bf16 "
+              f"{row['max_abs_err_bf16']:.3g} (masked row dq {row['masked_row_dq_err_bf16']:.3g}), "
+              f"bitwise repeatable; bf16 kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa bwd (derived) "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
               flush=True)
@@ -366,6 +388,7 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
     one library chain: F.linear, SDPA with the same boolean mask, F.linear
     (the port never calls it)."""
     from wavjepa_tpu_torch.ops import fused_attention_block as fab
+    from wavjepa_tpu_torch.ops.flash_attention import flash_attention_bwd_route
 
     F = torch.nn.functional
 
@@ -424,7 +447,8 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
     bwd_rows = []
     for i, (name, b, t, d, heads) in enumerate(FUSED_BWD_SHAPES):
         x, weights, mask, grad = fused_inputs(b, t, d, heads, seed=400 + i)
-        row = {"shape": name, "B": b, "T": t, "D": d, "H": heads, "hd": d // heads}
+        row = {"shape": name, "B": b, "T": t, "D": d, "H": heads, "hd": d // heads,
+               "core_bwd_route_bf16": flash_attention_bwd_route(t, d // heads, torch.bfloat16)}
         for dtype, rel, key in ((torch.float32, FUSED_F32_REL, "f32"),
                                 (torch.bfloat16, FUSED_BF16_REL, "bf16")):
             xx, gg = x.to(dtype), grad.to(dtype)
@@ -885,7 +909,8 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
     wgmma = sass_wgmma_counts(_build)
     print(f"[build] HGMMA instructions (cuobjdump -sass): {wgmma}", flush=True)
-    for name in ("fused_attention_block_fwd", "fused_attention_block_bwd"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "fused_attention_block_fwd",
+                 "fused_attention_block_bwd"):
         if not wgmma.get(name):
             raise AssertionError(f"{name}: no wgmma (HGMMA) in its machine code")
 
@@ -964,10 +989,12 @@ def main() -> int:
                 kernel_rows[0],  # the windowed HEAR batch, the default serving shape
                 kernel_rows + train_fwd_rows)
     fwd["launches_by_path"] = by_path("flash_attention_fwd", serve)
+    fwd["bf16_routes"] = {r["shape"]: "wgmma" for r in kernel_rows + train_fwd_rows}
     bwd = entry("flash_attention_bwd", "wavjepa_tpu/ops/flash_attention.py:58", 0,
                 train_bwd_rows[2],  # one microbatch of the packed student encoder
                 train_bwd_rows)
     bwd["launches_by_path"] = by_path("flash_attention_bwd")
+    bwd["bf16_routes"] = {r["shape"]: r["route_bf16"] for r in train_bwd_rows}
     bwd["library_ms_is"] = "autograd through SDPA (same mask, dO) less SDPA's forward"
     fused_fwd = entry("fused_attention_block_fwd", "wavjepa_tpu/ops/fused_attention_block.py:47",
                       0, fused_fwd_rows[0],  # one microbatch of the packed decoder

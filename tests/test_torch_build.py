@@ -58,6 +58,21 @@ def test_edited_source_gets_a_new_library(fake_tree):
     assert _build.library_path("a") != first
 
 
+def test_edited_shared_header_renames_every_library(fake_tree):
+    # the flash kernels and the GEMM include one header of Hopper primitives
+    # (csrc/hopper_common.cuh); an edit to it must rebuild all of them
+    csrc, _ = fake_tree
+    names = ("flash_attention_fwd", "flash_attention_bwd", "hopper_gemm")
+    for name in names:
+        (csrc / f"{name}.cu").write_text(f'#include "hopper_common.cuh"  // {name}\n')
+    (csrc / "hopper_common.cuh").write_text("// barriers, TMA, wgmma\n")
+    before = {n: _build.library_path(n) for n in names}
+    (csrc / "hopper_common.cuh").write_text("// barriers, TMA, wgmma, edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert all(before[n] != after[n] for n in names)
+    assert len(set(after.values())) == len(names)
+
+
 def test_failed_source_raises_and_leaves_no_library(fake_tree):
     csrc, build = fake_tree
     (csrc / "good.cu").write_text("// ok\n")
@@ -75,3 +90,11 @@ def test_flash_ab_needs_another_checkout_and_a_card(monkeypatch):
     assert flash_ab.main([]) == 2  # usage
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert flash_ab.main(["."]) == 1  # nothing is built without a card
+
+
+def test_flash_host_needs_a_card(monkeypatch):
+    import torch
+
+    from wavjepa_tpu_torch.tools import flash_host
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert flash_host.main([]) == 1  # nothing is measured without a card

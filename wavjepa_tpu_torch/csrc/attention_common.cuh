@@ -1,10 +1,13 @@
 // Helpers shared by the attention kernels (flash_attention_fwd.cu and
-// flash_attention_bwd.cu): the bf16 tensor-core product, fragment packing,
-// the reductions over the lanes that share a row, and the per-head strides.
+// flash_attention_bwd.cu): the bf16 mma.sync product of the two-pass
+// backward, fragment packing, the reductions over the lanes that share a
+// row, 2^x, a key's sentinel, and the per-head strides.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace wavjepa {
@@ -50,6 +53,24 @@ __device__ __forceinline__ float half_warp_max(float v) {
 __device__ __forceinline__ float half_warp_sum(float v) {
   for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// 2^x on the special function unit (relative error about 2^-22, denormal
+// results flushed to 0; 2^-inf = 0). The bf16 kernels take P = 2^(x − m) in
+// the log2 domain, and round P to bf16 (2^-8) anyway.
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The additive term of a score whose key is `key`, with mask byte `masked`:
+// fmaf(s, scale, bias) is s·scale rounded once (bias 0), the finite f32
+// minimum for a masked key (s·scale is far below its last place), and −inf
+// for a slot past T.
+__device__ __forceinline__ float key_bias(int key, int seq, uint8_t masked) {
+  return key >= seq ? -INFINITY : (masked ? -FLT_MAX : 0.f);
 }
 
 // Where element (b, h, t, i) of a per-head tensor lies: p[b·batch + h·head

@@ -15,3 +15,11 @@ extern "C" int wavjepa_flash_attention_bwd(const void* q, const void* k, const v
                                       dq, dk, dv, B, H, seq, head_dim, dtype, scale, heads, heads,
                                       static_cast<cudaStream_t>(stream));
 }
+
+// The kernel that wavjepa_flash_attention_bwd (and the fused block's
+// backward) runs at this T, head_dim and dtype: 0 f32 on CUDA cores, 1 bf16
+// in one pass (T ≤ 128), 2 bf16 in two passes, -1 none (the call would
+// return cudaErrorInvalidValue).
+extern "C" int wavjepa_flash_attention_bwd_route(int seq, int head_dim, int dtype) {
+  return wavjepa::flash_bwd_route(seq, head_dim, dtype);
+}

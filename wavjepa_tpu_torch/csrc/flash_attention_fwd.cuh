@@ -14,25 +14,47 @@
 // What bounds it on an H100. The work is 4·B·H·T²·d operations over
 // 8·B·H·T·d bytes in bf16 (q, k, v read once, o written once), an intensity
 // of about T/2 operations a byte. The card needs about 295 in bf16 before its
-// tensor cores, not its memory, are the limit: at the windowed T=200 the
-// kernel is bound by bytes (~100 a byte), at the whole-clip T=999 by
-// operations (~500 a byte).
+// tensor cores, not its memory, are the limit: at the windowed T=200 and the
+// training shapes (T = 88, 128) the kernel is bound by bytes (44-100 a
+// byte), at the whole-clip T=999 by operations (~500 a byte).
 //
 // What the design does about that. The TPU kernel keeps the whole (H, T, T)
 // f32 score block in VMEM; at T=999 that is 48 MB for 12 heads, and Hopper
-// gives a block 227 KB. Here a block owns 64 query rows of one (batch, head)
-// and walks the keys in tiles of 64: each K and V tile is staged once in
-// shared memory, the 64×64 score tile lives in registers, and a running max
-// and sum per row rescale the f32 accumulator, so nothing of size T² reaches
-// device memory and q, k, v are read from it once per query block.
-//   * bf16 (serving): four warps, 16 query rows each, run both products on
-//     the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). The
-//     score fragments become, rounded to bf16, the A operand of P·V in
-//     registers; K is staged row-major and V transposed, each row padded by
-//     8 values so that the fragment loads hit 32 distinct banks. Tiles that
-//     overlap their loads with the products (cp.async or TMA, wgmma) are the
-//     next step.
-//   * f32 (parity checks): 256 threads of CUDA-core FMAs, 4×4 scores each.
+// gives a block 227 KB. Here (bf16) the unit of work is 128 query rows of
+// one (batch, head), and the keys stream past them in tiles of 128, so that
+// nothing of size T² reaches device memory and the loads stay in flight
+// under the products (hopper_common.cuh's primitives):
+//   * persistent blocks, one an SM, walk the work items (query block
+//     fastest, so that the items of one (batch, head) run side by side and
+//     the second reads its K and V from L2);
+//   * one producer thread keeps TMA loads in flight: each item's 128 query
+//     rows into one of two Q slots, and the key tiles (K, V and the tile's
+//     mask bytes) into a ring of 4 (d = 64) or 8 (d = 32) stages, each
+//     tracked by a full and an empty mbarrier; it runs ahead into the next
+//     items while the consumers work. One rank-4 tensor map per operand,
+//     (d, T, H, B) with the HeadStrides strides in bytes, describes both
+//     layouts; TMA zero-fills rows past T (a ragged tile needs no masking
+//     code beyond the scores') and swizzles rows of 128 bytes (d = 64) or
+//     64 bytes (d = 32). The mask is a flat byte array, loaded from the
+//     16-byte boundary at or before the tile's first key;
+//   * two consumer warpgroups own 64 query rows each. Per key tile: S = Q·Kᵀ
+//     as wgmma m64n128k16 with both operands in shared memory, issued one
+//     tile ahead so that it runs under the softmax of the tile before; the
+//     online softmax in registers, in the log2 domain (one FMA takes the
+//     score to s·scale·log2(e) plus its sentinel, then 2^x on the special
+//     function unit); then O += P·V as wgmma with P from registers (the
+//     sums' layout is the A operand's, rounded to bf16) and V read MN-major
+//     through the transpose bit; the P·V steps whose 16 keys all lie past
+//     T are skipped. setmaxnreg moves registers from the producer's
+//     warpgroup to theirs;
+//   * O, divided by the row sums, is rounded into a swizzled tile of shared
+//     memory that a TMA store writes out (dropping rows past T) while the
+//     warpgroup goes on to its next item.
+// At T = 200 the second 128-row item holds 72 real rows and the second key
+// tile 72 real keys: the products do up to 1.64× the work, which the byte
+// bound leaves room for; rows and keys past T cost no device-memory bytes.
+// The f32 kernel (parity checks) runs 256 threads of CUDA-core FMAs, 4×4
+// scores each, on 64 × 64 tiles.
 //
 // Two sentinels, on purpose. A masked key gets the finite f32 minimum, as
 // the JAX kernel does: a row whose keys are all masked then gets uniform
@@ -42,13 +64,15 @@
 //
 // Row statistics for the backward. When `stats` is not null the kernel also
 // writes, per query row, the final running max m and sum l of exp(s − m) as
-// an f32 pair (B, H, T, 2); flash_attention_bwd.cuh rebuilds P = exp(s − m)/l
+// an f32 pair (B, H, T, 2), m in the natural domain (a fully masked row's is
+// the sentinel itself); flash_attention_bwd.cuh rebuilds P = exp(s − m)/l
 // from them. Not a single logsumexp: for a fully masked row m is −FLT_MAX
 // and m + log(l) rounds back to −FLT_MAX, which would give that row weights
 // of 1 instead of 1/T. The serving path passes null and writes nothing.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -56,166 +80,278 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace wavjepa {
 namespace flash_fwd {
 
-constexpr int kBlockQ = 64;  // query rows a block owns
-constexpr int kBlockK = 64;  // keys a tile holds
+using namespace hopper;
 
-// ---------------------------------------------------------------- bf16, mma
+// ------------------------------------------------------ bf16, TMA and wgmma
 
-constexpr int kMmaWarps = kBlockQ / 16;  // one warp per 16 query rows
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kPad = 8;  // bf16 values of padding at the end of a K or Vᵀ row
+constexpr int kItemRows = 128;  // query rows of a work item: two warpgroups of 64
+constexpr int kTileKeys = 128;  // keys a stage holds
+constexpr int kWgThreads = 384; // warpgroup 0 loads, warpgroups 1 and 2 multiply
+// A tile's mask bytes start anywhere, and TMA loads from 16-byte aligned
+// addresses: the box starts up to 15 bytes early and is 16 bytes longer.
+constexpr int kMaskBox = kTileKeys + 16;
 
-// Fragment layouts: see mma_16x8x16 in attention_common.cuh.
+// Shared memory of a block, from a 1024-aligned base: two Q slots, the ring
+// of K/V stages, the output tiles of both warpgroups, each stage's mask
+// bytes, then the barriers (Q full and empty, stage full and empty).
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                         __nv_bfloat16* __restrict__ o, float* __restrict__ stats, int H,
-                         int seq, float scale, HeadStrides in, HeadStrides out) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int KS = D + kPad;        // K row stride
-  constexpr int VS = kBlockK + kPad;  // Vᵀ row stride
-  constexpr int kDSteps = D / 16;     // k-steps of Q·Kᵀ
-  constexpr int kNTiles = kBlockK / 8;
-  constexpr int kOTiles = D / 8;
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBlockK * KS];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D * VS];
-  __shared__ uint8_t Ms[kBlockK];
+struct Smem {
+  static constexpr int kRowBytes = 2 * D;  // one swizzled row: 128 or 64 bytes
+  static constexpr int kStages = D == 64 ? 4 : 8;
+  static constexpr int kQBytes = kItemRows * kRowBytes;
+  static constexpr int kKBytes = kTileKeys * kRowBytes;  // K or V of a stage
+  static constexpr int kKV = 2 * kQBytes;
+  static constexpr int kO = kKV + kStages * 2 * kKBytes;
+  static constexpr int kMask = kO + kItemRows * kRowBytes;
+  static constexpr int kMaskStride = 256;  // a stage's mask bytes (TMA writes 128-aligned)
+  static constexpr int kBars = kMask + kStages * kMaskStride;
+  static constexpr int kBytes = kBars + (4 + 2 * kStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int row0 = blockIdx.x * kBlockQ + (tid >> 5) * 16 + g;  // and row0 + 8
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t rows = ((size_t)b * H + h) * (size_t)seq;  // first row of this (b, h)
-  const size_t head = in.at(b, h), ohead = out.at(b, h);
-  const uint8_t* mrow = mask + (size_t)b * seq;
-  const bool in0 = row0 < seq, in1 = row0 + 8 < seq;
-
-  // the warp's 16 query rows, all of d, as A fragments
-  uint32_t qa[kDSteps][4];
-  load_a_rows<D>(qa, q + head, in.row, row0, in0, in1, c);
-
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8
-  float l[2] = {0.f, 0.f};              // this lane's share of the row sums
-  float acc[kOTiles][4];
+// s·scale·log2(e) with the sentinels (key_bias: −FLT_MAX for a masked key,
+// which stays itself, −inf past T) for the N keys of a tile (this lane's
+// columns 8·(i/4) + 2c + (i & 1) of rows r, (i >> 1) & 1 = 0, and r + 8), and
+// their max per row in two halves; Full: every key of the tile is < T.
+template <bool Full, int N>
+__device__ __forceinline__ void scale_and_mask(float (&s)[N / 2], float (&tmax)[2][2],
+                                               const uint8_t* ms, int keys, int c, float scale2) {
 #pragma unroll
-  for (int j = 0; j < kOTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int n_tiles = (seq + kBlockK - 1) / kBlockK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // the previous tile is consumed
-    constexpr int kChunks = kBlockK * D / 8;  // 16-byte chunks of a tile
-    const size_t tile = head + (size_t)k0 * in.row;  // in-tile offsets fit an int
-    for (int i = tid; i < kChunks; i += kMmaThreads) {
-      const int r = i / (D / 8), col = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < seq) {
-        kv = *reinterpret_cast<const uint4*>(k + tile + (r * in.row + col));
-        vv = *reinterpret_cast<const uint4*>(v + tile + (r * in.row + col));
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * KS + col]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+  for (int i = 0; i < N / 2; i += 4) {
+    const int col = 8 * (i / 4) + 2 * c;
+    float bias[2];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(col + e) * VS + r] = ve[e];
+    for (int e = 0; e < 2; ++e)
+      bias[e] = Full ? (ms[col + e] ? -FLT_MAX : 0.f) : key_bias(col + e, keys, ms[col + e]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[i + e] = fmaf(s[i + e], scale2, bias[e & 1]);
+      tmax[e >> 1][(i >> 2) & 1] = fmaxf(tmax[e >> 1][(i >> 2) & 1], s[i + e]);
     }
-    for (int i = tid; i < kBlockK; i += kMmaThreads) Ms[i] = k0 + i < seq ? mrow[k0 + i] : 0;
-    __syncthreads();
+  }
+}
 
-    // S = Q Kᵀ for 16 rows × 64 keys
-    float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kDSteps; ++ks) {
-        const __nv_bfloat16* kp = &Ks[(nt * 8 + g) * KS + ks * 16 + 2 * c];
-        mma_16x8x16(s[nt], qa[ks], load_u32(kp), load_u32(kp + 8));
-      }
-    }
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_o,
+                         const __grid_constant__ CUtensorMap map_mask, float* __restrict__ stats,
+                         int H, int seq, float scale, int q_blocks, int items) {
+  using L = Smem<D>;
+  constexpr int S = L::kStages;
+  constexpr int W = 2 * D;  // bytes of a row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint8_t* const mask_smem = smem_raw + (base - smem_addr(smem_raw)) + L::kMask;
+  const uint32_t q_full = base + L::kBars, q_empty = q_full + 16;
+  const uint32_t kv_full = q_empty + 16, kv_empty = kv_full + 8 * S;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int n_tiles = (seq + kTileKeys - 1) / kTileKeys;
 
-    // sentinels and scale, then the online softmax of rows g (e < 2), g+8
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * c + (e & 1);
-        const float x = k0 + col >= seq ? -INFINITY : (Ms[col] ? -FLT_MAX : s[nt][e] * scale);
-        s[nt][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
+  if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
-      // every tile holds at least one key < T, so m_new is finite
-      const float m_new = fmaxf(m[i], quad_max(tmax[i]));
-      alpha[i] = expf(m[i] - m_new);  // exp(-inf) = 0 on the first tile
-      m[i] = m_new;
-      l[i] *= alpha[i];
+      bar_init(q_full + 8 * i, 1);   // the producer's expect_tx, then the bytes
+      bar_init(q_empty + 8 * i, 8);  // one arrival from each consumer warp
     }
-#pragma unroll
-    for (int j = 0; j < kOTiles; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
+    for (int s = 0; s < S; ++s) {
+      bar_init(kv_full + 8 * s, 1);
+      bar_init(kv_empty + 8 * s, 8);
     }
-    // P, rounded to bf16: score tiles 2j and 2j+1 are the A fragment of
-    // keys 16j..16j+15 for P·V
-    uint32_t pa[kNTiles / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = k0 + nt * 8 + 2 * c + (e & 1) < seq;
-        p[e] = valid ? expf(s[nt][e] - m[e >> 1]) : 0.f;
-        l[e >> 1] += p[e];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    // one thread: each item's 128 query rows, then its key tiles (K, V and
+    // kMaskBox mask bytes from the 16-byte boundary at or before the tile's
+    // first, which may run past the batch row's T: the consumers look at
+    // the key index first)
+    int stage = 0, phase = 0, slot = 0, slot_phase = 0;
+    for (int t = blockIdx.x; t < items; t += gridDim.x) {
+      const int qb = t % q_blocks, h = (t / q_blocks) % H, b = t / q_blocks / H;
+      bar_wait(q_empty + 8 * slot, slot_phase ^ 1);  // the first pass finds both free
+      bar_expect_tx(q_full + 8 * slot, L::kQBytes);
+      tma_load_4d(base + slot * L::kQBytes, &map_q, q_full + 8 * slot, 0, qb * kItemRows, h, b);
+      if (++slot == 2) {
+        slot = 0;
+        slot_phase ^= 1;
       }
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16x2(p[0], p[1]);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16x2(p[2], p[3]);
+      for (int j = 0; j < n_tiles; ++j) {
+        bar_wait(kv_empty + 8 * stage, phase ^ 1);
+        const uint32_t bar = kv_full + 8 * stage;
+        const uint32_t kt = base + L::kKV + stage * 2 * L::kKBytes;
+        bar_expect_tx(bar, 2 * L::kKBytes + kMaskBox);
+        tma_load_4d(kt, &map_k, bar, 0, j * kTileKeys, h, b);
+        tma_load_4d(kt + L::kKBytes, &map_v, bar, 0, j * kTileKeys, h, b);
+        tma_load_1d(base + L::kMask + stage * L::kMaskStride, &map_mask, bar,
+                    (b * seq + j * kTileKeys) & ~15);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int half = wg - 1;  // rows 64·half .. of the item
+  const int warp = (threadIdx.x / 32) % 4;
+  const int g = lane / 4, c = lane % 4;
+  const int r = 16 * warp + g;  // this lane's rows r and r + 8 of the warpgroup's 64
+  const uint32_t own = base + L::kO + half * 64 * W;  // its output tile
+  const float scale2 = scale * kLog2e;  // scores to the log2 domain: 2^(s·scale2) = e^(s·scale)
+  int stage = 0, phase = 0, slot = 0, slot_phase = 0;
+  float sa[kTileKeys / 2], sb[kTileKeys / 2];  // S of two tiles: one in flight
+  for (int t = blockIdx.x; t < items; t += gridDim.x) {
+    const int qb = t % q_blocks, h = (t / q_blocks) % H, b = t / q_blocks / H;
+    const int row0 = qb * kItemRows + 64 * half;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of rows r, r + 8, log2 domain
+    float l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // this lane's share of their sums, in two
+    uint32_t pa[kTileKeys / 16][4];       // P rounded to bf16, the A operand of P·V
+    bar_wait(q_full + 8 * slot, slot_phase);
+    const uint32_t qa = base + slot * L::kQBytes + half * 64 * W;
+
+    auto issue_s = [&](float (&s)[kTileKeys / 2], int st) {
+      const uint32_t kt = base + L::kKV + st * 2 * L::kKBytes;
+#pragma unroll
+      for (int i = 0; i < kTileKeys / 2; ++i) s[i] = 0.f;
+      keep(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma<kTileKeys, 0, 0>(s, k_major<W>(qa, ks), k_major<W>(kt, ks));
+      wgmma_commit();
+    };
+    // Tile j, its S in `s` (issued one tile earlier), at stage `st`: issue S
+    // of tile j + 1 into `next`, then the softmax of tile j under it, then
+    // P·V of tile j. Groups in flight on entry: S_j, P·V_{j-1}.
+    auto tile = [&](float (&s)[kTileKeys / 2], float (&next)[kTileKeys / 2], int j, int st) {
+      const int k0 = j * kTileKeys;
+      const bool more = j + 1 < n_tiles;
+      if (j == 0) wgmma_wait<0>(); else wgmma_wait<1>();  // S_j is done
+      keep(s);
+      if (j == n_tiles - 1 && lane == 0) bar_arrive(q_empty + 8 * slot);  // Q is read
+      const int nst = st + 1 == S ? 0 : st + 1;
+      if (more) {
+        bar_wait(kv_full + 8 * nst, phase ^ (nst == 0));
+        issue_s(next, nst);
+      }
+      // scale and sentinels in the log2 domain, then the online softmax of
+      // rows r and r + 8 with 2^x
+      const uint8_t* ms = mask_smem + st * L::kMaskStride + ((b * seq + k0) & 15);
+      float tmax[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+      if (k0 + kTileKeys <= seq)
+        scale_and_mask<true, kTileKeys>(s, tmax, ms, kTileKeys, c, scale2);
+      else
+        scale_and_mask<false, kTileKeys>(s, tmax, ms, seq - k0, c, scale2);
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // every tile holds at least one key < T, so m_new is finite
+        const float m_new = fmaxf(m[i], quad_max(fmaxf(tmax[i][0], tmax[i][1])));
+        alpha[i] = exp2_fast(m[i] - m_new);  // 2^-inf = 0 on the first tile
+        m[i] = m_new;
+        l[i][0] *= alpha[i];
+        l[i][1] *= alpha[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kTileKeys / 2; ++i) {
+        const int row = (i >> 1) & 1;
+        const float p = exp2_fast(s[i] - m[row]);  // 0 past T: 2^-inf
+        l[row][(i >> 2) & 1] += p;
+        s[i] = p;
+      }
+      // P·V of tile j - 1 must be done before its A registers and the sums
+      // change; its stage is then free
+      if (more) wgmma_wait<1>(); else wgmma_wait<0>();
+      keep(o);
+      keep(pa);
+      if (j > 0 && lane == 0) bar_arrive(kv_empty + 8 * (st == 0 ? S - 1 : st - 1));
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      pack_a<kTileKeys>(pa, s);
+      // O += P V over the 16-key steps that hold a key < T
+      const uint32_t vt = base + L::kKV + st * 2 * L::kKBytes + L::kKBytes;
+      keep(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileKeys / 16; ++kk)
+        if (k0 + 16 * kk < seq) wgmma_rs<D, 1>(o, pa[kk], mn_major<W>(vt, kk));
+      wgmma_commit();
+    };
+
+    bar_wait(kv_full + 8 * stage, phase);
+    issue_s(sa, stage);
+    for (int j = 0; j < n_tiles; j += 2) {
+      tile(sa, sb, j, stage);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (j + 1 < n_tiles) {
+        tile(sb, sa, j + 1, stage);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    wgmma_wait<0>();
+    keep(o);
+    keep(pa);
+    if (lane == 0) bar_arrive(kv_empty + 8 * (stage == 0 ? S - 1 : stage - 1));
+    if (++slot == 2) {
+      slot = 0;
+      slot_phase ^= 1;
     }
 
-    // O += P V
+    const float l0 = quad_sum(l[0][0] + l[0][1]), l1 = quad_sum(l[1][0] + l[1][1]);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const size_t rows = ((size_t)b * H + h) * (size_t)seq;  // stats row of (b, h, 0)
+    if (stats != nullptr && c == 0) {
+      // the max in the natural domain; a fully masked row's is the sentinel
+      const float m0 = m[0] == -FLT_MAX ? -FLT_MAX : m[0] * kLn2;
+      const float m1 = m[1] == -FLT_MAX ? -FLT_MAX : m[1] * kLn2;
+      if (row0 + r < seq) *reinterpret_cast<float2*>(stats + 2 * (rows + row0 + r)) = make_float2(m0, l0);
+      if (row0 + r + 8 < seq)
+        *reinterpret_cast<float2*>(stats + 2 * (rows + row0 + r + 8)) = make_float2(m1, l1);
+    }
+    // O / l rounded into the warpgroup's swizzled tile; one thread stores it
+    if (threadIdx.x % 128 == 0) bulk_wait<true>();  // the last item's store has read it
+    named_sync(1 + half, 128);
 #pragma unroll
-    for (int j = 0; j < kNTiles / 2; ++j) {
-#pragma unroll
-      for (int dt = 0; dt < kOTiles; ++dt) {
-        const __nv_bfloat16* vp = &Vt[(dt * 8 + g) * VS + j * 16 + 2 * c];
-        mma_16x8x16(acc[dt], pa[j], load_u32(vp), load_u32(vp + 8));
-      }
+    for (int u = 0; u < D / 8; ++u) {
+      st_shared(own + swizzled<W>(r, u) + 4 * c, pack_bf16x2(o[4 * u] * inv0, o[4 * u + 1] * inv0));
+      st_shared(own + swizzled<W>(r + 8, u) + 4 * c,
+                pack_bf16x2(o[4 * u + 2] * inv1, o[4 * u + 3] * inv1));
+    }
+    fence_async_shared();
+    named_sync(1 + half, 128);
+    if (threadIdx.x % 128 == 0 && row0 < seq) {
+      tma_store_4d(&map_o, own, 0, row0, h, b);
+      bulk_commit();
     }
   }
-
-  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-  if (stats != nullptr && c == 0) {
-    if (in0) *reinterpret_cast<float2*>(stats + 2 * (rows + row0)) = make_float2(m[0], l0);
-    if (in1) *reinterpret_cast<float2*>(stats + 2 * (rows + row0 + 8)) = make_float2(m[1], l1);
-  }
-#pragma unroll
-  for (int dt = 0; dt < kOTiles; ++dt) {
-    const int col = dt * 8 + 2 * c;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(o + ohead + (size_t)row0 * out.row + col) =
-          pack_bf16x2(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(o + ohead + (size_t)(row0 + 8) * out.row + col) =
-          pack_bf16x2(acc[dt][2] * inv1, acc[dt][3] * inv1);
-  }
+  if (threadIdx.x % 128 == 0) bulk_wait<false>();
 }
 
 // ------------------------------------------------------------ f32, CUDA cores
 
+constexpr int kBlockQ = 64;  // query rows a block owns
+constexpr int kBlockK = 64;  // keys a tile holds
 constexpr int kThreads = 256;  // 16 row groups × 16 column lanes
 constexpr int kRowsPerThread = 4;
 constexpr int kColsPerThread = 4;  // key columns tx + 16·c of a score tile
@@ -374,11 +510,25 @@ struct Args {
 
 template <int D>
 cudaError_t launch_bf16(const Args& a) {
-  dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.H, a.B);
-  flash_attention_fwd_bf16<D><<<grid, kMmaThreads, 0, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.mask, static_cast<__nv_bfloat16*>(a.o), a.stats,
-      a.H, a.seq, a.scale, a.in, a.out);
+  CUtensorMap mq, mk, mv, mo, mm;
+  const HeadStrides& i = a.in;
+  const HeadStrides& o = a.out;
+  if (!make_head_map(&mq, a.q, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kItemRows) ||
+      !make_head_map(&mk, a.k, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileKeys) ||
+      !make_head_map(&mv, a.v, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileKeys) ||
+      !make_head_map(&mo, a.o, D, a.seq, a.H, a.B, o.row, o.head, o.batch, 64) ||
+      !make_byte_map(&mm, a.mask, (long long)a.B * a.seq, kMaskBox))
+    return cudaErrorInvalidValue;
+  const int q_blocks = (a.seq + kItemRows - 1) / kItemRows;
+  const long long items = (long long)a.B * a.H * q_blocks;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  auto kernel = flash_attention_fwd_bf16<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  const int grid = items < sm_count() ? (int)items : sm_count();
+  kernel<<<grid, kWgThreads, Smem<D>::kBytes, a.stream>>>(mq, mk, mv, mo, mm, a.stats, a.H,
+                                                            a.seq, a.scale, q_blocks, (int)items);
   return cudaGetLastError();
 }
 
@@ -401,9 +551,9 @@ cudaError_t launch_f32(const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t
 // (0 = launched); cudaErrorInvalidValue for a shape or type it does not take.
-// q, k, v at `in` and o at `out` (see HeadStrides; rows 16-byte aligned);
-// mask contiguous (B, T) bytes; stats null, or contiguous (B, H, T, 2) f32
-// to receive each row's (m, l).
+// q, k, v at `in` and o at `out` (see HeadStrides; 16-byte aligned, every
+// stride a multiple of 8 elements); mask contiguous (B, T) bytes; stats
+// null, or contiguous (B, H, T, 2) f32 to receive each row's (m, l).
 inline cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const uint8_t* mask, void* o, float* stats, int B, int H,
                                        int seq, int head_dim, int dtype, float scale,

@@ -35,8 +35,9 @@
 //   2. attention forward with each row's (max, sum), o (B·T, D)
 //      (flash_attention_fwd.cuh, reading the heads with a row stride);
 //   3. dO = g·Wo, rounded, (B·T, D) (Wo read MN-major);
-//   4. dq, dk, dv by the two deterministic passes of flash_attention_bwd.cuh,
-//      rounded, into the column blocks of dqkv (B·T, 3D);
+//   4. dq, dk, dv by flash_attention_bwd.cuh (one block per (batch, head) at
+//      T ≤ 128, two deterministic passes above), rounded, into the column
+//      blocks of dqkv (B·T, 3D);
 //   5. dx = dqkv·W_in (W_in read MN-major): one f32 sum, rounded once;
 //   6. dW_in = dqkvᵀ·x and dWo = gᵀ·o, both operands MN-major, each over a
 //      fixed number of row chunks (at most 16, chosen by the caller from the

@@ -31,10 +31,10 @@
 //   1. the QKV projection, a product (B·T × D)·(D × 3D) with the bias added
 //      and rounded in its epilogue, written token-major as (B·T, 3D) —
 //      q, k, v are its three column blocks (hopper_gemm.cuh: TMA, wgmma);
-//   2. attention per (batch, head, 64 query rows) with an online softmax
-//      over 64-key tiles, reading each head's q, k, v with a row stride of
-//      3D and writing o rounded to x's type as (B·T, D)
-//      (flash_attention_fwd.cuh, the same core as the unfused path);
+//   2. attention per (batch, head, 128 query rows) with an online softmax
+//      over 128-key tiles, reading each head's q, k, v through rank-4 TMA
+//      maps with a row stride of 3D and writing o rounded to x's type as
+//      (B·T, D) (flash_attention_fwd.cuh, the same core as the unfused path);
 //   3. the output projection, (B·T × D)·(D × D) over o's columns, which are
 //      (head, i): the sum over heads is one f32 sum rounded once, plus bo.
 // Every operand of both products is then a plain row-major matrix, so one

@@ -14,7 +14,9 @@ both devices: P is recomputed, and a fully masked row (uniform P) keeps a
 non-zero dS, as on the TPU, where autograd through ``masked_fill`` would
 zero it. A CUDA tensor always goes to the kernels (bf16 or f32,
 d ∈ {32, 64}; anything else raises); a CPU tensor goes to the plain
-versions.
+versions. The bf16 backward has two routes, chosen by the library
+(``flash_attention_bwd_route``): one block per (batch, head) at T ≤ 128,
+two passes above.
 """
 
 from __future__ import annotations
@@ -87,7 +89,7 @@ def _check(q, k, v, mask) -> None:
 def _check_kernel_inputs(mask: torch.Tensor, *tensors: torch.Tensor) -> None:
     """What the kernels take: CUDA, bf16 or f32, head_dim 32 or 64, a
     contiguous mask and contiguous, 16-byte aligned tensors (read 16 bytes
-    at a time)."""
+    at a time, or by TMA)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
@@ -101,6 +103,11 @@ def _check_kernel_inputs(mask: torch.Tensor, *tensors: torch.Tensor) -> None:
         raise ValueError("q, k, v (and dO, stats) must be contiguous and 16-byte aligned")
 
 
+def _aligned_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The mask where TMA can load it: 16-byte aligned (a copy if not)."""
+    return mask if mask.data_ptr() % 16 == 0 else mask.clone()
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     with_stats: bool = False,
@@ -111,6 +118,7 @@ def flash_attention_fwd(
     ``flash_attention_reference``."""
     _check(q, k, v, mask)
     _check_kernel_inputs(mask, q, k, v)
+    mask = _aligned_mask(mask)
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     stats = (torch.empty((b, h, t, 2), dtype=torch.float32, device=q.device)
@@ -149,8 +157,10 @@ def flash_attention_bwd(
         raise ValueError(f"stats must be f32 ({b}, {h}, {t}, 2), got "
                          f"{stats.dtype} {tuple(stats.shape)}")
     _check_kernel_inputs(mask, q, k, v, do, stats)
+    mask = _aligned_mask(mask)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)  # kernel scratch
+    # scratch of the two-pass route (T > 128 in bf16, and f32): each row's D
+    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(),
@@ -165,6 +175,19 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0  # kernel launches; the CPU path never counts
+
+BWD_ROUTES = {0: "fma", 1: "single_pass", 2: "two_pass"}
+
+
+def flash_attention_bwd_route(t: int, head_dim: int, dtype: torch.dtype) -> str:
+    """Which kernel ``flash_attention_bwd`` (and the fused block's backward)
+    runs at sequence length t: "fma" (f32), "single_pass" (bf16, T ≤ 128,
+    one block per (batch, head)) or "two_pass" (bf16 above). The library
+    decides; this asks it, so it needs the card's build."""
+    code = _route_fn()(t, head_dim, _DTYPE_CODES.get(dtype, -1))
+    if code not in BWD_ROUTES:
+        raise ValueError(f"no backward kernel for T={t}, head_dim={head_dim}, {dtype}")
+    return BWD_ROUTES[code]
 
 
 class FlashAttention(torch.autograd.Function):
@@ -209,6 +232,14 @@ def _fwd_fn():
     fn = _build.load("flash_attention_fwd").wavjepa_flash_attention_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _route_fn():
+    fn = _build.load("flash_attention_bwd").wavjepa_flash_attention_bwd_route
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
