@@ -53,7 +53,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             width in f32 on the card (TF32 off) and on the CPU, and in bf16
             on the card against that f32 step;
 6b. train parity fused  the same with ``attn_impl="fused_block"`` (encoder,
-            teacher and predictor), and its f32 loss against phase 6's.
+            teacher and predictor), and its f32 loss against phase 6's;
+7. data     write WebDataset shards of 10-s WAV clips (44.1 kHz stereo and
+            16 kHz mono) under ``build/chip_smoke_shards/``; hold the native
+            resampler against scipy's at 44.1k and 48k → 16k; time one
+            worker's work a clip and the loader alone at 16 worker processes,
+            beside the clips a second the card consumes in phase 5; then
+            ``train_jepa`` from the shards at accum 16 and accum 1 with
+            phase 5's checks, the time each step waited for its batch, and
+            the CLI (``python -m wavjepa_tpu_torch.train data.data_dirs=...``)
+            in a process of its own;
+8. trace    one accum-16 and one accum-1 step under ``torch.profiler``
+            (``build/chip_smoke_trace/*.json.gz``): wall time, the card's idle
+            share, kernels launched, the top kernels and host operators;
+            and the MFU of phases 5 and 7.
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -64,6 +77,7 @@ name and power limit, the ``kernels`` JSON line and
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import json
 import os
 import statistics
@@ -72,7 +86,11 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+if __name__ == "__main__":
+    # the data workers of phase 7 are spawned, and each re-runs this file as
+    # "__mp_main__": they decode audio and need no torch
+    import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
@@ -106,6 +124,23 @@ TRAIN_STEPS_ONE_PASS = 3
 FUSED_BF16_REL = 2e-2
 FUSED_F32_REL = 1e-4
 FUSED_PATH_LOSS_REL = 1e-4  # f32 step, fused path vs the default path, loss
+
+# phase 7: 16 shards (one a worker at the default 16 workers) of 4 WAV PCM16
+# clips of 10 s, 3 at 44.1 kHz stereo (mono-ized, then resampled to 16 kHz)
+# and 1 at 16 kHz mono: 64 distinct clips, which the repeating shard stream
+# reads again and again to fill the default 1000-clip shuffle buffer
+DATA_SHARDS, DATA_CLIPS_PER_SHARD = 16, 4
+DATA_DIR = os.path.join("build", "chip_smoke_shards")
+LOADER_BATCHES = 20  # the loader alone, timed after its first batch
+LOADER_PRIME_S = 60.0  # at most, to fill the loader's queue before a shard-fed run
+RESAMPLE_ATOL = 2e-6  # native resampler vs scipy's resample_poly, audio in [-1, 1]
+CLI_STEPS = 2
+# phase 8: one traced step at accum 16 and one at accum 1, after warm-up steps
+TRACE_DIR = os.path.join("build", "chip_smoke_trace")
+TRACE_WARMUP = 2
+# a run still going after this many seconds prints every thread's stack and
+# exits non-zero, inside the 1200 s a run may take
+WATCHDOG_S = 1100
 
 # (name, B, H, T): the windowed batch of 8 clips of 10 s (40 windows of 200
 # tokens), the whole-clip batch of 4 clips of 10 s (each gains a fully padded
@@ -725,17 +760,21 @@ def encoder_weights(model) -> dict:
     return {k: v.detach().float().cpu().clone() for k, v in model.encoder.state_dict().items()}
 
 
-def phase_train(counters: dict, runs: list) -> dict:
+def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
     """train_jepa on the AudioSet configuration as resolved, once per run
     (name, overrides, steps, launches of each counted wrapper a microbatch,
-    whether to serve from its checkpoint); the launch counts are set to 0
-    just before each run and read just after it."""
+    whether to serve from its checkpoint), on synthetic clips or, given a
+    shard pattern, from the shard pipeline (``audio_shard_batches``, wrapped
+    so that the time each batch kept the loader waiting is recorded); the
+    launch counts are set to 0 just before each run and read just after it."""
     import shutil
 
     from wavjepa_tpu_torch.api.runtime import load_model
+    from wavjepa_tpu_torch.data.pipeline import audio_shard_batches
     from wavjepa_tpu_torch.models.jepa import JEPA
     from wavjepa_tpu_torch.train.config import Config, apply_overrides
     from wavjepa_tpu_torch.train.loop import train_jepa
+    from wavjepa_tpu_torch.utils import flops
 
     record = {}
     for name, extra, steps, per_microbatch, serve in runs:
@@ -743,7 +782,9 @@ def phase_train(counters: dict, runs: list) -> dict:
         shutil.rmtree(save_dir, ignore_errors=True)
         # the warmup is cut to 2 steps so that these few steps take real
         # updates (at the configured 100k it is lr 4e-9 at step 1)
-        cfg = apply_overrides(Config(), ["data.synthetic=true", f"trainer.save_dir={save_dir}",
+        source = ["data.synthetic=false", f"data.data_dirs={shards}"] if shards else [
+            "data.synthetic=true"]
+        cfg = apply_overrides(Config(), [*source, f"trainer.save_dir={save_dir}",
                                          "trainer.log_every=1", "optimizer.warmup_steps=2",
                                          *extra])
         model_cfg = cfg.build_model_config()
@@ -751,12 +792,40 @@ def phase_train(counters: dict, runs: list) -> dict:
         init = JEPA(model_cfg)
         init.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
         start = encoder_weights(init)
+        batches, loader_waits, data_iter, primed = None, [], None, {}
+        if shards:
+            # primed to its steady state before the run: the shuffle buffer
+            # filled and the queue full, as it stays in a long run, where the
+            # workers produce faster than the card consumes and wait in put
+            t0 = time.perf_counter()
+            batches = audio_shard_batches(cfg)
+            first, source = next(batches), batches.source
+            primed["buffer_s"] = time.perf_counter() - t0
+            while (source.queue.qsize() < source.queue_size - cfg.trainer.batch_size
+                   and time.perf_counter() - t0 < LOADER_PRIME_S):
+                time.sleep(0.1)
+            primed["queue_s"] = time.perf_counter() - t0
+            primed["queue"] = source.queue.qsize()
+
+            def timed_batches():
+                yield first
+                while True:
+                    t1 = time.perf_counter()
+                    batch = next(batches)
+                    loader_waits.append((time.perf_counter() - t1) * 1e3)
+                    yield batch
+
+            data_iter = timed_batches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for counter in counters.values():  # the main path's run starts here
             counter.launches = 0
-        state = train_jepa(cfg, max_steps=steps, device="cuda")
-        torch.cuda.synchronize()
+        try:
+            state = train_jepa(cfg, data_iter=data_iter, max_steps=steps, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            if batches is not None:
+                batches.stop()
         launches = {k: c.launches for k, c in counters.items()}  # read just after
         peak = torch.cuda.max_memory_allocated()
         expected = {k: n * a * steps for k, n in per_microbatch.items()}
@@ -788,7 +857,15 @@ def phase_train(counters: dict, runs: list) -> dict:
             "max_memory_allocated_bytes": peak, "launches": launches,
             "student_encoder_moved": d_student, "teacher_moved": d_teacher,
             "attn_impl": model_cfg.attn_impl, "attn_impl_decoder": model_cfg.attn_impl_decoder,
+            "data_wait_ms": [line["data_wait_ms"] for line in lines],
+            "data_wait_p50_ms": statistics.median(
+                line["data_wait_ms"] for line in lines[TRAIN_WARMUP:]),
+            "mfu": flops.mfu(flops.jepa_step_flops(model_cfg, b * cfg.data.samples_per_audio),
+                             p50 / 1e3),
+            "source": "shards" if shards else "synthetic",
         }
+        if shards:
+            rec["loader_wait_ms"], rec["primed"] = loader_waits, primed
         if serve:
             ckpt = os.path.join(run_dir, "ckpt", f"step_{steps:08d}.ckpt")
             if not (os.path.isfile(ckpt) and os.path.isfile(os.path.join(run_dir,
@@ -814,7 +891,8 @@ def phase_train(counters: dict, runs: list) -> dict:
               f"(after {TRAIN_WARMUP} warm-up steps), {rec['clips_per_s']:.2f} clips/s, "
               f"{rec['crops_per_s']:.1f} crops/s, peak memory {peak / 2**30:.2f} GiB; "
               f"launches {launches}; teacher moved {d_teacher:.4g} < student "
-              f"{d_student:.4g}", flush=True)
+              f"{d_student:.4g}; {rec['source']}, data wait p50 "
+              f"{rec['data_wait_p50_ms']:.2f} ms a step; MFU {rec['mfu']:.4f}", flush=True)
     return record
 
 
@@ -879,6 +957,260 @@ def phase_train_parity(overrides: tuple = (), tag: str = "train parity") -> dict
             "bf16_loss": bf16[0], "bf16_loss_rel": bf16_rel}
 
 
+def write_shards(root: str, seed: int = 0) -> str:
+    """Phase 7's WebDataset shards, from seeded numpy: white noise under a
+    slow envelope at about −20 dBFS, as PCM16 WAV, a json member beside
+    each clip. Returns the brace pattern of the shards."""
+    import io
+    import tarfile
+
+    from scipy.io import wavfile
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for s in range(DATA_SHARDS):
+        with tarfile.open(os.path.join(root, f"shard-{s:04d}.tar"), "w") as tar:
+            for i in range(DATA_CLIPS_PER_SHARD):
+                sr, ch = (16000, 1) if i == DATA_CLIPS_PER_SHARD - 1 else (44100, 2)
+                t = np.arange(10 * sr, dtype=np.float32) / sr
+                env = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.1, 2.0) * t)
+                x = rng.standard_normal((t.size, ch), dtype=np.float32) * env[:, None] * 3000
+                buf = io.BytesIO()
+                wavfile.write(buf, sr, np.clip(x, -32768, 32767).astype(np.int16).squeeze())
+                for ext, data in (("wav", buf.getvalue()), ("json", b'{"label": %d}' % i)):
+                    info = tarfile.TarInfo(f"clip{s:04d}{i:02d}.{ext}")
+                    info.size = len(data)
+                    tar.addfile(info, io.BytesIO(data))
+    return os.path.join(root, f"shard-{{0000..{DATA_SHARDS - 1:04d}}}.tar")
+
+
+def median_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_data(counters: dict, synthetic_runs: dict) -> tuple[dict, dict]:
+    """Phase 7: the host data path on this host, then training from shards.
+    The native resampler against its plain version; one worker's cost a
+    clip; the loader alone at 16 worker processes beside the clips a second
+    the card consumes in phase 5; train_jepa from the shards at accum 16
+    and accum 1 with phase 5's checks; and the CLI from the shards."""
+    import shutil
+
+    from wavjepa_tpu_torch.data import decode, pipeline, resample, shards
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    pattern = write_shards(DATA_DIR)
+    record = {"write_s": time.perf_counter() - t0, "shards": DATA_SHARDS,
+              "clips_per_shard": DATA_CLIPS_PER_SHARD, "cpu_count": os.cpu_count()}
+    first_shard = shards.expand_shard_pattern(pattern)[0]
+    samples = [s for _, s in shards.iter_tar_samples(first_shard)]
+    stereo, mono = samples[0], samples[-1]
+
+    # the native resampler against scipy's resample_poly on this host
+    rng = np.random.default_rng(7)
+    wav44 = decode.decode_audio(stereo)[0][:1]
+    wav48 = rng.uniform(-0.5, 0.5, (1, 480000)).astype(np.float32)
+    record["resample"] = {}
+    for sr, wav in ((44100, wav44), (48000, wav48)):
+        native = resample.resample_np(wav, sr, 16000)
+        plain = resample.resample_np_plain(wav, sr, 16000)
+        err = float(np.abs(native - plain).max())
+        if native.shape != (1, 160000) or not err <= RESAMPLE_ATOL:
+            raise AssertionError(f"resample {sr} -> 16000: shape {native.shape}, "
+                                 f"max |native - plain| {err} > {RESAMPLE_ATOL}")
+        row = {"max_abs_err": err,
+               "native_ms": median_ms(lambda: resample.resample_np(wav, sr, 16000), 10),
+               "plain_ms": median_ms(lambda: resample.resample_np_plain(wav, sr, 16000), 2)}
+        record["resample"][str(sr)] = row
+        print(f"[data] resample {sr} -> 16000, 10 s: max |native - plain| {err:.3g} (limit "
+              f"{RESAMPLE_ATOL}); native {row['native_ms']:.2f} ms, scipy resample_poly "
+              f"{row['plain_ms']:.2f} ms", flush=True)
+
+    # one worker's work a clip: decode, first channel, resample, normalize, int16
+    def worker_clip(sample):
+        wav, sr = decode.decode_audio(sample)
+        wav = wav[:1]
+        if sr != 16000:
+            wav = resample.resample_np(wav, sr, 16000)
+        return pipeline.quantize_clip_int16(pipeline.preprocess_clip(wav, 16000, 10.0))
+
+    record["worker_ms"] = {
+        "wav44k_stereo": median_ms(lambda: worker_clip(stereo), 10),
+        "wav16k_mono": median_ms(lambda: worker_clip(mono), 10),
+        "decode_wav44k_stereo": median_ms(lambda: decode.decode_audio(stereo), 10),
+    }
+    mix = (3 * record["worker_ms"]["wav44k_stereo"] + record["worker_ms"]["wav16k_mono"]) / 4
+    record["worker_ms"]["shard_mix"] = mix
+    print(f"[data] one worker a clip: 44.1k stereo {record['worker_ms']['wav44k_stereo']:.2f} ms "
+          f"(decode {record['worker_ms']['decode_wav44k_stereo']:.2f}), 16k mono "
+          f"{record['worker_ms']['wav16k_mono']:.2f} ms; the shards' mix {mix:.2f} ms, "
+          f"{1e3 / mix:.1f} clips/s a worker", flush=True)
+
+    # the loader alone: clips delivered, and produced (delivered + the queue's growth)
+    cfg = apply_overrides(Config(), [f"data.data_dirs={pattern}"])
+    b, workers = cfg.trainer.batch_size, cfg.data.num_workers
+    t0 = time.perf_counter()
+    batches = pipeline.audio_shard_batches(cfg)
+    try:
+        first = next(batches)
+        first_s = time.perf_counter() - t0
+        q0, t1 = batches.source.queue.qsize(), time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            batch = next(batches)
+        elapsed = time.perf_counter() - t1
+        q1 = batches.source.queue.qsize()
+    finally:
+        batches.stop()
+    for x in (first, batch):
+        if x.shape != (b, 1, 160000) or x.dtype != np.int16 or not np.abs(x).max() == 32767:
+            raise AssertionError(f"loader batch {x.shape} {x.dtype}, peak {np.abs(x).max()}")
+    delivered = LOADER_BATCHES * b / elapsed
+    produced = (LOADER_BATCHES * b + q1 - q0) / elapsed
+    card = {name: synthetic_runs[name]["clips_per_s"] for name in ("accum_auto", "accum_1")}
+    record["loader"] = {"workers": workers, "batch": b, "batches": LOADER_BATCHES,
+                        "first_batch_s": first_s, "delivered_clips_per_s": delivered,
+                        "produced_clips_per_s": produced, "queue_before": q0, "queue_after": q1,
+                        "card_clips_per_s_phase5": card}
+    print(f"[data] loader alone, {workers} worker processes (spawn) on a host of "
+          f"{os.cpu_count()} CPUs: {delivered:.1f} clips/s delivered, {produced:.1f} clips/s "
+          f"produced over {LOADER_BATCHES} batches of {b} (queue {q0} -> {q1}); first batch "
+          f"after {first_s:.2f} s (spawn, {cfg.data.shuffle_buffer}-clip shuffle buffer); the "
+          f"card consumes {card['accum_auto']:.1f} clips/s at accum 16 and "
+          f"{card['accum_1']:.1f} at accum 1 (phase 5, this run)", flush=True)
+
+    default_path = dict(zip(counters, (36, 24, 0, 0)))
+    train = phase_train(counters, [
+        ("shards_accum_auto", [], TRAIN_STEPS, default_path, False),
+        ("shards_accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS, default_path, False),
+    ], shards=pattern)
+    for name, synthetic in (("shards_accum_auto", "accum_auto"), ("shards_accum_1", "accum_1")):
+        r, base = train[name], synthetic_runs[synthetic]
+        print(f"[data] {name} beside phase 5's synthetic clips: step p50 "
+              f"{r['step_p50_ms']:.1f} vs {base['step_p50_ms']:.1f} ms, {r['clips_per_s']:.2f} vs "
+              f"{base['clips_per_s']:.2f} clips/s, peak memory "
+              f"{r['max_memory_allocated_bytes'] / 2**30:.2f} vs "
+              f"{base['max_memory_allocated_bytes'] / 2**30:.2f} GiB; the loop waited "
+              f"{r['data_wait_p50_ms']:.2f} vs {base['data_wait_p50_ms']:.2f} ms a step for its "
+              f"batch (p50 after {TRAIN_WARMUP} steps; each step's: "
+              f"{', '.join(f'{x:.1f}' for x in r['data_wait_ms'])}); the loader kept the "
+              f"prefetch waiting {', '.join(f'{x:.1f}' for x in r['loader_wait_ms'])} ms "
+              f"a batch, after filling the shuffle buffer in {r['primed']['buffer_s']:.2f} s "
+              f"and its queue to {r['primed']['queue']} clips in {r['primed']['queue_s']:.2f} s",
+              flush=True)
+
+    # the CLI as users run it, in a process of its own, with the memory this
+    # process's allocator keeps cached handed back to the card
+    torch.cuda.empty_cache()
+    cli_dir = os.path.join("build", "chip_smoke_train", "cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "wavjepa_tpu_torch.train", f"data.data_dirs={pattern}",
+           f"trainer.steps={CLI_STEPS}", "trainer.log_every=1", "optimizer.warmup_steps=2",
+           f"trainer.save_dir={cli_dir}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    ckpts = [os.path.join(d, f) for d, _, fs in os.walk(cli_dir) for f in fs
+             if f == f"step_{CLI_STEPS:08d}.ckpt"]
+    if proc.returncode != 0 or f"[step {CLI_STEPS}] loss=" not in proc.stdout or not ckpts:
+        raise AssertionError(f"CLI from shards: exit {proc.returncode}, checkpoints {ckpts}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    losses = [float(line.split("loss=")[1].split()[0]) for line in proc.stdout.splitlines()
+              if line.startswith("[step ")]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"CLI from shards: losses {losses}")
+    record["cli"] = {"cmd": cmd, "seconds": cli_s, "losses": losses}
+    print(f"[data] CLI from shards: {CLI_STEPS} steps, losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}, checkpoint written; {cli_s:.1f} s "
+          f"with start-up", flush=True)
+    shutil.rmtree(cli_dir)  # ~1.7 GB of checkpoint
+    shutil.rmtree(DATA_DIR)
+    return record, train
+
+
+def phase_trace(synthetic_runs: dict, shard_runs: dict) -> dict:
+    """Phase 8: one train step at accum 16 and one at accum 1 (synthetic
+    clips, default attention) under torch.profiler, after warm-up steps:
+    its wall time, the card's busy and idle share, the kernels it launched,
+    the top kernels by time and the top host operators by self time; then
+    the MFU of phases 5 and 7."""
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.loop import build_data_iterator, build_run, step_seed
+    from wavjepa_tpu_torch.utils import flops, profiling
+
+    with profiling.trace(TRACE_DIR, name="profiler_warmup"):  # CUPTI's start-up, not timed
+        torch.ones(1024, 1024, device="cuda").sum().item()
+    os.remove(os.path.join(TRACE_DIR, "profiler_warmup.json.gz"))
+    record = {}
+    for name, extra in (("accum_auto", []), ("accum_1", ["trainer.accum_steps=1"])):
+        cfg = apply_overrides(Config(), ["data.synthetic=true", "optimizer.warmup_steps=2",
+                                         *extra])
+        dev, model_cfg, state, step_fn = build_run(cfg, "cuda")
+        batch = torch.from_numpy(next(build_data_iterator(cfg))).to(dev)
+        generator = torch.Generator(device=dev)
+        untraced = []
+        for i in range(TRACE_WARMUP + 1):
+            t0 = time.perf_counter()
+            generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
+            state, m = step_fn(state, batch, generator)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            untraced.append((time.perf_counter() - t0) * 1e3)
+        trace_name = f"train_step_{name}"
+        t0 = time.perf_counter()
+        with profiling.trace(TRACE_DIR, name=trace_name) as prof:
+            with torch.profiler.record_function("train_step"):
+                generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
+                state, m = step_fn(state, batch, generator)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        path = os.path.join(TRACE_DIR, f"{trace_name}.json.gz")
+        summary = profiling.trace_summary(path, window="train_step", top=10)
+        if not summary["kernels"] or not np.isfinite(loss):
+            raise AssertionError(f"trace {name}: {summary['kernels']} kernels, loss {loss}")
+        host = sorted((e for e in prof.key_averages() if e.key != "train_step"),
+                      key=lambda e: -e.self_cpu_time_total)[:5]
+        a = cfg.resolved_accum_steps()
+        crops = cfg.trainer.batch_size * cfg.data.samples_per_audio
+        rec = {"accum_steps": a, "loss": loss, "untraced_ms": untraced[-1],
+               "traced_wall_ms": traced_ms, **summary,
+               "kernels_per_microbatch": summary["kernels"] / a,
+               "top_host_ops": [(e.key, e.count, e.self_cpu_time_total) for e in host],
+               "trace_file": path, "trace_bytes": os.path.getsize(path),
+               "step_flops": flops.jepa_step_flops(model_cfg, crops)}
+        record[name] = rec
+        print(f"[trace] {name} ({a} microbatches): step {untraced[-1]:.1f} ms untraced, "
+              f"{traced_ms:.1f} ms traced (window {summary['wall_us'] / 1e3:.1f} ms); card busy "
+              f"{summary['busy_us'] / 1e3:.1f} ms, idle share {summary['idle_share']:.3f}; "
+              f"kernels {summary['kernels']} ({rec['kernels_per_microbatch']:.0f} a microbatch), "
+              f"summed {summary['kernel_us'] / 1e3:.1f} ms; copies {summary['copies']}; "
+              f"trace {path} ({rec['trace_bytes'] / 2**20:.1f} MiB)", flush=True)
+        print(f"[trace] {name} kernel time by class: " + ", ".join(
+            f"{cls} {us / 1e3:.1f} ms" for cls, us in summary["kernel_us_by_class"].items()))
+        for kname, n, us in summary["top_kernels"]:
+            print(f"[trace] {name} kernel {us / 1e3:8.2f} ms {n:6d}x  {kname[:110]}")
+        for key, n, us in rec["top_host_ops"]:
+            print(f"[trace] {name} host op self {us / 1e3:8.2f} ms {n:6d}x  {key[:110]}")
+        del state, step_fn, batch, prof
+        torch.cuda.empty_cache()
+    flop = record["accum_auto"]["step_flops"]
+    runs = {f"phase 5 {k}": synthetic_runs[k] for k in ("accum_auto", "accum_1")}
+    runs.update({f"phase 7 {k}": shard_runs[k] for k in ("shards_accum_auto", "shards_accum_1")})
+    record["mfu"] = {k: r["mfu"] for k, r in runs.items()}
+    print(f"[trace] MFU ({flop / 1e12:.2f} TFLOP of useful work a step / step p50 / "
+          f"{flops.H100_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s): "
+          + ", ".join(f"{k} {r['mfu']:.4f} ({r['step_p50_ms']:.1f} ms)" for k, r in runs.items()),
+          flush=True)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
@@ -894,10 +1226,17 @@ def main() -> int:
         flash_attention_fwd,
     )
 
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     # f32 comparisons hold the maths in full f32: no TF32 in cuDNN or cuBLAS
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+    phase_s = {}
+
+    def done(phase):
+        phase_s[phase] = time.perf_counter() - t_start
+        print(f"[time] {phase} done at {phase_s[phase]:.1f} s", flush=True)
+
     _build.build_all()
     build_s = time.perf_counter() - t0
     card = card_line()
@@ -914,10 +1253,12 @@ def main() -> int:
         if not wgmma.get(name):
             raise AssertionError(f"{name}: no wgmma (HGMMA) in its machine code")
 
+    done("build")
     kernel_rows = phase_kernels(flash_attention)
     train_fwd_rows, train_bwd_rows = phase_train_kernels()
     fused_fwd_rows, fused_bwd_rows = phase_fused_kernels()
     products = phase_products()
+    done("kernels")
     serve, default_requests, served = phase_serve(
         flash_attention_fwd, fab.fused_attention_block_fwd, load_model, chunk_padding)
     serve_fused, fused_requests, _ = phase_serve(
@@ -927,6 +1268,7 @@ def main() -> int:
     bf16_runtime = default_requests[0][1]  # the windowed runtime
     del served, fused_requests
     parity = phase_parity(load_model, JEPAConfig, bf16_runtime)
+    done("serve, parity")
     counters = {"flash_attention_fwd": flash_attention_fwd,
                 "flash_attention_bwd": flash_attention_bwd,
                 "fused_attention_block_fwd": fab.fused_attention_block_fwd,
@@ -951,6 +1293,7 @@ def main() -> int:
           f"{fused['crops_per_s']:.1f} vs {base['crops_per_s']:.1f} crops/s, peak memory "
           f"{fused['max_memory_allocated_bytes'] / 2**30:.2f} vs "
           f"{base['max_memory_allocated_bytes'] / 2**30:.2f} GiB", flush=True)
+    done("train")
     train_parity = phase_train_parity()
     for counter in counters.values():
         counter.launches = 0
@@ -971,6 +1314,12 @@ def main() -> int:
           f"{train_parity_fused['loss_card']:.6f} vs {train_parity['loss_card']:.6f} "
           f"(rel {path_rel:.3g}, limit {FUSED_PATH_LOSS_REL})", flush=True)
 
+    done("train parity")
+    data, train_shards = phase_data(counters, train)
+    done("data")
+    trace = phase_trace(train, train_shards)
+    done("trace")
+
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
                 "source": f"wavjepa_tpu_torch/csrc/{name}.cu",
@@ -982,7 +1331,8 @@ def main() -> int:
     def by_path(kernel, serving=None):
         paths = {"serve": serving["launches"] if serving else 0}
         paths.update({f"train {name}": r["launches"][kernel]
-                      for runs in (train, train_fused) for name, r in runs.items()})
+                      for runs in (train, train_fused, train_shards)
+                      for name, r in runs.items()})
         return paths
 
     fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39", 0,
@@ -1015,7 +1365,8 @@ def main() -> int:
                    "kernels": kernels, "serve": serve,
                    "serve_fused": serve_fused, "parity": parity, "train": train,
                    "train_fused": train_fused, "train_parity": train_parity,
-                   "train_parity_fused": train_parity_fused,
+                   "train_parity_fused": train_parity_fused, "data": data,
+                   "train_shards": train_shards, "trace": trace, "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

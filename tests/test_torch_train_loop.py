@@ -1,7 +1,9 @@
 """The port's training loop, checkpoints and CLI on the CPU at a tiny
-configuration: a run end to end, resume equivalence, and a port checkpoint
-served by the HEAR runtimes of both packages (embeddings f32, atol 5e-5,
-rtol 1e-4, as tests/test_torch_runtime.py)."""
+configuration: a run end to end, from synthetic clips and from tar shards
+written to a temporary directory, resume equivalence, the shard pipeline's
+workers stopped however the loop ends, multi-device settings refused, and a
+port checkpoint served by the HEAR runtimes of both packages (embeddings
+f32, atol 5e-5, rtol 1e-4, as tests/test_torch_runtime.py)."""
 
 import dataclasses
 import json
@@ -14,7 +16,9 @@ from wavjepa_tpu.api import runtime as jrt
 from wavjepa_tpu.train.checkpoint import read_model_config as jax_read_model_config
 from wavjepa_tpu_torch.api import runtime as trt
 from wavjepa_tpu_torch.models.jepa import JEPA
+from tests.test_torch_data import write_audio_shards
 from wavjepa_tpu_torch.train import __main__ as cli
+from wavjepa_tpu_torch.train import loop
 from wavjepa_tpu_torch.train.checkpoint import CheckpointManager, read_model_config
 from wavjepa_tpu_torch.train.config import Config, apply_overrides
 from wavjepa_tpu_torch.train.loop import build_data_iterator, prefetch_to_device, train_jepa
@@ -132,9 +136,16 @@ def test_data_iterator_and_prefetch(tmp_path):
     fed = prefetch_to_device(iter([first, first * 2]), torch.device("cpu"))
     got = list(fed)
     assert len(got) == 2 and torch.equal(got[1], torch.from_numpy(first * 2))
-    with pytest.raises(NotImplementedError):
-        build_data_iterator(apply_overrides(_cfg(tmp_path), ["data.synthetic=false",
-                                                             "data.data_dirs=x.tar"]))
+    # data.data_dirs: the shard pipeline, whose worker reports a pattern
+    # that matches no readable shard
+    shard_batches = build_data_iterator(apply_overrides(_cfg(tmp_path), [
+        "data.synthetic=false", f"data.data_dirs={tmp_path}/x-{{0..1}}.tar",
+        "data.num_workers=0"]))
+    try:
+        with pytest.raises(RuntimeError, match="no readable sample"):
+            next(shard_batches)
+    finally:
+        shard_batches.stop()
     with pytest.raises(NotImplementedError):
         build_data_iterator(apply_overrides(_cfg(tmp_path), ["data.nat_scenes=true"]))
 
@@ -148,3 +159,81 @@ def test_prefetch_passes_on_a_source_error():
     next(fed)
     with pytest.raises(OSError, match="disk"):
         next(fed)
+
+
+def _shard_cfg(tmp_path, *extra):
+    """The tiny run from shards of 44.1k stereo, 3.2k and 1.6k mono clips,
+    loaded in-process (num_workers=0)."""
+    _, pattern = write_audio_shards(tmp_path / "shards", 2, 3,
+                                    [(44100, 2), (3200, 1), (1600, 1)], 0.8)
+    return _cfg(tmp_path / "run", "data.synthetic=false", f"data.data_dirs={pattern}",
+                "data.num_workers=0", "data.shuffle_buffer=4", *extra)
+
+
+def test_train_jepa_trains_from_shards(tmp_path):
+    (tmp_path / "shards").mkdir()
+    cfg = _shard_cfg(tmp_path)
+    state = train_jepa(cfg, max_steps=2, device="cpu")
+    assert state.step == 2
+    run = _run_dir(cfg)
+    lines = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert [x["step"] for x in lines] == [1, 2]
+    assert all(np.isfinite(x["loss"]) and x["data_wait_ms"] >= 0 for x in lines)
+    assert (run / "ckpt" / "step_00000002.ckpt").is_file()
+
+
+def test_cli_trains_from_shards(tmp_path, capsys):
+    (tmp_path / "shards").mkdir()
+    cfg = _shard_cfg(tmp_path)
+    cli.main([*TINY_RUN, "data.synthetic=false", f"data.data_dirs={cfg.data.data_dirs}",
+              "data.num_workers=0", "data.shuffle_buffer=4", "trainer.steps=2",
+              f"trainer.save_dir={tmp_path / 'cli'}", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[step 2] loss=" in out
+    assert (_run_dir(_cfg(tmp_path / "cli")) / "ckpt" / "step_00000002.ckpt").is_file()
+
+
+def test_the_shard_source_stops_when_the_loop_returns_or_raises(tmp_path, monkeypatch):
+    (tmp_path / "shards").mkdir()
+    built = []
+
+    def recording(cfg):
+        built.append(loop.audio_shard_batches.__wrapped__(cfg))
+        return built[-1]
+
+    recording.__wrapped__ = loop.audio_shard_batches
+    monkeypatch.setattr(loop, "audio_shard_batches", recording)
+    train_jepa(_shard_cfg(tmp_path), max_steps=1, device="cpu")
+    assert built[0].source.alive() == 0
+
+    def failing_step(*args, **kwargs):
+        def step(state, batch, generator):
+            raise FloatingPointError("step failed")
+        return step
+
+    monkeypatch.setattr(loop, "make_jepa_train_step", failing_step)
+    with pytest.raises(FloatingPointError, match="step failed"):
+        train_jepa(_shard_cfg(tmp_path, f"trainer.save_dir={tmp_path / 'failing'}"),
+                   max_steps=1, device="cpu")
+    assert len(built) == 2 and built[1].source.alive() == 0
+
+
+@pytest.mark.parametrize("setting", ["trainer.model_parallel=2", "trainer.num_devices=2"])
+def test_multi_device_settings_raise(tmp_path, setting):
+    cfg = _cfg(tmp_path, setting)
+    with pytest.raises(NotImplementedError, match=setting.split("=")[0]):
+        cfg.build_model_config()
+    with pytest.raises(NotImplementedError, match=setting.split("=")[0]):
+        train_jepa(cfg, max_steps=1, device="cpu")
+    with pytest.raises(NotImplementedError, match=setting.split("=")[0]):
+        cli.main([*TINY_RUN, setting, f"trainer.save_dir={tmp_path}", "--device", "cpu"])
+    assert not (tmp_path / "Data=AudioSet").exists()  # refused before any run directory
+
+
+def test_all_visible_devices_train_on_one_and_say_so(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for setting, said in (("trainer.num_devices=0", True), ("trainer.num_devices=1", False)):
+        train_jepa(_cfg(tmp_path / setting, setting), max_steps=1, device="cpu")
+        out = capsys.readouterr().out
+        assert ("2 CUDA devices are visible, and the port trains on one of them" in out) is said

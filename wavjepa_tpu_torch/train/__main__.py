@@ -2,8 +2,15 @@
 
     python -m wavjepa_tpu_torch.train [config.yaml] [key=value ...] [--device cpu]
 
-Runs on cuda unless ``--device`` names another device. Example, a smoke run
-of the tiny model on the CPU:
+Runs on cuda unless ``--device`` names another device. Training reads the
+WebDataset tar shards that ``data.data_dirs`` names (brace ranges, commas),
+decoded by ``data.num_workers`` spawned worker processes:
+
+    python -m wavjepa_tpu_torch.train configs/audioset.yaml \\
+        "data.data_dirs=/data/audioset/train-{000000..000999}.tar"
+
+and synthetic clips when ``data.synthetic=true`` or ``data.data_dirs`` is
+empty. A smoke run of the tiny model on the CPU:
 
     python -m wavjepa_tpu_torch.train data.synthetic=true trainer.size=tiny \\
         trainer.steps=2 trainer.batch_size=1 data.samples_per_audio=2 \\

@@ -120,7 +120,10 @@ class TrainerConfig:
     precision: str = "bf16"  # "bf16" | "f32"
     size: str = "base"  # "base" | "large"
     average_top_k_layers: int = 8
-    num_devices: int = 0  # 0 = all visible
+    # devices: the port trains on one (0 = all visible, of which it takes
+    # one); more, or tensor parallelism, raise until data parallelism is
+    # ported (check_devices)
+    num_devices: int = 0
     model_parallel: int = 1
     # recomputation flags, kept so that configurations round-trip; the port
     # keeps every activation (no recomputation yet)
@@ -235,12 +238,27 @@ class Config:
                     return cand
         return 1
 
+    def check_devices(self) -> None:
+        """Raise on multi-device settings, which the port cannot honour yet:
+        a run that asked for them must not train on one device unawares."""
+        tr = self.trainer
+        if tr.model_parallel != 1:
+            raise NotImplementedError(
+                f"trainer.model_parallel={tr.model_parallel}: tensor parallelism has no port "
+                f"yet; the port trains on one device (set trainer.model_parallel=1)")
+        if tr.num_devices > 1:
+            raise NotImplementedError(
+                f"trainer.num_devices={tr.num_devices}: data parallelism has no port yet; "
+                f"the port trains on one device (set trainer.num_devices=1 or 0)")
+
     def build_denoise_model_config(self):
         raise NotImplementedError("the denoiser has no port yet")
 
     def build_model_config(self) -> JEPAConfig:
         """The JEPAConfig of this run, with packing and the recomputation
-        flags resolved as the JAX package resolves them."""
+        flags resolved as the JAX package resolves them. Raises on
+        multi-device settings (``check_devices``)."""
+        self.check_devices()
         cfg = self._base_model_config()
         pe, pd = self.packing_bounds(cfg.total_patches)
         if pe is not None:

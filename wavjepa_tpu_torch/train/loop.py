@@ -5,13 +5,17 @@ Counterpart of ``wavjepa_tpu/train/loop.py`` on one device. Every step
 draws its crops and masks from a generator on the device seeded from
 (seed, step), so a step depends on the run's seed and its index only, as
 the JAX package folds the step into its key; resuming from a checkpoint
-therefore repeats the steps an uninterrupted run would have taken.
+therefore repeats the steps an uninterrupted run would have taken, on the
+synthetic source. The shard source (``data.data_dirs``) is a shuffled
+stream with no position: a resumed run starts it afresh and does not skip
+the batches it has already taken, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from wavjepa_tpu_torch.api.runtime import DeviceLike, resolve_device
+from wavjepa_tpu_torch.data.pipeline import audio_shard_batches
 from wavjepa_tpu_torch.data.synthetic import synthetic_audio_batches
 from wavjepa_tpu_torch.models.jepa import JEPA
 from wavjepa_tpu_torch.train.checkpoint import CheckpointManager, write_model_config
@@ -29,8 +34,11 @@ from wavjepa_tpu_torch.utils.metrics import MetricLogger, Throughput
 
 
 def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator[np.ndarray]:
-    """The run's clip batches from ``start_step`` on. Only the synthetic
-    source is ported; shards and Nat scenes raise."""
+    """The run's clip batches: synthetic clips from batch ``start_step`` on
+    when ``data.synthetic`` is set or ``data.data_dirs`` is empty, else the
+    shard pipeline, started (``data/pipeline.py``; it has no position, so
+    ``start_step`` does not apply; ``stop()`` stops its workers). Nat scene
+    batches raise: they have no port yet."""
     if cfg.data.nat_scenes:
         raise NotImplementedError("WavJEPA-Nat scene batches have no port yet")
     if cfg.data.synthetic or not cfg.data.data_dirs:
@@ -39,7 +47,7 @@ def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator[np.ndarray
             seconds=cfg.data.target_seconds, sr=cfg.data.sr, seed=cfg.trainer.seed,
             start_batch=start_step,
         )
-    raise NotImplementedError("the WebDataset shard pipeline has no port yet")
+    return audio_shard_batches(cfg)
 
 
 def prefetch_to_device(iterator: Iterator[np.ndarray], device: torch.device,
@@ -100,16 +108,15 @@ def step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step) % (2**63)
 
 
-def train_jepa(
-    cfg: Config,
-    data_iter: Optional[Iterator[np.ndarray]] = None,
-    max_steps: Optional[int] = None,
-    device: DeviceLike = None,
-) -> TrainState:
-    """Run (or resume) JEPA pretraining on ``device`` (cuda unless told
-    otherwise; raises without CUDA). Returns the final TrainState."""
+def build_run(cfg: Config, device: DeviceLike = None):
+    """(device, model configuration, fresh TrainState, step function) of a
+    run, as ``train_jepa`` builds them before it restores a checkpoint."""
+    model_cfg = cfg.build_model_config()  # raises on settings the port lacks
     dev = resolve_device(device)
-    model_cfg = cfg.build_model_config()
+    n_visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cfg.trainer.num_devices == 0 and n_visible > 1:
+        print(f"trainer.num_devices=0 (all visible): {n_visible} CUDA devices are "
+              f"visible, and the port trains on one of them ({dev})", flush=True)
     model = JEPA(model_cfg)
     model.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
     model.to(dev)
@@ -123,7 +130,23 @@ def train_jepa(
         ema_cfg=cfg.ema,
         accum_steps=cfg.resolved_accum_steps(),
     )
+    return dev, model_cfg, state, step_fn
 
+
+def train_jepa(
+    cfg: Config,
+    data_iter: Optional[Iterator[np.ndarray]] = None,
+    max_steps: Optional[int] = None,
+    device: DeviceLike = None,
+) -> TrainState:
+    """Run (or resume) JEPA pretraining on ``device`` (cuda unless told
+    otherwise; raises without CUDA). Returns the final TrainState.
+
+    Without ``data_iter`` the batches come from ``build_data_iterator``,
+    and a shard pipeline built here is stopped when the loop returns or
+    raises. Each step logs ``data_wait_ms``, the time the loop waited for
+    its batch."""
+    dev, model_cfg, state, step_fn = build_run(cfg, device)
     run_dir = Path(cfg.trainer.save_dir) / cfg.run_identity()
     write_model_config(run_dir, model_cfg)
     ckpt = CheckpointManager(run_dir / "ckpt", keep=cfg.trainer.keep_ckpts,
@@ -133,27 +156,36 @@ def train_jepa(
         print(f"resumed from step {state.step}", flush=True)
 
     logger = MetricLogger(str(run_dir / "logs"))
+    owned = None
     if data_iter is None:  # built after the restore: the stream starts at the next step
-        data_iter = build_data_iterator(cfg, start_step=state.step)
+        data_iter = owned = build_data_iterator(cfg, start_step=state.step)
     total = max_steps if max_steps is not None else cfg.trainer.steps
     throughput = Throughput(cfg.trainer.batch_size,
                             cfg.trainer.batch_size * cfg.data.samples_per_audio)
     generator = torch.Generator(device=dev)
     batches = prefetch_to_device(data_iter, dev)
+    wait_s, waited_steps = 0.0, 0
     try:
         while state.step < total:
+            t0 = time.perf_counter()
             batch = next(batches)
+            wait_s += time.perf_counter() - t0
+            waited_steps += 1
             generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
             state, metrics = step_fn(state, batch, generator)
             throughput.step()
             if state.step % cfg.trainer.log_every == 0 or state.step == total:
                 scalars = {k: float(v) for k, v in metrics.items()}  # waits for the device
                 scalars.update(throughput.rates())
+                scalars["data_wait_ms"] = 1000.0 * wait_s / waited_steps
+                wait_s, waited_steps = 0.0, 0
                 throughput.start()
                 logger.log(state.step, scalars)
             if ckpt.save(state.step, state):
                 print(f"checkpoint @ {state.step}", flush=True)
     finally:
+        if hasattr(owned, "stop"):  # the shard pipeline's worker processes
+            owned.stop()
         batches.close()
         logger.close()
     if ckpt.latest_step() != state.step:

@@ -1,9 +1,9 @@
-"""Training metrics: JSON lines, console lines, and throughput.
+"""Training metrics: TensorBoard events, JSON lines, console lines, and
+throughput.
 
-Counterpart of ``wavjepa_tpu/utils/metrics.py`` without a TensorBoard
-writer. ``Throughput`` counts clips (what a data loader delivers) and crops
-(what the model trains on) apart: each clip yields ``samples_per_audio``
-crops.
+Counterpart of ``wavjepa_tpu/utils/metrics.py``. ``Throughput`` counts clips
+(what a data loader delivers) and crops (what the model trains on) apart:
+each clip yields ``samples_per_audio`` crops.
 """
 
 from __future__ import annotations
@@ -15,17 +15,30 @@ from typing import Optional
 
 
 class MetricLogger:
-    """Appends ``{"step": N, ...}`` to ``<log_dir>/metrics.jsonl`` and
-    prints ``[step N] key=value ...``."""
+    """Appends ``{"step": N, ...}`` to ``<log_dir>/metrics.jsonl``, prints
+    ``[step N] key=value ...`` and, where ``tensorboardX`` imports, writes
+    the same scalars as TensorBoard events into ``log_dir``; without it the
+    JSON lines are the whole record."""
 
-    def __init__(self, log_dir: Optional[str] = None):
+    def __init__(self, log_dir: Optional[str] = None, use_tensorboard: bool = True):
+        self.writer = None
         self._jsonl = None
         if log_dir:
             Path(log_dir).mkdir(parents=True, exist_ok=True)
             self._jsonl = open(Path(log_dir) / "metrics.jsonl", "a")
+            if use_tensorboard:
+                try:
+                    from tensorboardX import SummaryWriter
+                except ImportError:
+                    SummaryWriter = None
+                if SummaryWriter is not None:
+                    self.writer = SummaryWriter(log_dir)
 
     def log(self, step: int, metrics: dict) -> None:
         scalars = {k: float(v) for k, v in metrics.items()}
+        if self.writer is not None:
+            for key, value in scalars.items():
+                self.writer.add_scalar(key, value, step)
         if self._jsonl is not None:
             self._jsonl.write(json.dumps({"step": step, **scalars}) + "\n")
             self._jsonl.flush()
@@ -33,6 +46,9 @@ class MetricLogger:
         print(f"[step {step}] {parts}", flush=True)
 
     def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
