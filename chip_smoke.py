@@ -66,7 +66,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 8. trace    one accum-16 and one accum-1 step under ``torch.profiler``
             (``build/chip_smoke_trace/*.json.gz``): wall time, the card's idle
             share, kernels launched, the top kernels and host operators;
-            and the MFU of phases 5 and 7.
+            and the MFU of phases 5 and 7;
+9. nat      WavJEPA-Nat (``configs/nat_binaural.yaml``, 2 channels, base
+            width): one scene batch at the real shape (32 clips of 10 s at
+            32 kHz, 2-s binaural RIRs, 5 noise sources) synthesized on the
+            card against the CPU and resampled to 16 kHz against scipy (TF32
+            on in the process), their times and the convolution pair's at
+            four FFT lengths; ``train_jepa`` on synthetic scene batches at
+            accum 16 with phase 5's checks and the scene build's share of
+            the step; one f32 Nat step card against CPU (phase 6's); then
+            ``train_jepa`` from shards written under ``build/`` (clean
+            clips, binaural RIR and noise .npy tars) with the device banks
+            and one refresh a batch; and the Nat HEAR runtime
+            (``api/hear_natjepa``: binaural scene and timestamp requests, a
+            4-channel request, f32 card against CPU, bf16 against f32).
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -135,6 +148,25 @@ LOADER_BATCHES = 20  # the loader alone, timed after its first batch
 LOADER_PRIME_S = 60.0  # at most, to fill the loader's queue before a shard-fed run
 RESAMPLE_ATOL = 2e-6  # native resampler vs scipy's resample_poly, audio in [-1, 1]
 CLI_STEPS = 2
+# configs/nat_binaural.yaml as overrides of the defaults (the card's machine
+# may lack PyYAML; tests/test_torch_nat_step.py holds the two equal)
+NAT_OVERRIDES = ("data.nat_scenes=true", "data.in_channels=2", "extractor.channel_wise=true",
+                 "extractor.pos_embed=binaural", "masker.channel_based_masking=true")
+# phase 9 (WavJEPA-Nat): one scene batch of the Nat configuration (32 clips
+# of 10 s at 32 kHz, 2-s binaural RIRs, 5 noise sources); the scenes on the
+# card against the same code on the CPU (the convolutions as in
+# tests/test_torch_nat_scenes.py, relative to max(1, max |CPU|)) and the
+# resampler against scipy's resample_poly (f32 sums in another order, on
+# scenes of a few units)
+NAT_SCENE_REL = 1e-4
+NAT_RESAMPLE_REL = 1e-5
+# FFT lengths for the scene convolution pair at T = 320000, L = 64000 (n >=
+# 383999): the port's 7-smooth rule, the JAX package's multiple of 4096
+# (94 · 4096 = 2^13 · 47), 2^17 · 3 and the next power of two
+NAT_FFT_LENGTHS = (384000, 385024, 393216, 524288)
+NAT_SHARDS_DIR = os.path.join("build", "chip_smoke_nat_shards")
+NAT_RIR_STACKS, NAT_NOISE_ROWS = 64, 32
+# serving: binaural clips, the contract's tolerances (phase 4's)
 # phase 8: one traced step at accum 16 and one at accum 1, after warm-up steps
 TRACE_DIR = os.path.join("build", "chip_smoke_trace")
 TRACE_WARMUP = 2
@@ -150,6 +182,7 @@ ATTN_SHAPES = [
     ("whole_clip", 8, 12, 999),
     ("whole_clip_b4", 4, 12, 999),
     ("large_windowed", 4, 16, 200),
+    ("nat_windowed", 40, 12, 400),  # WavJEPA-Nat: 8 binaural clips, 2 × 200 tokens a window
 ]
 HEAD_DIM = 64
 # (name, B, T, D, heads) of the fused block: the packed decoder (4 groups a
@@ -177,11 +210,17 @@ TRAIN_FWD_SHAPES = [
     ("student_encoder", 256, 12, 88, 64), ("decoder", 1024, 12, 128, 32),
     ("teacher", 256, 12, 200, 64), ("student_encoder_mb", 16, 12, 88, 64),
     ("decoder_mb", 64, 12, 128, 32), ("teacher_mb", 16, 12, 200, 64),
+    # WavJEPA-Nat (configs/nat_binaural.yaml): packing 176/256 over 2 channels,
+    # the teacher on all 400 tokens, one of 16 microbatches
+    ("nat_student_encoder_mb", 16, 12, 176, 64), ("nat_decoder_mb", 64, 12, 256, 32),
+    ("nat_teacher_mb", 16, 12, 400, 64),
 ]
 TRAIN_BWD_SHAPES = [
     ("student_encoder", 256, 12, 88, 64), ("decoder", 1024, 12, 128, 32),
     ("student_encoder_mb", 16, 12, 88, 64), ("decoder_mb", 64, 12, 128, 32),
     ("ragged_t100", 16, 12, 100, 64),
+    # WavJEPA-Nat's trained stacks, above T = 128: the two-pass route
+    ("nat_student_encoder_mb", 16, 12, 176, 64), ("nat_decoder_mb", 64, 12, 256, 32),
 ]
 # where the kernels change tile or route: the forward at one 64-row tile and
 # one row past it, and the whole clip at head_dim 32; the backward at the
@@ -304,7 +343,7 @@ def phase_train_kernels() -> tuple[list[dict], list[dict]]:
     for i, (name, b, h, t, d) in enumerate(TRAIN_FWD_SHAPES + EDGE_FWD_SHAPES):
         (q, k, v), mask = card_inputs(b, h, t, d, seed=100 + i)
         row = {"shape": name, "B": b, "H": h, "T": t, "d": d, "route_bf16": "wgmma"}
-        stats = not name.startswith("teacher")  # the teacher runs without a gradient
+        stats = "teacher" not in name  # the teacher runs without a gradient
         for dtype, rel, key in ((torch.float32, F32_REL, "f32"), (torch.bfloat16, BF16_REL, "bf16")):
             qq, kk, vv = (x.to(dtype) for x in (q, k, v))
             out, _ = fam.flash_attention_fwd(qq, kk, vv, mask, stats)
@@ -763,17 +802,19 @@ def encoder_weights(model) -> dict:
 def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
     """train_jepa on the AudioSet configuration as resolved, once per run
     (name, overrides, steps, launches of each counted wrapper a microbatch,
-    whether to serve from its checkpoint), on synthetic clips or, given a
-    shard pattern, from the shard pipeline (``audio_shard_batches``, wrapped
-    so that the time each batch kept the loader waiting is recorded); the
-    launch counts are set to 0 just before each run and read just after it."""
+    whether to serve from its checkpoint), on synthetic clips (or scenes)
+    or, given a shard pattern, from the run's shard pipeline
+    (``build_data_iterator``: clips, or Nat scene batches with their banks),
+    wrapped so that the time each batch kept the loader waiting is recorded;
+    the launch counts are set to 0 just before each run and read just after
+    it."""
     import shutil
 
     from wavjepa_tpu_torch.api.runtime import load_model
-    from wavjepa_tpu_torch.data.pipeline import audio_shard_batches
+    from wavjepa_tpu_torch.data.pipeline import ShardBatches
     from wavjepa_tpu_torch.models.jepa import JEPA
     from wavjepa_tpu_torch.train.config import Config, apply_overrides
-    from wavjepa_tpu_torch.train.loop import train_jepa
+    from wavjepa_tpu_torch.train.loop import build_data_iterator, train_jepa
     from wavjepa_tpu_torch.utils import flops
 
     record = {}
@@ -798,8 +839,9 @@ def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
             # filled and the queue full, as it stays in a long run, where the
             # workers produce faster than the card consumes and wait in put
             t0 = time.perf_counter()
-            batches = audio_shard_batches(cfg)
-            first, source = next(batches), batches.source
+            batches = build_data_iterator(cfg)
+            first = next(batches)
+            source = getattr(batches.source, "audio", batches.source)  # the clean clips
             primed["buffer_s"] = time.perf_counter() - t0
             while (source.queue.qsize() < source.queue_size - cfg.trainer.batch_size
                    and time.perf_counter() - t0 < LOADER_PRIME_S):
@@ -815,7 +857,8 @@ def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
                     loader_waits.append((time.perf_counter() - t1) * 1e3)
                     yield batch
 
-            data_iter = timed_batches()
+            # the source goes along: train_jepa sends a scene source's bank
+            data_iter = ShardBatches(batches.source, timed_batches())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for counter in counters.values():  # the main path's run starts here
@@ -907,14 +950,15 @@ def phase_train_parity(overrides: tuple = (), tag: str = "train parity") -> dict
 
     cfg = apply_overrides(Config(), ["trainer.precision=f32", "trainer.batch_size=1",
                                      "data.samples_per_audio=2", *overrides])
-    f32_cfg = cfg.build_model_config()  # base width, packing 88/128, one pass
+    f32_cfg = cfg.build_model_config()  # base width, packed, one pass
     opt_cfg = OptimizerConfig(warmup_steps=1)  # step 1: lr = the peak, 4e-4
     masker, masker_cfg = cfg.masker.build()
     rng = np.random.default_rng(11)
-    crops = instance_normalize(torch.from_numpy(
-        rng.standard_normal((2, 1, f32_cfg.target_length)).astype(np.float32)))
+    crops = instance_normalize(torch.from_numpy(rng.standard_normal(
+        (2, f32_cfg.in_channels, f32_cfg.target_length)).astype(np.float32)))
     masks = masker(torch.Generator().manual_seed(11), batch_size=2,
-                   n_times=f32_cfg.total_patches, cfg=masker_cfg)
+                   n_times=f32_cfg.total_patches, in_channels=f32_cfg.in_channels,
+                   cfg=masker_cfg)
 
     def one_step(model_cfg, device):
         model = JEPA(model_cfg)
@@ -1210,6 +1254,275 @@ def phase_trace(synthetic_runs: dict, shard_runs: dict) -> dict:
           flush=True)
     return record
 
+def nat_scene_batch(seed: int, b: int = 32, seconds: float = 10.0, sr: int = 32000,
+                    rir_s: float = 2.0, n_noise: int = 5, channels: int = 2) -> dict:
+    """A Nat scene batch at the real shape from seeded numpy: clean clips,
+    binaural RIRs (an onset, then exponentially decaying noise a channel),
+    noise over a random span, SNRs in [-5, 5] dB; 2 of the 5 noise sources
+    absent (zero rows)."""
+    rng = np.random.default_rng(seed)
+    t, length = int(sr * seconds), int(sr * rir_s)
+    decay = np.exp(-np.arange(length) / (0.05 * sr)).astype(np.float32)
+
+    def rirs(*shape):
+        r = rng.standard_normal(shape + (length,)).astype(np.float32) * decay * 0.05
+        r[..., int(rng.integers(0, 200))] += 1.0
+        return r
+
+    nrirs = rirs(b, n_noise, channels)
+    nrirs[:, 3:] = 0.0
+    start = rng.integers(0, t // 2, b).astype(np.int32)
+    length_n = rng.integers(t // 4, t // 2, b).astype(np.int32)
+    noise = np.zeros((b, t), np.float32)
+    for i in range(b):
+        noise[i, start[i]:start[i] + length_n[i]] = rng.standard_normal(length_n[i])
+    return {"audio": rng.standard_normal((b, t)).astype(np.float32) * 0.1,
+            "source_rir": rirs(b, channels), "noise": noise, "noise_rirs": nrirs,
+            "noise_start": start, "noise_length": length_n,
+            "snr": rng.uniform(-5, 5, b).astype(np.float32)}
+
+
+def phase_nat_scenes() -> dict:
+    """The Nat step's scene synthesis and resampler on one batch at the real
+    shape: card against CPU, and the resampler against scipy with TF32
+    turned on in the process (it turns it off for itself); then their card
+    times, the step's scene build from inline RIRs and from the bank, and
+    the convolution pair at each FFT length of NAT_FFT_LENGTHS."""
+    from wavjepa_tpu_torch.data.resample import resample_np_plain
+    from wavjepa_tpu_torch.ops import scenes
+    from wavjepa_tpu_torch.ops.resample import resample_torch
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.loop import scene_config
+    from wavjepa_tpu_torch.train.step import make_jepa_train_step
+
+    cfg = apply_overrides(Config(), [*NAT_OVERRIDES, "data.synthetic=true"])
+    model_cfg = cfg.build_model_config()
+    step = make_jepa_train_step(cfg.optimizer, scene_cfg=scene_config(cfg))
+    batch = nat_scene_batch(21)
+    card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    cpu = {k: torch.from_numpy(v) for k, v in batch.items()}
+    sr_in, sr_out = step.scene_cfg.original_sr, model_cfg.sample_rate
+    args = ("audio", "source_rir", "noise", "noise_rirs", "noise_start", "noise_length", "snr")
+
+    def synth(b):
+        return scenes.generate_scene(*(b[k] for k in args), with_rir=True, with_noise=True,
+                                     n_channels=2)
+
+    rec = {"batch": {k: list(v.shape) for k, v in batch.items()},
+           "fft_len": scenes._fft_len(batch["audio"].shape[-1] + batch["source_rir"].shape[-1] - 1)}
+    wet = synth(card)
+    wet_cpu = synth(cpu)
+    rec["scene_max_abs_err"], ok = scaled_err(wet.cpu(), wet_cpu, NAT_SCENE_REL)
+    if tuple(wet.shape) != (32, 2, 320000) or not torch.isfinite(wet).all() or not ok:
+        raise AssertionError(f"nat scenes {tuple(wet.shape)}: card vs CPU "
+                             f"{rec['scene_max_abs_err']}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # what a user's run may have
+    try:
+        res = resample_torch(wet, sr_in, sr_out)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    plain = torch.from_numpy(resample_np_plain(wet.cpu().numpy(), sr_in, sr_out))
+    rec["resample_max_abs_err"], ok = scaled_err(res.cpu(), plain, NAT_RESAMPLE_REL)
+    if tuple(res.shape) != (32, 2, 160000) or not ok:
+        raise AssertionError(f"nat resampler {tuple(res.shape)}: card vs scipy "
+                             f"{rec['resample_max_abs_err']} (TF32 on in the process)")
+    rec["scene_ms"] = cuda_ms(lambda: synth(card), iters=10)
+    rec["resample_ms"] = cuda_ms(lambda: resample_torch(wet, sr_in, sr_out), iters=10)
+    rec["step_scenes_inline_ms"] = cuda_ms(lambda: step.scenes(model_cfg, card), iters=10)
+    # the same clips with RIRs and noise from a 64-row device bank (int16 noise)
+    bank = {"source_rir": card["source_rir"].repeat(2, 1, 1),
+            "noise_rirs": card["noise_rirs"].repeat(2, 1, 1, 1),
+            "noise": (card["noise"] * 3000).round().to(torch.int16).repeat(2, 1)}
+    banked = {k: card[k] for k in ("audio", "noise_start", "noise_length", "snr")}
+    banked["rir_index"] = torch.arange(32, device="cuda", dtype=torch.int32) * 2
+    banked["noise_index"] = banked["rir_index"] + 1
+    banked["noise_start"] = torch.zeros_like(banked["noise_start"])  # rows are placed
+    rec["step_scenes_banked_ms"] = cuda_ms(lambda: step.scenes(model_cfg, banked, bank),
+                                           iters=10)
+    fft_len = scenes._fft_len
+    rec["fft_pair_ms"] = {}
+    try:
+        for n in NAT_FFT_LENGTHS:
+            scenes._fft_len = lambda m, n=n: n  # noqa: E731 - the length under test
+            rec["fft_pair_ms"][n] = cuda_ms(lambda: (
+                scenes.convolve_with_rir(card["audio"], card["source_rir"]),
+                scenes.aggregate_noise(card["noise_rirs"], card["noise"])), iters=10)
+    finally:
+        scenes._fft_len = fft_len
+    print(f"[nat scenes] {rec['batch']['audio']} clips at {sr_in} Hz, RIRs "
+          f"{rec['batch']['source_rir']}, noise RIRs {rec['batch']['noise_rirs']}: scenes card vs "
+          f"CPU max abs err {rec['scene_max_abs_err']:.3g} (limit {NAT_SCENE_REL} of max(1, "
+          f"max |CPU|)); resampler {sr_in} -> {sr_out} vs scipy {rec['resample_max_abs_err']:.3g} "
+          f"(limit {NAT_RESAMPLE_REL}, TF32 on in the process); scene synthesis "
+          f"{rec['scene_ms']:.3f} ms (FFT length {rec['fft_len']}), resampler "
+          f"{rec['resample_ms']:.3f} ms; the step's scene build {rec['step_scenes_inline_ms']:.3f} "
+          f"ms inline, {rec['step_scenes_banked_ms']:.3f} ms from the bank", flush=True)
+    print("[nat scenes] convolution pair by FFT length: " + ", ".join(
+        f"{n} {ms:.3f} ms" for n, ms in rec["fft_pair_ms"].items()), flush=True)
+    del step, card, wet, res, bank, banked
+    torch.cuda.empty_cache()
+    return rec
+
+
+def write_nat_shards(root: str, seed: int = 0) -> tuple[str, str, str]:
+    """Phase 9's shards: the clean clips of phase 7 (``write_shards``), 4
+    .npy tars of binaural RIR stacks ((1 + 0..5, 2, 64000) f32: the
+    source's, then the noise sources'; an onset, then decaying noise) and 1
+    .npy tar of noise rows of 3-15 s at 32 kHz. Returns their patterns."""
+    import io
+    import tarfile
+
+    audio = write_shards(os.path.join(root, "audio"), seed)
+    rng = np.random.default_rng(seed + 1)
+    decay = np.exp(-np.arange(64000) / 1600.0).astype(np.float32)
+
+    def npy_tar(path, arrays):
+        with tarfile.open(path, "w") as tar:
+            for i, arr in enumerate(arrays):
+                buf = io.BytesIO()
+                np.save(buf, arr)
+                info = tarfile.TarInfo(f"item{i:04d}.npy")
+                info.size = buf.tell()
+                buf.seek(0)
+                tar.addfile(info, buf)
+
+    per = NAT_RIR_STACKS // 4
+    for s in range(4):
+        stacks = []
+        for _ in range(per):
+            st = rng.standard_normal((1 + int(rng.integers(0, 6)), 2, 64000)).astype(
+                np.float32) * decay * 0.05
+            st[..., int(rng.integers(0, 200))] += 1.0
+            stacks.append(st)
+        npy_tar(os.path.join(root, f"rir-{s}.tar"), stacks)
+    npy_tar(os.path.join(root, "noise-0.tar"), [
+        rng.standard_normal(int(32000 * rng.uniform(3, 15))).astype(np.float32)
+        for _ in range(NAT_NOISE_ROWS)])
+    return audio, os.path.join(root, "rir-{0..3}.tar"), os.path.join(root, "noise-0.tar")
+
+
+def phase_nat_serve(counted, idle) -> dict:
+    """The Nat HEAR runtime (``api/hear_natjepa.load_model``, bf16, binaural
+    positions, seeded random weights): scene embeddings of 8 binaural clips
+    of 10 s and timestamp embeddings of a ragged binaural batch, and one
+    4-channel model (time positions) on 2 clips of 10 s; the flash forward
+    once per encoder layer per request, the fused block never; then f32 on
+    the card against the CPU and bf16 against that f32 result."""
+    from wavjepa_tpu_torch.api import hear_natjepa
+    from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
+    from wavjepa_tpu_torch.models.jepa import JEPAConfig
+
+    def clips(seconds, seed, channels=2):
+        rng = np.random.default_rng(seed)
+        return [rng.standard_normal((channels, int(round(s * 16000)))).astype(np.float32) * 0.1
+                for s in seconds]
+
+    binaural = hear_natjepa.load_model("", pos_embed="binaural", seed=0)
+    ambisonic = hear_natjepa.load_model("", in_channels=4, pos_embed="time", seed=0)
+    layers = binaural.config.encoder_layers
+    requests = [("scene_8x10s", binaural, "scene", clips([10.0] * 8, 31)),
+                ("timestamps_ragged", binaural, "timestamps", clips([1.0, 2.01, 4.3, 30.0], 32)),
+                ("ambisonic_timestamps_2x10s", ambisonic, "timestamps",
+                 clips([10.0] * 2, 33, channels=4))]
+    record = {}
+    counted.launches = idle.launches = 0  # the main path's run starts here
+    for name, rt, kind, x in requests:
+        before = counted.launches
+        emb, ts = serve_request(rt, kind, x)
+        torch.cuda.synchronize()
+        if counted.launches - before != layers or idle.launches:
+            raise AssertionError(f"nat {name}: {counted.launches - before} flash launches, "
+                                 f"expected {layers}, and {idle.launches} fused")
+        n = max(c.shape[-1] for c in x)
+        _, _, cut_off, _ = chunk_padding(n, rt.unit_frames, rt.sample_rate, rt.output_steps)
+        expect = (len(x), rt.embedding_size) if kind == "scene" else (len(x), cut_off,
+                                                                      rt.embedding_size)
+        if tuple(emb.shape) != expect or not torch.isfinite(emb).all():
+            raise AssertionError(f"nat {name}: embeddings {tuple(emb.shape)} != {expect}")
+        if ts is not None and tuple(ts.shape) != expect[:2]:
+            raise AssertionError(f"nat {name}: timestamps {tuple(ts.shape)}")
+        times = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            serve_request(rt, kind, x)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        record[name] = {"shape": list(emb.shape), "channels": rt.in_channels,
+                        "tokens_per_window": rt.config.total_patches,
+                        "p50_ms": statistics.median(times), "n": len(times)}
+        print(f"[nat serve] {name}: {rt.in_channels} channels, {rt.config.total_patches} "
+              f"tokens a window, out {tuple(emb.shape)}, p50 {record[name]['p50_ms']:.3f} ms "
+              f"over {len(times)} requests", flush=True)
+    launches, idle_launches = counted.launches, idle.launches  # read just after
+    if launches != layers * 13 * len(requests) or idle_launches:
+        raise AssertionError(f"nat serving launched {launches} flash, {idle_launches} fused")
+    record["launches"] = launches
+
+    cfg = JEPAConfig(extractor="conv_channel", in_channels=2, pos_embed="binaural",
+                     dtype=torch.float32)
+    x = clips([2.01, 1.0], 34)
+    e_card = load_model("", config=cfg, device="cuda", seed=0).get_timestamp_embeddings(x)[0].cpu()
+    e_cpu = load_model("", config=cfg, device="cpu", seed=0).get_timestamp_embeddings(x)[0]
+    err = (e_card - e_cpu).abs().max().item()
+    if not torch.allclose(e_card, e_cpu, atol=CARD_CPU_ATOL, rtol=CARD_CPU_ATOL):
+        raise AssertionError(f"nat f32 card vs CPU: max abs err {err}")
+    e_bf16 = binaural.get_timestamp_embeddings(x)[0].cpu()
+    rel = (torch.linalg.norm(e_bf16 - e_card) / torch.linalg.norm(e_card)).item()
+    if not rel <= BF16_REL_FRO:
+        raise AssertionError(f"nat bf16 vs f32: relative Frobenius {rel}")
+    record["parity"] = {"f32_card_vs_cpu_max_abs_err": err, "bf16_vs_f32_rel_fro": rel,
+                        "shape": list(e_card.shape)}
+    print(f"[nat serve] f32 card vs CPU max abs err {err:.3g} (atol {CARD_CPU_ATOL}); bf16 vs "
+          f"f32 relative Frobenius {rel:.4g} (limit {BF16_REL_FRO}), {tuple(e_card.shape)}",
+          flush=True)
+    return record
+
+
+def phase_nat(counters: dict) -> dict:
+    """Phase 9, WavJEPA-Nat (configs/nat_binaural.yaml at base width): the
+    scene synthesis (``phase_nat_scenes``); train_jepa on synthetic scene
+    batches at the resolved accumulation with phase 5's checks; one f32 Nat
+    step card against CPU (phase 6's); train_jepa from shards written here
+    (clean clips, binaural RIR and noise .npy tars) with the device banks
+    and one refresh a batch; the Nat HEAR runtime."""
+    import shutil
+
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+
+    record = {"scenes": phase_nat_scenes()}
+    # a microbatch: the student encoder, the teacher and the predictor
+    # forward, the student encoder and the predictor backward (36 and 24)
+    mc = apply_overrides(Config(), list(NAT_OVERRIDES)).build_model_config()
+    default_path = dict(zip(counters, (2 * mc.encoder_layers + mc.decoder_layers,
+                                       mc.encoder_layers + mc.decoder_layers, 0, 0)))
+    record["train"] = phase_train(counters, [
+        ("nat_accum_auto", list(NAT_OVERRIDES), TRAIN_STEPS, default_path, True)])
+    run = record["train"]["nat_accum_auto"]
+    share = record["scenes"]["step_scenes_inline_ms"] / run["step_p50_ms"]
+    record["scene_share_of_step"] = share
+    print(f"[nat] scene build {record['scenes']['step_scenes_inline_ms']:.2f} ms of the "
+          f"{run['step_p50_ms']:.1f}-ms step ({share:.4f})", flush=True)
+    record["train_parity"] = phase_train_parity(NAT_OVERRIDES, "nat train parity")
+
+    shutil.rmtree(NAT_SHARDS_DIR, ignore_errors=True)
+    audio, rir, noise = write_nat_shards(NAT_SHARDS_DIR)
+    record["train_shards"] = phase_train(counters, [
+        ("nat_shards_accum_auto", [*NAT_OVERRIDES, f"data.rir_dir={rir}",
+                                   f"data.noise_dir={noise}", "data.rir_refresh_per_batch=1"],
+         TRAIN_STEPS, default_path, False)], shards=audio)
+    shard_run = record["train_shards"]["nat_shards_accum_auto"]
+    print(f"[nat] from shards with device banks beside synthetic scenes: step p50 "
+          f"{shard_run['step_p50_ms']:.1f} vs {run['step_p50_ms']:.1f} ms, "
+          f"{shard_run['clips_per_s']:.2f} vs {run['clips_per_s']:.2f} clips/s; data wait "
+          f"p50 {shard_run['data_wait_p50_ms']:.2f} ms a step (each step's: "
+          f"{', '.join(f'{x:.1f}' for x in shard_run['data_wait_ms'])})", flush=True)
+    shutil.rmtree(NAT_SHARDS_DIR)
+    record["serve"] = phase_nat_serve(counters["flash_attention_fwd"],
+                                      counters["fused_attention_block_fwd"])
+    return record
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1319,6 +1632,8 @@ def main() -> int:
     done("data")
     trace = phase_trace(train, train_shards)
     done("trace")
+    nat = phase_nat(counters)
+    done("nat")
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -1331,7 +1646,8 @@ def main() -> int:
     def by_path(kernel, serving=None):
         paths = {"serve": serving["launches"] if serving else 0}
         paths.update({f"train {name}": r["launches"][kernel]
-                      for runs in (train, train_fused, train_shards)
+                      for runs in (train, train_fused, train_shards, nat["train"],
+                                   nat["train_shards"])
                       for name, r in runs.items()})
         return paths
 
@@ -1339,6 +1655,7 @@ def main() -> int:
                 kernel_rows[0],  # the windowed HEAR batch, the default serving shape
                 kernel_rows + train_fwd_rows)
     fwd["launches_by_path"] = by_path("flash_attention_fwd", serve)
+    fwd["launches_by_path"]["serve nat"] = nat["serve"]["launches"]
     fwd["bf16_routes"] = {r["shape"]: "wgmma" for r in kernel_rows + train_fwd_rows}
     bwd = entry("flash_attention_bwd", "wavjepa_tpu/ops/flash_attention.py:58", 0,
                 train_bwd_rows[2],  # one microbatch of the packed student encoder
@@ -1366,7 +1683,8 @@ def main() -> int:
                    "serve_fused": serve_fused, "parity": parity, "train": train,
                    "train_fused": train_fused, "train_parity": train_parity,
                    "train_parity_fused": train_parity_fused, "data": data,
-                   "train_shards": train_shards, "trace": trace, "phase_s": phase_s,
+                   "train_shards": train_shards, "trace": trace, "nat": nat,
+                   "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -146,8 +146,12 @@ def test_data_iterator_and_prefetch(tmp_path):
             next(shard_batches)
     finally:
         shard_batches.stop()
-    with pytest.raises(NotImplementedError):
-        build_data_iterator(apply_overrides(_cfg(tmp_path), ["data.nat_scenes=true"]))
+    # data.nat_scenes: scene batches (clean clips, RIRs, noise) for the step
+    scenes = next(build_data_iterator(apply_overrides(_cfg(tmp_path), [
+        "data.nat_scenes=true", "data.in_channels=2"])))
+    assert set(scenes) == {"audio", "source_rir", "noise", "noise_rirs", "noise_start",
+                           "noise_length", "snr"}
+    assert scenes["audio"].shape == (2, 32000) and scenes["source_rir"].shape[:2] == (2, 2)
 
 
 def test_prefetch_passes_on_a_source_error():
@@ -207,7 +211,7 @@ def test_the_shard_source_stops_when_the_loop_returns_or_raises(tmp_path, monkey
     assert built[0].source.alive() == 0
 
     def failing_step(*args, **kwargs):
-        def step(state, batch, generator):
+        def step(state, batch, generator, rir_bank=None):
             raise FloatingPointError("step failed")
         return step
 

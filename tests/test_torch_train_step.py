@@ -9,8 +9,6 @@ another order through two layers of each stack); weights and teacher atol
 2e-6, rtol 1e-4 (AdamW moves a weight by lr·g/(|g|+eps) ≤ lr, so the f32
 gradient difference reaches the weights scaled down by lr/(|g|+eps))."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +35,6 @@ from wavjepa_tpu_torch.train.schedule import ema_decay_schedule, warmup_cosine_s
 from wavjepa_tpu_torch.train.state import TrainState
 from wavjepa_tpu_torch.train.step import (
     EMAConfig,
-    NatSceneConfig,
     OptimizerConfig,
     canonicalize_for_packing,
     make_jepa_train_step,
@@ -228,9 +225,3 @@ def test_canonicalisation_matches_the_jax_step():
         # idempotent
         c2, _ = canonicalize_for_packing(c, torch.from_numpy(tgt), pe, chans)
         assert torch.equal(c2, c)
-
-
-def test_nat_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        NatSceneConfig()
-    assert dataclasses.is_dataclass(NatSceneConfig)

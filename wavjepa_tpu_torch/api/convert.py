@@ -10,6 +10,7 @@ tree (nested dicts of arrays) across:
   * a flax Dense ``kernel`` (in, out) becomes a ``weight`` (out, in);
   * conv kernels are OIH in both and carry over as they are;
   * a LayerNorm ``scale`` becomes ``weight``;
+  * a per-channel frontend's stacks become ``extract_audio.cnns.{c}``;
   * the decoder, both mappers and ``mask_token`` (1, 1, D_dec) keep their
     names, and an EMA teacher tree becomes ``teacher_encoder.*``, as
     ``wavjepa_tpu/api/convert.py`` exports them.
@@ -111,6 +112,18 @@ def _encoder(params: Mapping, prefix: str, out: dict) -> None:
     _layernorm(params["norm"], f"{prefix}.norm", out)
 
 
+def _conv_stack(blocks: Mapping, prefix: str, extractor_mode: str, out: dict) -> None:
+    for name, block in blocks.items():
+        bp = f"{prefix}.{int(name.split('_')[1])}"
+        out[f"{bp}.0.weight"] = _t(block["kernel"])
+        if "bias" in block:
+            out[f"{bp}.0.bias"] = _t(block["bias"])
+        if "norm_scale" in block:
+            norm = f"{bp}.2.1" if extractor_mode == "layer_norm" else f"{bp}.2"
+            out[f"{norm}.weight"] = _t(block["norm_scale"])
+            out[f"{norm}.bias"] = _t(block["norm_bias"])
+
+
 def state_dict_from_jax_params(params: Mapping, extractor_mode: str = "default",
                                teacher_encoder: "Mapping | None" = None
                                ) -> dict[str, torch.Tensor]:
@@ -120,17 +133,19 @@ def state_dict_from_jax_params(params: Mapping, extractor_mode: str = "default",
 
     ``extractor_mode`` says where a conv block's norm sits: GroupNorm at
     ``cnn.{i}.2`` ("default", block 0 only) or LayerNorm at ``cnn.{i}.2.1``
-    ("layer_norm")."""
+    ("layer_norm"). A per-channel frontend (``cnn_{c}`` or ``cnn_shared``
+    trees) goes to ``extract_audio.cnns.{c}.{i}``, the names the JAX
+    package's ``convert_channel_conv_frontend`` reads."""
     out: dict[str, torch.Tensor] = {}
-    for name, block in params["extract_audio"].items():
-        prefix = f"extract_audio.cnn.{int(name.split('_')[1])}"
-        out[f"{prefix}.0.weight"] = _t(block["kernel"])
-        if "bias" in block:
-            out[f"{prefix}.0.bias"] = _t(block["bias"])
-        if "norm_scale" in block:
-            norm = f"{prefix}.2.1" if extractor_mode == "layer_norm" else f"{prefix}.2"
-            out[f"{norm}.weight"] = _t(block["norm_scale"])
-            out[f"{norm}.bias"] = _t(block["norm_bias"])
+    extractor = params["extract_audio"]
+    if any(name.startswith("cnn_") for name in extractor):
+        # the per-channel frontend: a stack a channel ("cnn_{c}") or one
+        # shared ("cnn_shared"), under the reference's cnns.{c} (cnns.0)
+        for name, stack in extractor.items():
+            c = 0 if name == "cnn_shared" else int(name.split("_")[1])
+            _conv_stack(stack, f"extract_audio.cnns.{c}", extractor_mode, out)
+    else:
+        _conv_stack(extractor, "extract_audio.cnn", extractor_mode, out)
     _layernorm(params["feature_norms"], "feature_norms", out)
     if "post_extraction_mapper" in params:
         _linear(params["post_extraction_mapper"], "post_extraction_mapper", out)

@@ -2,7 +2,9 @@
 
 Counterpart of ``wavjepa_tpu/api/runtime.py``, with the same window and
 padding arithmetic and outputs: every window of a batch is folded into one
-batched encoder call. Entry points run on ``cuda`` unless the caller passes
+batched encoder call. A per-channel (WavJEPA-Nat) model's padding mask is
+tiled a channel, channel-major, and its embeddings are averaged over the
+channels, so its outputs have the mono model's shapes. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device they raise rather than fall back.
 
     load_model(ckpt_path, ...) -> RuntimeJEPA
@@ -76,7 +78,8 @@ class RuntimeJEPA:
 
     ``state_dict`` holds the port's (reference-named) weights; without it
     the weights are random, drawn from a CPU generator seeded with ``seed``,
-    so one seed gives the same weights on every device."""
+    so one seed gives the same weights on every device. Embeddings are
+    averaged over the channels for a per-channel frontend."""
 
     def __init__(
         self,
@@ -103,12 +106,14 @@ class RuntimeJEPA:
         self.scene_embedding_size = self.embedding_size
         self.timestamp_embedding_size = self.embedding_size
         self.in_channels = config.in_channels
+        self.average_channels = config.extractor == "conv_channel"
         self.unit_frames = config.target_length
-        self.output_steps = config.frames_per_window
+        self.output_steps = config.frames_per_window  # a channel's steps a window
 
     def _forward(self, chunks: np.ndarray, masks: np.ndarray) -> torch.Tensor:
         """chunks (N, C, unit_frames), masks (N, tokens) True = padding →
-        (N, tokens, E) float32 on the device."""
+        (N, tokens, E) float32 on the device, the tokens of the channels
+        averaged for a channel-averaging model."""
         with torch.inference_mode():
             x = torch.from_numpy(chunks).to(self.device)
             m = torch.from_numpy(masks).to(self.device)
@@ -117,7 +122,11 @@ class RuntimeJEPA:
             n = x.shape[-1] * x.shape[-2]
             var = (x - mean).square().sum(dim=(-2, -1), keepdim=True) / max(n - 1, 1)
             normed = (x - mean) / (var.sqrt() + 1e-5)
-            return self.model.represent(normed.to(self.config.dtype), m).float()
+            emb = self.model.represent(normed.to(self.config.dtype), m).float()
+            if self.average_channels and self.in_channels > 1:
+                n_win, _, e = emb.shape
+                emb = emb.reshape(n_win, self.in_channels, self.output_steps, e).mean(1)
+            return emb
 
     def get_timestamp_embeddings(self, audio) -> tuple[torch.Tensor, torch.Tensor]:
         """audio: list of waveforms, or (B, T)/(B, C, T) array or tensor →
@@ -134,6 +143,10 @@ class RuntimeJEPA:
         chunks = padded.reshape(b, c, n_chunks, self.unit_frames).transpose(0, 2, 1, 3)
         chunks = np.ascontiguousarray(chunks.reshape(b * n_chunks, c, self.unit_frames))
         masks = step_mask.reshape(b * n_chunks, self.output_steps)
+        if self.in_channels > 1 and self.config.extractor == "conv_channel":
+            # a copy of the mask a channel, channel-major, as the tokens
+            masks = np.tile(masks[:, None, :], (1, self.in_channels, 1)).reshape(
+                b * n_chunks, -1)
         emb = self._forward(chunks, masks)
         emb = emb.reshape(b, n_chunks * emb.shape[1], emb.shape[-1])[:, :cut_off]
         # uniform grid over the unpadded duration, in ms
@@ -167,6 +180,7 @@ def load_model(
     pos_embed: Optional[str] = None,
     device: DeviceLike = None,
     seed: int = 0,
+    channel_wise: bool = False,
 ) -> RuntimeJEPA:
     """HEAR ``load_model``: a runtime from a reference-format torch
     checkpoint (a reference ``.ckpt`` or a port training checkpoint), or
@@ -178,9 +192,11 @@ def load_model(
     ``attn_impl`` fields, and with the ``pos_embed`` and ``process_seconds``
     given here winning over its own; else it is
     ``JEPAConfig(size=model_size)`` in bfloat16 with
-    ``process_seconds`` windows (2.01 s by default), whose position table is
-    detected from the table the checkpoint stores unless ``pos_embed`` is
-    given. Orbax directories have no port."""
+    ``process_seconds`` windows (2.01 s by default) and, with
+    ``channel_wise``, a frontend a channel (WavJEPA-Nat), whose position
+    table is detected from the table the checkpoint stores unless
+    ``pos_embed`` is given. Orbax directories have no port."""
+    extractor = "conv_channel" if channel_wise else "conv"
     dev = resolve_device(device)
     window_s = 2.01 if process_seconds is None else process_seconds
     state_dict = None
@@ -203,14 +219,15 @@ def load_model(
                 if process_seconds is not None:
                     config = dataclasses.replace(config, process_seconds=process_seconds)
         if config is None and pos_embed is None:
-            probe = JEPAConfig(in_channels=in_channels, process_seconds=window_s,
-                               size=model_size)
+            probe = JEPAConfig(in_channels=in_channels, extractor=extractor,
+                               process_seconds=window_s, size=model_size)
             pos_embed = detect_pos_embed(
                 state_dict, probe.encoder_dim, probe.frames_per_window, probe.total_patches
             )
     if config is None:
         config = JEPAConfig(
             in_channels=in_channels,
+            extractor=extractor,
             process_seconds=window_s,
             size=model_size,
             pos_embed=pos_embed or "time",

@@ -83,8 +83,8 @@ def _put(out_queue, stop_event, item, parent: int) -> bool:
     return False
 
 
-def _audio_worker(shards, target_sr, target_seconds, seed, out_queue, stop_event,
-                  transfer_dtype="float32"):
+def _audio_worker(shards, target_sr, target_seconds, seed, transfer_dtype, out_queue,
+                  stop_event):
     """A worker's body (top level, so that ``spawn`` can pickle it): decode →
     first channel → resample → normalize → pad or trim → queue, over its
     shards in an order shuffled by ``seed``, forever."""
@@ -116,32 +116,17 @@ def _audio_worker(shards, target_sr, target_seconds, seed, out_queue, stop_event
         _put(out_queue, stop_event, WorkerError(traceback.format_exc()), parent)
 
 
-class ShardAudioSource:
-    """Clips from tar shards, produced by worker processes (or threads).
+class WorkerSource:
+    """Items that worker processes (started with ``spawn``) or threads put
+    on one bounded queue. A subclass adds each worker's body and arguments
+    with ``_add_worker``; the body takes the queue and the stop event after
+    them. ``start()`` starts the workers; ``next()`` gives an item, raising
+    a worker's ``WorkerError`` or when every worker has exited; ``stop()``
+    stops and joins them. Also a context manager."""
 
-    ``start()`` builds the native library in this process (so that a failed
-    build raises here), then starts the workers; iterating yields clips;
-    ``stop()`` stops and joins the workers. Also a context manager."""
-
-    def __init__(
-        self,
-        patterns: Sequence[str] | str,
-        target_sr: int = 16000,
-        target_seconds: float = 10.0,
-        mixing_weights: Optional[Sequence[float]] = None,
-        num_workers: int = 16,
-        queue_size: int = 512,
-        host_id: int = 0,
-        num_hosts: int = 1,
-        seed: int = 0,
-        backend: str = "process",  # "process" | "thread"
-        transfer_dtype: str = "float32",  # "float32" | "int16"
-    ):
+    def __init__(self, backend: str, queue_size: int):
         if backend not in ("process", "thread"):
             raise ValueError(f"backend must be 'process' or 'thread', got {backend!r}")
-        if isinstance(patterns, str):
-            patterns = [patterns]
-        self.sources = [expand_shard_pattern(p) for p in patterns]
         self.backend = backend
         if backend == "process":
             self._ctx = mp.get_context("spawn")
@@ -151,33 +136,17 @@ class ShardAudioSource:
             self.queue = queue.Queue(maxsize=queue_size)
             self._stop = threading.Event()
         self.queue_size = queue_size
-        self.num_workers = max(1, num_workers)
-
-        if mixing_weights is None:
-            mixing_weights = [1.0] * len(self.sources)
-        w = np.asarray(mixing_weights, np.float64)
-        counts = np.maximum(1, np.round(w / w.sum() * self.num_workers).astype(int))
-        self.worker_shards: list[list[str]] = []
         self._workers: list = []
-        for src_idx, n in enumerate(counts):
-            for k in range(int(n)):
-                # each source striped over its own n workers: striping by the
-                # global worker id would leave shards of every source unread
-                shards = split_shards(self.sources[src_idx], host_id, num_hosts, k, int(n)
-                                      ) or list(self.sources[src_idx])
-                args = (shards, target_sr, target_seconds, seed + len(self._workers),
-                        self.queue, self._stop, transfer_dtype)
-                if backend == "process":
-                    worker = self._ctx.Process(target=_audio_worker, args=args, daemon=True)
-                else:
-                    worker = threading.Thread(target=_audio_worker, args=args, daemon=True)
-                self.worker_shards.append(shards)
-                self._workers.append(worker)
 
-    def start(self) -> "ShardAudioSource":
-        from wavjepa_tpu_torch.data._native.build import load
+    def _add_worker(self, target, args: tuple) -> None:
+        args = (*args, self.queue, self._stop)
+        if self.backend == "process":
+            worker = self._ctx.Process(target=target, args=args, daemon=True)
+        else:
+            worker = threading.Thread(target=target, args=args, daemon=True)
+        self._workers.append(worker)
 
-        load()
+    def start(self):
         for worker in self._workers:
             worker.start()
         return self
@@ -209,13 +178,16 @@ class ShardAudioSource:
                 worker.join(timeout=1.0)
             self.queue.close()
 
-    def __enter__(self) -> "ShardAudioSource":
+    def __enter__(self):
         return self.start()
 
     def __exit__(self, *exc) -> None:
         self.stop()
 
-    def __iter__(self) -> Iterator[np.ndarray]:
+    def __iter__(self):
+        return self
+
+    def __next__(self):
         # a bounded get, so that stop() and dead workers are seen
         while not self._stop.is_set():
             try:
@@ -226,7 +198,55 @@ class ShardAudioSource:
                 continue
             if isinstance(item, WorkerError):
                 raise RuntimeError(f"a data worker failed:\n{item.text}")
-            yield item
+            return item
+        raise StopIteration
+
+
+class ShardAudioSource(WorkerSource):
+    """Clips from tar shards, produced by worker processes (or threads)
+    (``WorkerSource``). ``start()`` builds the native library in this
+    process (so that a failed build raises here), then starts the workers."""
+
+    def __init__(
+        self,
+        patterns: Sequence[str] | str,
+        target_sr: int = 16000,
+        target_seconds: float = 10.0,
+        mixing_weights: Optional[Sequence[float]] = None,
+        num_workers: int = 16,
+        queue_size: int = 512,
+        host_id: int = 0,
+        num_hosts: int = 1,
+        seed: int = 0,
+        backend: str = "process",  # "process" | "thread"
+        transfer_dtype: str = "float32",  # "float32" | "int16"
+    ):
+        super().__init__(backend, queue_size)
+        if isinstance(patterns, str):
+            patterns = [patterns]
+        self.sources = [expand_shard_pattern(p) for p in patterns]
+        self.num_workers = max(1, num_workers)
+
+        if mixing_weights is None:
+            mixing_weights = [1.0] * len(self.sources)
+        w = np.asarray(mixing_weights, np.float64)
+        counts = np.maximum(1, np.round(w / w.sum() * self.num_workers).astype(int))
+        self.worker_shards: list[list[str]] = []
+        for src_idx, n in enumerate(counts):
+            for k in range(int(n)):
+                # each source striped over its own n workers: striping by the
+                # global worker id would leave shards of every source unread
+                shards = split_shards(self.sources[src_idx], host_id, num_hosts, k, int(n)
+                                      ) or list(self.sources[src_idx])
+                self._add_worker(_audio_worker, (shards, target_sr, target_seconds,
+                                                 seed + len(self._workers), transfer_dtype))
+                self.worker_shards.append(shards)
+
+    def start(self) -> "ShardAudioSource":
+        from wavjepa_tpu_torch.data._native.build import load
+
+        load()
+        return super().start()
 
 
 def shuffled_batches(sample_iter: Iterator[np.ndarray], batch_size: int,
@@ -250,8 +270,9 @@ def shuffled_batches(sample_iter: Iterator[np.ndarray], batch_size: int,
 
 
 class ShardBatches:
-    """The batches of a started ``ShardAudioSource``; ``stop()`` stops its
-    workers (the train loop calls it when training ends or raises)."""
+    """The batches of a started source (a ``ShardAudioSource``, or a scene
+    source of ``data/denoise_pipeline.py``); ``stop()`` stops its workers
+    (the train loop calls it when training ends or raises)."""
 
     def __init__(self, source: ShardAudioSource, batches: Iterator[np.ndarray]):
         self.source = source

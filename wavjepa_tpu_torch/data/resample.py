@@ -5,8 +5,9 @@ filter of torchaudio's ``sinc_interp_kaiser`` (lowpass_filter_width 64,
 rolloff ≈ 0.9476, β ≈ 14.77), applied as a rational-rate polyphase FIR by
 the native resampler (``data/_native/resampler.cc``). ``resample_np_plain``
 is the same filter through ``scipy.signal.resample_poly``: the plain version
-the native one is held against, never a fallback for it. The device half
-(``resample_jax``, for scene synthesis) is not ported yet.
+the native one is held against, never a fallback for it. The device half,
+for scene synthesis in the step, is ``ops/resample.py`` (this package's
+``data`` modules import no torch).
 """
 
 from __future__ import annotations

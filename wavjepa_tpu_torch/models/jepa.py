@@ -4,7 +4,9 @@ Counterpart of ``wavjepa_tpu/models/jepa.py``. ``JEPAConfig`` is carried
 over whole, so configurations round-trip between the two packages. ``JEPA``
 holds, under the reference's module names:
 
-  * the path that serves (``represent``): conv frontend → feature LayerNorm
+  * the path that serves (``represent``): conv frontend (one stack, or one
+    a channel for WavJEPA-Nat's ``extractor="conv_channel"``, its tokens
+    channel-major) → feature LayerNorm
     (eps 1e-5) → 512→768 mapper → fixed sin-cos positions added in the
     activation dtype → post-norm context encoder;
   * the training side: ``student_forward`` (encoder on the context → 768→384
@@ -30,6 +32,7 @@ import torch
 from torch import nn
 
 from wavjepa_tpu_torch.ops.conv_frontend import (
+    ConvChannelFeatureExtractor,
     ConvFeatureExtractor,
     ConvSpec,
     WAVJEPA_CONV_SPEC,
@@ -159,15 +162,21 @@ class JEPA(nn.Module):
     def __init__(self, config: JEPAConfig):
         super().__init__()
         cfg = config
-        if cfg.extractor != "conv":
-            raise NotImplementedError(f"extractor {cfg.extractor!r} has no port yet")
+        if cfg.extractor not in ("conv", "conv_channel"):
+            raise ValueError(f"unknown extractor {cfg.extractor!r}")
         check_attn_impl(cfg.attn_impl)
         if cfg.attn_impl_decoder is not None:
             check_attn_impl(cfg.attn_impl_decoder)
         self.config = cfg
-        self.extract_audio = ConvFeatureExtractor(
-            cfg.conv_spec, cfg.in_channels, cfg.extractor_mode, cfg.conv_bias, cfg.dtype
-        )
+        if cfg.extractor == "conv_channel":  # WavJEPA-Nat: a stack a channel
+            self.extract_audio = ConvChannelFeatureExtractor(
+                cfg.conv_spec, cfg.in_channels, cfg.extractor_mode, cfg.conv_bias,
+                cfg.share_weights_over_channels, cfg.dtype,
+            )
+        else:
+            self.extract_audio = ConvFeatureExtractor(
+                cfg.conv_spec, cfg.in_channels, cfg.extractor_mode, cfg.conv_bias, cfg.dtype
+            )
         self.feature_norms = LayerNorm32(cfg.embedding_dim, eps=1e-5, dtype=cfg.dtype)
         self.post_extraction_mapper = (
             Linear(cfg.embedding_dim, cfg.encoder_dim, dtype=cfg.dtype)

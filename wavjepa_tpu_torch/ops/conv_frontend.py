@@ -1,6 +1,8 @@
 """Wav2Vec2-style stacked temporal-convolution waveform encoder.
 
-Counterpart of ``wavjepa_tpu/ops/conv_frontend.py:ConvFeatureExtractor``.
+Counterpart of ``wavjepa_tpu/ops/conv_frontend.py:ConvFeatureExtractor`` and
+``ConvChannelFeatureExtractor`` (one such stack per audio channel, or one
+shared).
 Each block is Conv1d (VALID, no dilation) → {GroupNorm(C, C) on block 0 in
 "default" mode | channel LayerNorm on every block in "layer_norm" mode |
 nothing} → exact GELU. Norm statistics and affine run in float32 (eps 1e-5);
@@ -10,7 +12,8 @@ Parameters stay float32 and are cast at use.
 Module names follow the reference's ``nn.Sequential`` block layout, so a
 reference ``state_dict`` loads as is: ``cnn.{i}.0`` is the convolution,
 ``cnn.{i}.2`` the GroupNorm ("default") or ``cnn.{i}.2.1`` the LayerNorm
-("layer_norm").
+("layer_norm"). The per-channel frontend keeps the reference's
+``cnns.{c}.{i}`` (``cnns.0`` when the channels share weights).
 """
 
 from __future__ import annotations
@@ -107,6 +110,37 @@ class ConvBlock(nn.Module):
         return F.gelu(y.to(dtype))
 
 
+def _conv_blocks(conv_spec: ConvSpec, in_channels: int, mode: str, conv_bias: bool,
+                 dtype: torch.dtype) -> nn.ModuleList:
+    """The blocks of one stack: GroupNorm on block 0 ("default") or a
+    LayerNorm on every block ("layer_norm")."""
+    if mode not in ("default", "layer_norm"):
+        raise ValueError(f"unknown extractor mode {mode!r}")
+    blocks = []
+    in_d = in_channels
+    for i, (dim, k, s) in enumerate(conv_spec):
+        norm = "layer" if mode == "layer_norm" else ("group" if i == 0 else "none")
+        blocks.append(ConvBlock(in_d, dim, k, s, norm=norm, use_bias=conv_bias, dtype=dtype))
+        in_d = dim
+    return nn.ModuleList(blocks)
+
+
+@torch.no_grad()
+def _kaiming_init(blocks: nn.ModuleList, generator: Optional[torch.Generator]) -> None:
+    """Kaiming-normal convolutions (fan_in, leaky_relu a=0.01 gain), as the
+    JAX package initialises them."""
+    gain = math.sqrt(2.0 / (1.0 + 0.01**2))
+    for block in blocks:
+        w = getattr(block, "0").weight
+        w.normal_(0.0, gain / math.sqrt(w.shape[1] * w.shape[2]), generator=generator)
+
+
+def _run(blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    for block in blocks:
+        x = block(x)
+    return x
+
+
 class ConvFeatureExtractor(nn.Module):
     """(B, C_in, T) or (B, T) waveforms → (B, T', embed_dim) frames."""
 
@@ -114,31 +148,46 @@ class ConvFeatureExtractor(nn.Module):
                  mode: str = "default", conv_bias: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if mode not in ("default", "layer_norm"):
-            raise ValueError(f"unknown extractor mode {mode!r}")
         self.conv_spec = tuple(tuple(layer) for layer in conv_spec)
-        blocks = []
-        in_d = in_channels
-        for i, (dim, k, s) in enumerate(self.conv_spec):
-            norm = "layer" if mode == "layer_norm" else ("group" if i == 0 else "none")
-            blocks.append(
-                ConvBlock(in_d, dim, k, s, norm=norm, use_bias=conv_bias, dtype=dtype)
-            )
-            in_d = dim
-        self.cnn = nn.ModuleList(blocks)
+        self.cnn = _conv_blocks(self.conv_spec, in_channels, mode, conv_bias, dtype)
 
-    @torch.no_grad()
     def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """Kaiming-normal convolutions (fan_in, leaky_relu a=0.01 gain), as
-        the JAX package initialises them."""
-        gain = math.sqrt(2.0 / (1.0 + 0.01**2))
-        for block in self.cnn:
-            w = getattr(block, "0").weight
-            w.normal_(0.0, gain / math.sqrt(w.shape[1] * w.shape[2]), generator=generator)
+        _kaiming_init(self.cnn, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 2:
             x = x[:, None, :]
-        for block in self.cnn:
-            x = block(x)
-        return x.transpose(1, 2)
+        return _run(self.cnn, x).transpose(1, 2)
+
+
+class ConvChannelFeatureExtractor(nn.Module):
+    """Per-channel frontend for multichannel (binaural, ambisonic) scenes:
+    (B, C, T) → (B, C·T', embed_dim). Each channel runs through its own
+    stack, or all through one (``share_weights``, with the channels folded
+    into the batch); the tokens are channel-major, [c0t0, c0t1, …, c1t0, …]."""
+
+    def __init__(self, conv_spec: ConvSpec = WAVJEPA_CONV_SPEC, in_channels: int = 2,
+                 mode: str = "default", conv_bias: bool = False,
+                 share_weights: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_spec = tuple(tuple(layer) for layer in conv_spec)
+        self.in_channels = in_channels
+        self.share_weights = share_weights
+        self.cnns = nn.ModuleList(
+            _conv_blocks(self.conv_spec, 1, mode, conv_bias, dtype)
+            for _ in range(1 if share_weights else in_channels)
+        )
+
+    def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for blocks in self.cnns:
+            _kaiming_init(blocks, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, t = x.shape
+        if self.share_weights:
+            y = _run(self.cnns[0], x.reshape(b * c, 1, t))  # (B·C, E, T')
+            y = y.reshape(b, c, y.shape[1], y.shape[2])
+        else:
+            y = torch.stack([_run(blocks, x[:, ch:ch + 1]) for ch, blocks in
+                             enumerate(self.cnns)], dim=1)  # (B, C, E, T')
+        return y.transpose(2, 3).reshape(b, c * y.shape[3], y.shape[2])

@@ -9,6 +9,14 @@ therefore repeats the steps an uninterrupted run would have taken, on the
 synthetic source. The shard source (``data.data_dirs``) is a shuffled
 stream with no position: a resumed run starts it afresh and does not skip
 the batches it has already taken, as in the JAX package.
+
+WavJEPA-Nat (``data.nat_scenes``) trains on scene batches (dicts: clean
+clips, RIRs, noise, SNRs) that the step turns into binaural or ambisonic
+scenes. From shards with device banks, the host bank goes to the device
+once, and each batch's ``rir_bank_refresh`` is written into it after the
+step that consumed the batch (``run_step``): the JAX package writes it
+before, so a clip drawn for a slot that its own batch refreshes reads the
+new row with the old row's noise placement.
 """
 
 from __future__ import annotations
@@ -23,24 +31,30 @@ import numpy as np
 import torch
 
 from wavjepa_tpu_torch.api.runtime import DeviceLike, resolve_device
-from wavjepa_tpu_torch.data.pipeline import audio_shard_batches
+from wavjepa_tpu_torch.data.denoise_pipeline import DenoiseSampleSource
+from wavjepa_tpu_torch.data.pipeline import ShardBatches, audio_shard_batches
 from wavjepa_tpu_torch.data.synthetic import synthetic_audio_batches
 from wavjepa_tpu_torch.models.jepa import JEPA
+from wavjepa_tpu_torch.ops.scenes import update_rir_bank
 from wavjepa_tpu_torch.train.checkpoint import CheckpointManager, write_model_config
 from wavjepa_tpu_torch.train.config import Config
 from wavjepa_tpu_torch.train.state import TrainState
-from wavjepa_tpu_torch.train.step import make_jepa_train_step, make_optimizer
+from wavjepa_tpu_torch.train.denoise_loop import (
+    build_denoise_data_iterator,
+    effective_scene_flags,
+)
+from wavjepa_tpu_torch.train.step import NatSceneConfig, make_jepa_train_step, make_optimizer
 from wavjepa_tpu_torch.utils.metrics import MetricLogger, Throughput
 
 
-def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator[np.ndarray]:
-    """The run's clip batches: synthetic clips from batch ``start_step`` on
-    when ``data.synthetic`` is set or ``data.data_dirs`` is empty, else the
-    shard pipeline, started (``data/pipeline.py``; it has no position, so
-    ``start_step`` does not apply; ``stop()`` stops its workers). Nat scene
-    batches raise: they have no port yet."""
+def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator:
+    """The run's batches: synthetic clips from batch ``start_step`` on when
+    ``data.synthetic`` is set or ``data.data_dirs`` is empty, else the shard
+    pipeline, started (``data/pipeline.py``; it has no position, so
+    ``start_step`` does not apply; ``stop()`` stops its workers). With
+    ``data.nat_scenes``, scene batches (``build_denoise_data_iterator``)."""
     if cfg.data.nat_scenes:
-        raise NotImplementedError("WavJEPA-Nat scene batches have no port yet")
+        return build_denoise_data_iterator(cfg)
     if cfg.data.synthetic or not cfg.data.data_dirs:
         return synthetic_audio_batches(
             cfg.trainer.batch_size, in_channels=cfg.data.in_channels,
@@ -50,12 +64,23 @@ def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator[np.ndarray
     return audio_shard_batches(cfg)
 
 
-def prefetch_to_device(iterator: Iterator[np.ndarray], device: torch.device,
-                       size: int = 2) -> Iterator[torch.Tensor]:
+def _to_device(batch, device: torch.device):
+    """A host batch (an array, or a dict of them, nested for a bank
+    refresh) → device tensors, through pinned memory on a card."""
+    if isinstance(batch, dict):
+        return {k: _to_device(v, device) for k, v in batch.items()}
+    x = torch.from_numpy(np.ascontiguousarray(batch))
+    if device.type == "cuda":
+        x = x.pin_memory().to(device, non_blocking=True)
+    return x
+
+
+def prefetch_to_device(iterator: Iterator, device: torch.device,
+                       size: int = 2) -> Iterator:
     """Host batches → device tensors, ``size`` ahead, from a background
-    thread: each batch is copied into pinned memory and sent with
-    ``non_blocking`` while the current step runs. Closing the generator
-    stops the thread."""
+    thread: each batch (an array or a dict of arrays) is copied into pinned
+    memory and sent with ``non_blocking`` while the current step runs.
+    Closing the generator stops the thread."""
     buf: queue.Queue = queue.Queue(maxsize=max(1, size))
     done = object()
     errors: list = []
@@ -73,10 +98,7 @@ def prefetch_to_device(iterator: Iterator[np.ndarray], device: torch.device,
     def producer():
         try:
             for batch in iterator:
-                x = torch.from_numpy(np.ascontiguousarray(batch))
-                if device.type == "cuda":
-                    x = x.pin_memory().to(device, non_blocking=True)
-                if not put(x):
+                if not put(_to_device(batch, device)):
                     return
         except BaseException as exc:  # re-raised on the consumer's side
             errors.append(exc)
@@ -108,6 +130,28 @@ def step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step) % (2**63)
 
 
+def scene_config(cfg: Config) -> Optional[NatSceneConfig]:
+    """The step's scene synthesis for a Nat run (``data.nat_scenes``), with
+    what its batches carry; None otherwise."""
+    if not cfg.data.nat_scenes:
+        return None
+    with_rir, with_noise = effective_scene_flags(cfg)
+    return NatSceneConfig(with_rir=with_rir, with_noise=with_noise,
+                          n_channels=cfg.data.in_channels)
+
+
+def run_step(step_fn, state: TrainState, batch, generator: torch.Generator,
+             rir_bank: Optional[dict] = None):
+    """One step on a batch. A scene batch's ``rir_bank_refresh`` is written
+    into ``rir_bank`` after the step, which reads the bank as the batch's
+    draws saw it (the refresh's rows are for the batches drawn after it)."""
+    refresh = batch.pop("rir_bank_refresh", None) if isinstance(batch, dict) else None
+    state, metrics = step_fn(state, batch, generator, rir_bank)
+    if refresh is not None:
+        update_rir_bank(rir_bank, refresh["slots"], refresh["rows"])
+    return state, metrics
+
+
 def build_run(cfg: Config, device: DeviceLike = None):
     """(device, model configuration, fresh TrainState, step function) of a
     run, as ``train_jepa`` builds them before it restores a checkpoint."""
@@ -128,6 +172,7 @@ def build_run(cfg: Config, device: DeviceLike = None):
         masker=masker,
         masker_cfg=masker_cfg,
         ema_cfg=cfg.ema,
+        scene_cfg=scene_config(cfg),
         accum_steps=cfg.resolved_accum_steps(),
     )
     return dev, model_cfg, state, step_fn
@@ -145,7 +190,10 @@ def train_jepa(
     Without ``data_iter`` the batches come from ``build_data_iterator``,
     and a shard pipeline built here is stopped when the loop returns or
     raises. Each step logs ``data_wait_ms``, the time the loop waited for
-    its batch."""
+    its batch. The host bank of a scene source with banks (a
+    ``ShardBatches`` over a ``DenoiseSampleSource``, as
+    ``build_data_iterator`` gives) goes to the device once, and the loop
+    refreshes it (``run_step``)."""
     dev, model_cfg, state, step_fn = build_run(cfg, device)
     run_dir = Path(cfg.trainer.save_dir) / cfg.run_identity()
     write_model_config(run_dir, model_cfg)
@@ -162,6 +210,11 @@ def train_jepa(
     total = max_steps if max_steps is not None else cfg.trainer.steps
     throughput = Throughput(cfg.trainer.batch_size,
                             cfg.trainer.batch_size * cfg.data.samples_per_audio)
+    bank = None
+    if isinstance(data_iter, ShardBatches) and isinstance(data_iter.source, DenoiseSampleSource):
+        bank = data_iter.source.scene_bank()
+    rir_bank = None if bank is None else {k: torch.from_numpy(v).to(dev)
+                                          for k, v in bank.items()}
     generator = torch.Generator(device=dev)
     batches = prefetch_to_device(data_iter, dev)
     wait_s, waited_steps = 0.0, 0
@@ -172,7 +225,7 @@ def train_jepa(
             wait_s += time.perf_counter() - t0
             waited_steps += 1
             generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
-            state, metrics = step_fn(state, batch, generator)
+            state, metrics = run_step(step_fn, state, batch, generator, rir_bank)
             throughput.step()
             if state.step % cfg.trainer.log_every == 0 or state.step == total:
                 scalars = {k: float(v) for k, v in metrics.items()}  # waits for the device

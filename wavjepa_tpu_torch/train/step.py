@@ -3,7 +3,10 @@
 Counterpart of ``wavjepa_tpu/train/step.py``. One call takes a batch of 10-s
 clips through the whole step on the device:
 
-  clips → wire format to f32 → n random 2.01-s crops a clip → per-crop
+  clips (or, for WavJEPA-Nat, scene batches: the clean clip, its RIRs and
+  noise, gathered from the device bank where the batch carries indices →
+  binaural or ambisonic scenes → resampled to the model's rate, see
+  ``NatSceneConfig``) → wire format to f32 → n random 2.01-s crops a clip → per-crop
   instance norm → compute dtype → masks for the whole crop batch → packing
   canonicalisation → loss and gradients (one pass, or summed loss
   numerators over microbatches divided by the global target count) → clip
@@ -23,9 +26,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from wavjepa_tpu_torch.ops.resample import resample_torch
 from wavjepa_tpu_torch.masking import TimeInverseMaskConfig, time_inverse_block_masks
 from wavjepa_tpu_torch.models.jepa import JEPA, masked_prediction_loss
 from wavjepa_tpu_torch.ops.audio import instance_normalize, random_crops, wire_to_f32
+from wavjepa_tpu_torch.ops.scenes import gather_scene_rirs, generate_scene, place_noise_from_bank
 from wavjepa_tpu_torch.ops.transformer import TransformerEncoder
 from wavjepa_tpu_torch.train.schedule import ema_decay_schedule, warmup_cosine_schedule
 from wavjepa_tpu_torch.train.state import TrainState, ema_update
@@ -54,15 +59,16 @@ class EMAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NatSceneConfig:
-    """Scene synthesis for WavJEPA-Nat: not ported yet."""
+    """Scene synthesis in the step, for WavJEPA-Nat: the step takes dict
+    batches of clean clips at ``original_sr`` with their RIRs, noise and
+    SNRs (inline, or as indices into a device bank) and builds
+    ``n_channels``-channel scenes (2 binaural, 4 ambisonic) before it crops
+    them. ``with_rir``/``with_noise`` say what the run's batches carry."""
 
     with_rir: bool = True
     with_noise: bool = True
     n_channels: int = 2
-    original_sr: int = 32000
-
-    def __post_init__(self):
-        raise NotImplementedError("WavJEPA-Nat scene synthesis has no port yet")
+    original_sr: int = 32000  # the scene-synthesis rate
 
 
 def make_optimizer(cfg: OptimizerConfig, model: torch.nn.Module) -> torch.optim.AdamW:
@@ -130,7 +136,9 @@ class JEPATrainStep:
         masker_cfg: Any = None,
         ema_cfg: EMAConfig = EMAConfig(),
         accum_steps: int = 1,
+        scene_cfg: Optional[NatSceneConfig] = None,
     ):
+        self.scene_cfg = scene_cfg
         self.grad_clip = opt_cfg.grad_clip
         self.lr_schedule = warmup_cosine_schedule(opt_cfg.lr, opt_cfg.warmup_steps,
                                                   opt_cfg.total_steps)
@@ -141,13 +149,38 @@ class JEPATrainStep:
         self.masker_cfg = masker_cfg if masker_cfg is not None else TimeInverseMaskConfig()
         self.accum_steps = accum_steps
 
-    def __call__(self, state: TrainState, audio: torch.Tensor, generator: torch.Generator,
-                 rir_bank=None):
-        if rir_bank is not None:
-            raise NotImplementedError("WavJEPA-Nat scene banks have no port yet")
-        crops, ctx_mask, target_masks, visible_masks = self.prepare(
-            state.model.config, audio, generator)
+    def __call__(self, state: TrainState, audio, generator: torch.Generator,
+                 rir_bank: Optional[dict] = None):
+        """``audio`` is a (B, C, L) clip batch, or with ``scene_cfg`` a dict
+        scene batch, whose indices read ``rir_bank``."""
+        cfg = state.model.config
+        if self.scene_cfg is not None:
+            audio = self.scenes(cfg, audio, rir_bank)
+        crops, ctx_mask, target_masks, visible_masks = self.prepare(cfg, audio, generator)
         return self.step_on(state, crops, ctx_mask, target_masks, visible_masks)
+
+    def scenes(self, cfg, batch: dict, rir_bank: Optional[dict] = None) -> torch.Tensor:
+        """A scene batch → (B, n_channels, T) f32 scenes at ``cfg``'s sample
+        rate. RIRs come inline (``source_rir``, ``noise_rirs``) or from the
+        bank by ``rir_index``; noise inline (``noise``, placed) or from the
+        bank's faded rows by ``noise_index`` and ``noise_start``."""
+        sc = self.scene_cfg
+        with torch.profiler.record_function("scene_synthesis"):
+            source_rir, noise_rirs = batch.get("source_rir"), batch.get("noise_rirs")
+            if sc.with_rir and source_rir is None:
+                source_rir, noise_rirs = gather_scene_rirs(rir_bank, batch["rir_index"])
+            noise = batch.get("noise")
+            if sc.with_noise and noise is None:
+                noise = place_noise_from_bank(rir_bank["noise"], batch["noise_index"],
+                                              batch["noise_start"])
+            scene = generate_scene(
+                wire_to_f32(batch["audio"]), source_rir,
+                None if noise is None else wire_to_f32(noise), noise_rirs,
+                batch.get("noise_start"), batch.get("noise_length"), batch.get("snr"),
+                with_rir=sc.with_rir, with_noise=sc.with_noise, n_channels=sc.n_channels)
+            if sc.original_sr != cfg.sample_rate:
+                scene = resample_torch(scene, sc.original_sr, cfg.sample_rate)
+        return scene
 
     def prepare(self, cfg, audio: torch.Tensor, generator: torch.Generator):
         """(B, C, L) or (B, L) clips → crops (B·n, C, crop) in ``cfg.dtype``
@@ -231,8 +264,7 @@ def make_jepa_train_step(
     accum_steps: int = 1,
 ) -> JEPATrainStep:
     """The train step for a run; ``accum_steps > 1`` splits the crop batch
-    into that many microbatches, exactly."""
-    if scene_cfg is not None:
-        raise NotImplementedError("WavJEPA-Nat scene synthesis has no port yet")
+    into that many microbatches, exactly; ``scene_cfg`` makes it a
+    WavJEPA-Nat step on scene batches."""
     return JEPATrainStep(opt_cfg, nr_samples_per_audio, masker, masker_cfg, ema_cfg,
-                         accum_steps)
+                         accum_steps, scene_cfg)
