@@ -79,7 +79,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             clips, binaural RIR and noise .npy tars) with the device banks
             and one refresh a batch; and the Nat HEAR runtime
             (``api/hear_natjepa``: binaural scene and timestamp requests, a
-            4-channel request, f32 card against CPU, bf16 against f32).
+            4-channel request, f32 card against CPU, bf16 against f32);
+10. denoise  denoise distillation at the CLI's defaults (base width, bf16,
+            8 clips × 16 crops, 4 microbatches, α = 0): a seeded JEPA
+            written as a port checkpoint under ``build/`` and loaded as the
+            teacher; ``train_denoiser`` on synthetic scene batches with
+            finite losses, the first step's loss_clean below 1e-6 (the
+            warm-started student is the teacher), the teacher bitwise
+            unchanged, exactly 36·a flash forward and 12·a backward
+            launches a step on the two-pass route, its step p50, clips/s,
+            crops/s, MFU and peak memory; 3 steps at α = 0.5 (24·a
+            backward); one traced step (phase 8's reading); one f32 step
+            card against CPU and bf16 against it;
+            ``train_denoiser`` from phase 9's shards with device banks (the
+            RIR's first channel); the CLI in a process of its own; and the
+            distilled student's checkpoint served by ``load_model``.
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -169,6 +183,14 @@ NAT_RIR_STACKS, NAT_NOISE_ROWS = 64, 32
 # serving: binaural clips, the contract's tolerances (phase 4's)
 # phase 8: one traced step at accum 16 and one at accum 1, after warm-up steps
 TRACE_DIR = os.path.join("build", "chip_smoke_trace")
+# phase 10 (denoise): its checkpoints, the teacher's seed, the steps of the
+# α = 0 runs (synthetic, shards) and of the α = 0.5 run; at step 1 the
+# warm-started student is the teacher, so the clean view's loss is 0 but
+# for the order of bf16 sums
+DENOISE_DIR = os.path.join("build", "chip_smoke_denoise")
+DENOISE_TEACHER_SEED = 7
+DENOISE_STEPS, DENOISE_STEPS_BLEND = 6, 3
+DENOISE_FIRST_LOSS_CLEAN = 1e-6
 TRACE_WARMUP = 2
 # a run still going after this many seconds prints every thread's stack and
 # exits non-zero, inside the 1200 s a run may take
@@ -214,6 +236,9 @@ TRAIN_FWD_SHAPES = [
     # the teacher on all 400 tokens, one of 16 microbatches
     ("nat_student_encoder_mb", 16, 12, 176, 64), ("nat_decoder_mb", 64, 12, 256, 32),
     ("nat_teacher_mb", 16, 12, 400, 64),
+    # the denoiser at the CLI's defaults (8 clips × 16 crops, 4 microbatches):
+    # the teacher and both student views, unpacked at 200 tokens
+    ("denoise_mb", 32, 12, 200, 64),
 ]
 TRAIN_BWD_SHAPES = [
     ("student_encoder", 256, 12, 88, 64), ("decoder", 1024, 12, 128, 32),
@@ -221,6 +246,8 @@ TRAIN_BWD_SHAPES = [
     ("ragged_t100", 16, 12, 100, 64),
     # WavJEPA-Nat's trained stacks, above T = 128: the two-pass route
     ("nat_student_encoder_mb", 16, 12, 176, 64), ("nat_decoder_mb", 64, 12, 256, 32),
+    # the denoiser's student, unpacked at 200 tokens: the two-pass route
+    ("denoise_mb", 32, 12, 200, 64),
 ]
 # where the kernels change tile or route: the forward at one 64-row tile and
 # one row past it, and the whole clip at head_dim 32; the backward at the
@@ -799,6 +826,40 @@ def encoder_weights(model) -> dict:
     return {k: v.detach().float().cpu().clone() for k, v in model.encoder.state_dict().items()}
 
 
+def primed_shard_batches(cfg, build) -> tuple:
+    """The run's shard pipeline (``build(cfg)``), primed to its steady state
+    before the run: the shuffle buffer filled and the queue full, as it
+    stays in a long run, where the workers produce faster than the card
+    consumes and wait in put. Returns (the batches for the loop, wrapped so
+    that the time each batch kept the prefetch waiting is recorded, as a
+    ``ShardBatches`` over the same source, which the loop reads a scene
+    bank from; the pipeline, whose ``stop()`` the caller owns; the waits in
+    ms; the priming's record)."""
+    from wavjepa_tpu_torch.data.pipeline import ShardBatches
+
+    loader_waits, primed = [], {}
+    t0 = time.perf_counter()
+    batches = build(cfg)
+    first = next(batches)
+    source = getattr(batches.source, "audio", batches.source)  # the clean clips
+    primed["buffer_s"] = time.perf_counter() - t0
+    while (source.queue.qsize() < source.queue_size - cfg.trainer.batch_size
+           and time.perf_counter() - t0 < LOADER_PRIME_S):
+        time.sleep(0.1)
+    primed["queue_s"] = time.perf_counter() - t0
+    primed["queue"] = source.queue.qsize()
+
+    def timed_batches():
+        yield first
+        while True:
+            t1 = time.perf_counter()
+            batch = next(batches)
+            loader_waits.append((time.perf_counter() - t1) * 1e3)
+            yield batch
+
+    return ShardBatches(batches.source, timed_batches()), batches, loader_waits, primed
+
+
 def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
     """train_jepa on the AudioSet configuration as resolved, once per run
     (name, overrides, steps, launches of each counted wrapper a microbatch,
@@ -811,7 +872,6 @@ def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
     import shutil
 
     from wavjepa_tpu_torch.api.runtime import load_model
-    from wavjepa_tpu_torch.data.pipeline import ShardBatches
     from wavjepa_tpu_torch.models.jepa import JEPA
     from wavjepa_tpu_torch.train.config import Config, apply_overrides
     from wavjepa_tpu_torch.train.loop import build_data_iterator, train_jepa
@@ -835,30 +895,8 @@ def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
         start = encoder_weights(init)
         batches, loader_waits, data_iter, primed = None, [], None, {}
         if shards:
-            # primed to its steady state before the run: the shuffle buffer
-            # filled and the queue full, as it stays in a long run, where the
-            # workers produce faster than the card consumes and wait in put
-            t0 = time.perf_counter()
-            batches = build_data_iterator(cfg)
-            first = next(batches)
-            source = getattr(batches.source, "audio", batches.source)  # the clean clips
-            primed["buffer_s"] = time.perf_counter() - t0
-            while (source.queue.qsize() < source.queue_size - cfg.trainer.batch_size
-                   and time.perf_counter() - t0 < LOADER_PRIME_S):
-                time.sleep(0.1)
-            primed["queue_s"] = time.perf_counter() - t0
-            primed["queue"] = source.queue.qsize()
-
-            def timed_batches():
-                yield first
-                while True:
-                    t1 = time.perf_counter()
-                    batch = next(batches)
-                    loader_waits.append((time.perf_counter() - t1) * 1e3)
-                    yield batch
-
-            # the source goes along: train_jepa sends a scene source's bank
-            data_iter = ShardBatches(batches.source, timed_batches())
+            data_iter, batches, loader_waits, primed = primed_shard_batches(
+                cfg, build_data_iterator)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for counter in counters.values():  # the main path's run starts here
@@ -1524,6 +1562,403 @@ def phase_nat(counters: dict) -> dict:
     return record
 
 
+def denoise_config(save_dir: str, *extra):
+    """The denoise CLI's configuration (``wavjepa_tpu_torch.denoise``: 8
+    clips × 16 crops, accum 4, α = 0 at base width), writing under
+    ``save_dir``, logging every step, the warmup cut to 2 steps."""
+    from wavjepa_tpu_torch.denoise import denoise_config as cli_config
+
+    return cli_config([f"trainer.save_dir={save_dir}", "trainer.log_every=1",
+                       "optimizer.warmup_steps=2", *extra])
+
+
+def write_denoise_teacher(path_dir: str) -> tuple[str, dict]:
+    """A seeded JEPA at base width as a port training checkpoint (step 0),
+    its EMA teacher moved apart from its student, so that a loader that took
+    ``teacher_encoder.*`` would show. Returns the path and the file's
+    state_dict."""
+    from wavjepa_tpu_torch.models.jepa import JEPA
+    from wavjepa_tpu_torch.train.checkpoint import CheckpointManager
+    from wavjepa_tpu_torch.train.state import TrainState
+    from wavjepa_tpu_torch.train.step import OptimizerConfig, make_optimizer
+
+    cfg = denoise_config(path_dir, "data.synthetic=true")
+    model = JEPA(cfg.build_denoise_model_config())
+    model.init_parameters(torch.Generator().manual_seed(DENOISE_TEACHER_SEED))
+    state = TrainState.create(model, make_optimizer(OptimizerConfig(), model))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(DENOISE_TEACHER_SEED + 1)
+        for p in state.teacher_encoder.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=g))
+    mgr = CheckpointManager(os.path.join(path_dir, "ckpt"))
+    mgr.save(0, state, force=True)
+    path = str(mgr.path(0))
+    return path, torch.load(path, map_location="cpu", weights_only=False)["state_dict"]
+
+
+def phase_denoise_train(counters: dict, teacher_path: str, teacher_sd: dict, runs: list,
+                        shards: tuple = ()) -> dict:
+    """train_denoiser once per run (name, overrides, steps, launches of each
+    counted wrapper a microbatch, whether to serve from its checkpoint),
+    from ``teacher_path``, on synthetic scene batches or, given (audio, rir,
+    noise) shard patterns, from the scene pipeline with device banks, primed
+    as ``primed_shard_batches`` does; the launch counts are set to 0 just
+    before each run and read just after it. Checks finite losses, the first
+    step's loss_clean (the warm-started student is the teacher), the
+    teacher bitwise as the file's student at the end, the student moved."""
+    import shutil
+
+    from wavjepa_tpu_torch.models.jepa import ENCODER_SIDE
+    from wavjepa_tpu_torch.train import denoise_loop
+    from wavjepa_tpu_torch.utils import flops
+
+    record = {}
+    for name, extra, steps, per_microbatch, serve in runs:
+        save_dir = os.path.join(DENOISE_DIR, name)
+        shutil.rmtree(save_dir, ignore_errors=True)
+        source = (["data.synthetic=false", f"data.data_dirs={shards[0]}",
+                   f"data.rir_dir={shards[1]}", f"data.noise_dir={shards[2]}",
+                   "data.rir_refresh_per_batch=1"] if shards else ["data.synthetic=true"])
+        cfg = denoise_config(save_dir, f"teacher_ckpt={teacher_path}", *source, *extra)
+        model_cfg = cfg.build_denoise_model_config()
+        a = cfg.resolved_denoise_accum_steps()
+        data_iter, batches, loader_waits, primed = None, None, [], {}
+        if shards:
+            data_iter, batches, loader_waits, primed = primed_shard_batches(
+                cfg, denoise_loop.build_denoise_data_iterator)
+        teachers, load = [], denoise_loop.load_teacher
+
+        def keep_teacher(*args, **kwargs):  # the run's frozen teacher, to check after it
+            teachers.append(load(*args, **kwargs))
+            return teachers[-1]
+
+        denoise_loop.load_teacher = keep_teacher
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counter in counters.values():  # the main path's run starts here
+            counter.launches = 0
+        try:
+            state = denoise_loop.train_denoiser(cfg, data_iter=data_iter, max_steps=steps,
+                                                device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            denoise_loop.load_teacher = load
+            if batches is not None:
+                batches.stop()
+        launches = {k: c.launches for k, c in counters.items()}  # read just after
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: n * a * steps for k, n in per_microbatch.items()}
+        if launches != expected:
+            raise AssertionError(f"denoise {name}: launches {launches}, expected {expected} "
+                                 f"({a} microbatches)")
+        run_dir = os.path.join(save_dir, "Denoise-" + cfg.run_identity())
+        with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        losses = [line["loss"] for line in lines]
+        if len(losses) != steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"denoise {name}: losses {losses}")
+        if not lines[0]["loss_clean"] < DENOISE_FIRST_LOSS_CLEAN:
+            raise AssertionError(f"denoise {name}: first step's loss_clean "
+                                 f"{lines[0]['loss_clean']} (student = teacher there)")
+        t_sd = teachers[0].state_dict()
+        changed = [k for k, v in t_sd.items() if not torch.equal(v.cpu(), teacher_sd[k])]
+        if changed or any(p.requires_grad for p in teachers[0].parameters()):
+            raise AssertionError(f"denoise {name}: the teacher is not the file's student "
+                                 f"after the run ({changed[:4]})")
+        moved = sum((v.float().cpu() - teacher_sd[k]).abs().sum().item()
+                    for k, v in state.student.state_dict().items())
+        if not moved > 0:
+            raise AssertionError(f"denoise {name}: the student did not move")
+        times = [line["step_time_ms"] for line in lines[TRAIN_WARMUP:]]
+        p50 = statistics.median(times)
+        b, crops = cfg.trainer.batch_size, cfg.trainer.batch_size * cfg.data.samples_per_audio
+        step_flops = flops.denoise_step_flops(model_cfg, crops, alpha=cfg.alpha,
+                                              clean_forward=cfg.log_clean_loss)
+        rec = {
+            "accum_steps": a, "steps": steps, "alpha": cfg.alpha, "losses": losses,
+            "loss_clean": [line["loss_clean"] for line in lines],
+            "loss_denoise_dereverb": [line["loss_denoise_dereverb"] for line in lines],
+            "grad_norms": [line["grad_norm"] for line in lines],
+            "step_ms": [line["step_time_ms"] for line in lines], "step_p50_ms": p50,
+            "clips_per_s": b / (p50 / 1e3), "crops_per_s": crops / (p50 / 1e3),
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "student_moved": moved, "teacher_unchanged": True,
+            "data_wait_ms": [line["data_wait_ms"] for line in lines],
+            "data_wait_p50_ms": statistics.median(
+                line["data_wait_ms"] for line in lines[TRAIN_WARMUP:]),
+            "step_flops": step_flops, "mfu": flops.mfu(step_flops, p50 / 1e3),
+            "source": "shards" if shards else "synthetic",
+        }
+        if shards:
+            rec["loader_wait_ms"], rec["primed"] = loader_waits, primed
+        ckpt = os.path.join(run_dir, "ckpt", f"step_{steps:08d}.ckpt")
+        if not os.path.isfile(ckpt):
+            raise AssertionError(f"denoise {name}: no checkpoint {ckpt}")
+        saved = torch.load(ckpt, map_location="cpu", weights_only=False)["state_dict"]
+        if not saved or not all(k.startswith(ENCODER_SIDE) for k in saved):
+            raise AssertionError(f"denoise {name}: checkpoint keys {sorted(saved)[:4]}...")
+        if serve:
+            rec["serve"] = phase_denoise_serve(counters["flash_attention_fwd"],
+                                               counters["fused_attention_block_fwd"], ckpt)
+        del state, teachers
+        torch.cuda.empty_cache()
+        shutil.rmtree(save_dir)  # ~1 GB of base-width checkpoint
+        record[name] = rec
+        print(f"[denoise] {name}: {steps} steps of {b} clips × {cfg.data.samples_per_audio} "
+              f"crops, {a} microbatches, α {cfg.alpha}; losses "
+              f"{', '.join(f'{x:.5f}' for x in losses)}; loss_clean at step 1 "
+              f"{lines[0]['loss_clean']:.3g}; step p50 {p50:.1f} ms (after {TRAIN_WARMUP} "
+              f"warm-up steps), {rec['clips_per_s']:.2f} clips/s, {rec['crops_per_s']:.1f} "
+              f"crops/s, peak memory {peak / 2**30:.2f} GiB; launches {launches}; teacher "
+              f"unchanged, student moved {moved:.4g}; {rec['source']}, data wait p50 "
+              f"{rec['data_wait_p50_ms']:.2f} ms a step; MFU {rec['mfu']:.4f} "
+              f"({step_flops / 1e12:.2f} TFLOP a step)", flush=True)
+    return record
+
+
+def phase_denoise_serve(counted, idle, ckpt: str) -> dict:
+    """The distilled student's checkpoint served by ``load_model`` (the
+    architecture from the run's model_config.json, bf16): scene embeddings
+    of 8 clips of 10 s and timestamp embeddings of a ragged batch; the
+    flash forward once per encoder layer per request, the fused block
+    never."""
+    from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
+
+    rt = load_model(ckpt)
+    layers = rt.config.encoder_layers
+    record = {}
+    counted.launches = idle.launches = 0  # the main path's run starts here
+    for name, kind, clips in (("scene_8x10s", "scene", make_clips([10.0] * 8, 41)),
+                              ("timestamps_ragged", "timestamps",
+                               make_clips([1.0, 2.01, 4.3, 30.0], 42))):
+        emb, ts = serve_request(rt, kind, clips)
+        torch.cuda.synchronize()
+        n = max(len(c) for c in clips)
+        _, _, cut_off, _ = chunk_padding(n, rt.unit_frames, rt.sample_rate, rt.output_steps)
+        expect = ((len(clips), rt.embedding_size) if kind == "scene"
+                  else (len(clips), cut_off, rt.embedding_size))
+        if tuple(emb.shape) != expect or not torch.isfinite(emb).all():
+            raise AssertionError(f"denoise serve {name}: embeddings {tuple(emb.shape)} != "
+                                 f"{expect} or not finite")
+        if ts is not None and tuple(ts.shape) != expect[:2]:
+            raise AssertionError(f"denoise serve {name}: timestamps {tuple(ts.shape)}")
+        times = []
+        for i in range(7):
+            t0 = time.perf_counter()
+            serve_request(rt, kind, clips)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        record[name] = {"shape": list(emb.shape), "p50_ms": statistics.median(times),
+                        "n": len(times)}
+    launches, idle_launches = counted.launches, idle.launches  # read just after
+    if launches != layers * 8 * 2 or idle_launches:
+        raise AssertionError(f"denoise serving launched {launches} flash forwards (expected "
+                             f"{layers * 16}), {idle_launches} fused")
+    record["launches"] = launches
+    print(f"[denoise serve] the distilled student from its checkpoint ({rt.config.dtype}): "
+          + ", ".join(f"{k} {tuple(v['shape'])} p50 {v['p50_ms']:.3f} ms"
+                      for k, v in record.items() if k != "launches")
+          + f"; {launches} flash forward launches ({layers} a request)", flush=True)
+    return record
+
+
+def phase_denoise_parity() -> dict:
+    """One denoise step at base width from the same crops (α = 0.3, so both
+    views train), its student initialised apart from the teacher, as the
+    JAX package's own step tests do, so that the loss is far above bf16's
+    rounding: f32 on the card (TF32 off) against the CPU, then bf16 on the
+    card against that f32 step, at phase 6's limits. The warm-started
+    student's bf16 loss against f32 is recorded beside it: its loss (the
+    distance of the noisy view from the clean one, ~3e-3) is of the order
+    of the squared bf16 rounding of the representations, so its relative
+    difference measures that floor, not the step."""
+    from wavjepa_tpu_torch.models.denoiser import DenoiserConfig, DenoiserStudent, student_from_jepa
+    from wavjepa_tpu_torch.ops.audio import instance_normalize
+    from wavjepa_tpu_torch.train.denoise_loop import load_teacher
+    from wavjepa_tpu_torch.train.denoise_step import (
+        DenoiseOptimizerConfig,
+        DenoiseTrainState,
+        make_denoise_optimizer,
+        make_denoise_train_step,
+    )
+
+    cfg = denoise_config(os.path.join(DENOISE_DIR, "parity"), "trainer.precision=f32")
+    f32_cfg = cfg.build_denoise_model_config()
+    opt_cfg = DenoiseOptimizerConfig(warmup_steps=1)  # step 1: lr = the peak, 1e-4
+    rng = np.random.default_rng(12)
+    clean = rng.standard_normal((2, 1, f32_cfg.target_length)).astype(np.float32)
+    noisy = clean + 0.5 * rng.standard_normal(clean.shape).astype(np.float32)
+    crops = [instance_normalize(torch.from_numpy(x)) for x in (clean, noisy)]
+
+    def one_step(model_cfg, device, warm=False):
+        teacher = load_teacher("", model_cfg, DENOISE_TEACHER_SEED, device)
+        if warm:
+            student = student_from_jepa(teacher)
+        else:
+            student = DenoiserStudent(model_cfg)
+            student.init_parameters(torch.Generator().manual_seed(DENOISE_TEACHER_SEED + 1))
+            student.to(device)
+        state = DenoiseTrainState(student, make_denoise_optimizer(opt_cfg, student))
+        state.step = 1
+        step = make_denoise_train_step(opt_cfg, DenoiserConfig(jepa=model_cfg, alpha=0.3),
+                                       with_rir=True, with_noise=True)
+        state, m = step.step_on(state, teacher, *(c.to(device, model_cfg.dtype) for c in crops))
+        weights = {k: v.detach().float().cpu() for k, v in state.student.state_dict().items()}
+        return float(m["loss"]), float(m["grad_norm"]), m["lr"], weights
+
+    bf16_cfg = dataclasses.replace(f32_cfg, dtype=torch.bfloat16)
+    card = one_step(f32_cfg, "cuda")
+    cpu = one_step(f32_cfg, "cpu")
+    lr = card[2]
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    gn_rel = abs(card[1] - cpu[1]) / abs(cpu[1])
+    w_err = max((card[3][k] - cpu[3][k]).abs().max().item() for k in cpu[3])
+    if not (loss_rel <= STEP_LOSS_REL and gn_rel <= STEP_GRAD_NORM_REL
+            and w_err <= STEP_PARAM_ATOL_LR * lr):
+        raise AssertionError(f"f32 denoise step, card vs CPU: loss rel {loss_rel}, grad_norm "
+                             f"rel {gn_rel}, weights {w_err} (lr {lr})")
+    bf16 = one_step(bf16_cfg, "cuda")
+    bf16_rel = abs(bf16[0] - card[0]) / abs(card[0])
+    if not bf16_rel <= STEP_BF16_LOSS_REL:
+        raise AssertionError(f"bf16 denoise step vs f32 step on the card: loss rel {bf16_rel}")
+    warm32, warm16 = one_step(f32_cfg, "cuda", warm=True), one_step(bf16_cfg, "cuda", warm=True)
+    warm_rel = abs(warm16[0] - warm32[0]) / abs(warm32[0])
+    print(f"[denoise parity] f32 step card vs CPU: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel "
+          f"{loss_rel:.3g}, limit {STEP_LOSS_REL}), grad_norm rel {gn_rel:.3g} (limit "
+          f"{STEP_GRAD_NORM_REL}), weights max abs {w_err:.3g} (limit "
+          f"{STEP_PARAM_ATOL_LR * lr:.3g}); bf16 step loss {bf16[0]:.6f}, rel {bf16_rel:.3g} "
+          f"(limit {STEP_BF16_LOSS_REL}); warm-started student: f32 loss {warm32[0]:.6g}, "
+          f"bf16 {warm16[0]:.6g} (rel {warm_rel:.3g}, recorded)", flush=True)
+    return {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
+            "grad_norm_card": card[1], "grad_norm_cpu": cpu[1], "grad_norm_rel": gn_rel,
+            "weights_max_abs_err": w_err, "lr": lr, "bf16_loss": bf16[0],
+            "bf16_loss_rel": bf16_rel, "warm_f32_loss": warm32[0], "warm_bf16_loss": warm16[0],
+            "warm_bf16_loss_rel": warm_rel}
+
+
+def phase_denoise_trace(teacher_path: str) -> dict:
+    """One denoise step at the CLI's defaults (synthetic scene batch) under
+    torch.profiler after warm-up steps (``build/chip_smoke_trace/``): its
+    wall time untraced and traced, the card's busy and idle share, the
+    kernels it launched and their time by class, and the scene build's
+    share of the card's kernel time."""
+    from wavjepa_tpu_torch.train.denoise_loop import build_denoise_data_iterator, build_denoise_run
+    from wavjepa_tpu_torch.train.loop import step_seed
+    from wavjepa_tpu_torch.utils import profiling
+
+    cfg = denoise_config(os.path.join(DENOISE_DIR, "trace"), "data.synthetic=true",
+                         f"teacher_ckpt={teacher_path}")
+    dev, _, state, step_fn = build_denoise_run(cfg, "cuda")
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(build_denoise_data_iterator(cfg)).items()}
+    generator = torch.Generator(device=dev)
+    untraced = []
+    for _ in range(TRACE_WARMUP + 1):
+        t0 = time.perf_counter()
+        generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
+        state, m = step_fn(state, batch, generator)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        untraced.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    with profiling.trace(TRACE_DIR, name="denoise_step"):
+        with torch.profiler.record_function("train_step"):
+            generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
+            state, m = step_fn(state, batch, generator)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(TRACE_DIR, "denoise_step.json.gz")
+    summary = profiling.trace_summary(path, window="train_step", top=10)
+    scenes = profiling.trace_summary(path, window="scene_synthesis", top=3)
+    if not summary["kernels"] or not np.isfinite(loss):
+        raise AssertionError(f"denoise trace: {summary['kernels']} kernels, loss {loss}")
+    a = cfg.resolved_denoise_accum_steps()
+    rec = {"accum_steps": a, "loss": loss, "untraced_ms": untraced[-1],
+           "traced_wall_ms": traced_ms, **summary,
+           "kernels_per_microbatch": summary["kernels"] / a,
+           "scene_synthesis_host_us": scenes["wall_us"], "trace_file": path}
+    print(f"[denoise trace] ({a} microbatches): step {untraced[-1]:.1f} ms untraced, "
+          f"{traced_ms:.1f} ms traced (window {summary['wall_us'] / 1e3:.1f} ms); card busy "
+          f"{summary['busy_us'] / 1e3:.1f} ms, idle share {summary['idle_share']:.3f}; kernels "
+          f"{summary['kernels']} ({rec['kernels_per_microbatch']:.0f} a microbatch), summed "
+          f"{summary['kernel_us'] / 1e3:.1f} ms; by class: " + ", ".join(
+              f"{cls} {us / 1e3:.1f} ms" for cls, us in summary["kernel_us_by_class"].items()),
+          flush=True)
+    for kname, n, us in summary["top_kernels"]:
+        print(f"[denoise trace] kernel {us / 1e3:8.2f} ms {n:6d}x  {kname[:110]}")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_denoise(counters: dict) -> dict:
+    """Phase 10, denoise distillation at the CLI's defaults (base width,
+    bf16): a seeded JEPA written as a port checkpoint and loaded as the
+    teacher; train_denoiser on synthetic scene batches at α = 0 and α =
+    0.5; one f32 step card against CPU and bf16 against it; train_denoiser
+    from shards (phase 9's) with device banks and one refresh a batch; the
+    CLI in a process of its own; the distilled student served."""
+    import shutil
+
+    from wavjepa_tpu_torch.ops.flash_attention import flash_attention_bwd_route
+
+    shutil.rmtree(DENOISE_DIR, ignore_errors=True)
+    teacher_path, teacher_sd = write_denoise_teacher(os.path.join(DENOISE_DIR, "teacher"))
+    model_cfg = denoise_config(DENOISE_DIR).build_denoise_model_config()
+    t = model_cfg.total_patches
+    route = flash_attention_bwd_route(t, model_cfg.encoder_dim // model_cfg.encoder_heads,
+                                      torch.bfloat16)
+    if route != "two_pass":
+        raise AssertionError(f"the denoiser's backward at T = {t} takes route {route}")
+    layers = model_cfg.encoder_layers
+    # a microbatch: the teacher, the clean and the noisy student forward; the
+    # noisy student's backward (α = 0) or both students' (0 < α < 1)
+    alpha_0 = dict(zip(counters, (3 * layers, layers, 0, 0)))
+    blend = dict(zip(counters, (3 * layers, 2 * layers, 0, 0)))
+    record = {"teacher": teacher_path, "bwd_route": route, "tokens": t}
+    record["train"] = phase_denoise_train(counters, teacher_path, teacher_sd, [
+        ("denoise", [], DENOISE_STEPS, alpha_0, True),
+        ("denoise_alpha_0.5", ["alpha=0.5"], DENOISE_STEPS_BLEND, blend, False)])
+    record["trace"] = phase_denoise_trace(teacher_path)
+    record["parity"] = phase_denoise_parity()
+    shutil.rmtree(NAT_SHARDS_DIR, ignore_errors=True)
+    shards = write_nat_shards(NAT_SHARDS_DIR)
+    record["train_shards"] = phase_denoise_train(counters, teacher_path, teacher_sd, [
+        ("denoise_shards", [], DENOISE_STEPS, alpha_0, False)], shards=shards)
+    shutil.rmtree(NAT_SHARDS_DIR)
+    run, shard_run = record["train"]["denoise"], record["train_shards"]["denoise_shards"]
+    print(f"[denoise] from shards with device banks beside synthetic scenes: step p50 "
+          f"{shard_run['step_p50_ms']:.1f} vs {run['step_p50_ms']:.1f} ms, "
+          f"{shard_run['clips_per_s']:.2f} vs {run['clips_per_s']:.2f} clips/s; data wait "
+          f"p50 {shard_run['data_wait_p50_ms']:.2f} ms a step (each step's: "
+          f"{', '.join(f'{x:.1f}' for x in shard_run['data_wait_ms'])})", flush=True)
+
+    # the CLI as users run it, in a process of its own
+    torch.cuda.empty_cache()
+    cli_dir = os.path.join(DENOISE_DIR, "cli")
+    cmd = [sys.executable, "-m", "wavjepa_tpu_torch.denoise", "data.synthetic=true",
+           f"teacher_ckpt={teacher_path}", f"trainer.steps={CLI_STEPS}", "trainer.log_every=1",
+           "optimizer.warmup_steps=2", f"trainer.save_dir={cli_dir}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    ckpts = [os.path.join(d, f) for d, _, fs in os.walk(cli_dir) for f in fs
+             if f == f"step_{CLI_STEPS:08d}.ckpt"]
+    losses = [float(line.split("loss=")[1].split()[0]) for line in proc.stdout.splitlines()
+              if line.startswith("[step ")]
+    if (proc.returncode != 0 or "run: Denoise-" not in proc.stdout or not ckpts
+            or len(losses) != CLI_STEPS or not all(np.isfinite(losses))):
+        raise AssertionError(f"denoise CLI: exit {proc.returncode}, checkpoints {ckpts}, "
+                             f"losses {losses}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    record["cli"] = {"cmd": cmd, "seconds": cli_s, "losses": losses}
+    print(f"[denoise] CLI: {CLI_STEPS} steps, losses {', '.join(f'{x:.5f}' for x in losses)}, "
+          f"checkpoint written; {cli_s:.1f} s with start-up", flush=True)
+    shutil.rmtree(DENOISE_DIR)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
@@ -1634,6 +2069,8 @@ def main() -> int:
     done("trace")
     nat = phase_nat(counters)
     done("nat")
+    denoise = phase_denoise(counters)
+    done("denoise")
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -1647,7 +2084,8 @@ def main() -> int:
         paths = {"serve": serving["launches"] if serving else 0}
         paths.update({f"train {name}": r["launches"][kernel]
                       for runs in (train, train_fused, train_shards, nat["train"],
-                                   nat["train_shards"])
+                                   nat["train_shards"], denoise["train"],
+                                   denoise["train_shards"])
                       for name, r in runs.items()})
         return paths
 
@@ -1656,6 +2094,7 @@ def main() -> int:
                 kernel_rows + train_fwd_rows)
     fwd["launches_by_path"] = by_path("flash_attention_fwd", serve)
     fwd["launches_by_path"]["serve nat"] = nat["serve"]["launches"]
+    fwd["launches_by_path"]["serve denoise"] = denoise["train"]["denoise"]["serve"]["launches"]
     fwd["bf16_routes"] = {r["shape"]: "wgmma" for r in kernel_rows + train_fwd_rows}
     bwd = entry("flash_attention_bwd", "wavjepa_tpu/ops/flash_attention.py:58", 0,
                 train_bwd_rows[2],  # one microbatch of the packed student encoder
@@ -1684,6 +2123,7 @@ def main() -> int:
                    "train_fused": train_fused, "train_parity": train_parity,
                    "train_parity_fused": train_parity_fused, "data": data,
                    "train_shards": train_shards, "trace": trace, "nat": nat,
+                   "denoise": denoise,
                    "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)

@@ -39,6 +39,15 @@ def test_port_imports_no_jax_and_not_the_jax_package():
             assert root not in FORBIDDEN, f"{path.relative_to(PACKAGE.parent)} imports {name}"
 
 
+def test_the_denoise_modules_are_among_the_files_checked():
+    checked = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    for name in ("models/denoiser.py", "train/denoise_step.py", "train/denoise_loop.py",
+                 "denoise.py"):
+        assert name in checked, name
+        tree = ast.parse((PACKAGE / name).read_text())
+        assert not {n.split(".")[0] for n in _imported(tree)} & set(FORBIDDEN), name
+
+
 def test_ast_walk_catches_a_forbidden_import():
     tree = ast.parse("def f():\n    from wavjepa_tpu.ops import pos_embed\n    import jax.numpy\n")
     assert [n.split(".")[0] for n in _imported(tree)] == ["wavjepa_tpu", "jax"]

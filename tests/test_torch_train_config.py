@@ -81,8 +81,11 @@ def test_bad_overrides_raise_like_the_jax_package():
         assert type(te.value) is type(je.value)
     with pytest.raises(ValueError, match="pack_tokens"):
         tcfg.apply_overrides(tcfg.Config(), ["trainer.pack_tokens=yes"]).packing_bounds(200)
+    # the denoiser's configuration resolves since the denoiser has a port; a
+    # setting the port cannot honour still raises
+    assert tcfg.Config().build_denoise_model_config().pack_encoder is None
     with pytest.raises(NotImplementedError):
-        tcfg.Config().build_denoise_model_config()
+        tcfg.apply_overrides(tcfg.Config(), ["trainer.num_devices=2"]).build_denoise_model_config()
 
 
 def test_the_masker_builds_the_ports_maskers():

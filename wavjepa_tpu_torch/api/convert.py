@@ -13,7 +13,9 @@ tree (nested dicts of arrays) across:
   * a per-channel frontend's stacks become ``extract_audio.cnns.{c}``;
   * the decoder, both mappers and ``mask_token`` (1, 1, D_dec) keep their
     names, and an EMA teacher tree becomes ``teacher_encoder.*``, as
-    ``wavjepa_tpu/api/convert.py`` exports them.
+    ``wavjepa_tpu/api/convert.py`` exports them;
+  * a tree with no decoder (the JAX package's ``DenoiserStudent``) gives
+    the encoder side alone, the denoiser student's state_dict.
 """
 
 from __future__ import annotations

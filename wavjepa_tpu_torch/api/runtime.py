@@ -27,7 +27,7 @@ from wavjepa_tpu_torch.api.convert import (
     unwrap_state_dict,
 )
 from wavjepa_tpu_torch.api.feature_helper import prepare_batch
-from wavjepa_tpu_torch.models.jepa import JEPA, JEPAConfig
+from wavjepa_tpu_torch.models.jepa import ENCODER_SIDE, JEPA, JEPAConfig
 from wavjepa_tpu_torch.train.checkpoint import read_model_config
 
 DeviceLike = Union[str, torch.device, None]
@@ -96,7 +96,7 @@ class RuntimeJEPA:
         else:
             # serving needs the encoder side; the predictor may be absent
             missing, unexpected = model.load_state_dict(dict(state_dict), strict=False)
-            missing = [k for k in missing if k.startswith(_ENCODER_SIDE)]
+            missing = [k for k in missing if k.startswith(ENCODER_SIDE)]
             if missing or unexpected:
                 raise KeyError(f"state_dict does not fit the model: missing {missing}, "
                                f"unexpected {unexpected}")
@@ -238,12 +238,9 @@ def load_model(
         state_dict = {
             k: v if isinstance(v, torch.Tensor) else torch.tensor(v)
             for k, v in state_dict.items()
-            if k.startswith(_ENCODER_SIDE)
+            if k.startswith(ENCODER_SIDE)
         }
     return RuntimeJEPA(config, state_dict, dev, seed)
-
-
-_ENCODER_SIDE = ("extract_audio.", "feature_norms.", "post_extraction_mapper.", "encoder.")
 
 
 def get_timestamp_embeddings(audio, model: RuntimeJEPA):

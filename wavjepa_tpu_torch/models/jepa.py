@@ -16,9 +16,11 @@ holds, under the reference's module names:
     raw layer outputs of a teacher encoder, each instance-normed, averaged);
     and the masked MSE in both layouts.
 
-The EMA teacher is a second encoder module, ``build_teacher_encoder()``,
-owned by the train state (``train/state.py``), as the JAX package keeps a
-second parameter tree for the same encoder definition.
+``EncoderPath`` is the serving path alone, which ``JEPA`` extends and the
+denoiser's student is. The EMA teacher is a second encoder module,
+``build_teacher_encoder()``, owned by the train state (``train/state.py``),
+as the JAX package keeps a second parameter tree for the same encoder
+definition.
 """
 
 from __future__ import annotations
@@ -156,8 +158,15 @@ def jepa_config_from_dict(d: dict) -> JEPAConfig:
     return JEPAConfig(**kw)
 
 
-class JEPA(nn.Module):
-    """The WavJEPA student under the reference's module names."""
+ENCODER_SIDE = ("extract_audio.", "feature_norms.", "post_extraction_mapper.", "encoder.")
+
+
+class EncoderPath(nn.Module):
+    """The path that serves, under the reference's module names: the conv
+    frontend, ``feature_norms``, ``post_extraction_mapper`` and the context
+    ``encoder`` (their state-dict keys start with ``ENCODER_SIDE``), and the
+    encoder's fixed position table. ``JEPA`` adds the training side; the
+    denoiser's student (``models/denoiser.py``) is this path alone."""
 
     def __init__(self, config: JEPAConfig):
         super().__init__()
@@ -165,8 +174,6 @@ class JEPA(nn.Module):
         if cfg.extractor not in ("conv", "conv_channel"):
             raise ValueError(f"unknown extractor {cfg.extractor!r}")
         check_attn_impl(cfg.attn_impl)
-        if cfg.attn_impl_decoder is not None:
-            check_attn_impl(cfg.attn_impl_decoder)
         self.config = cfg
         if cfg.extractor == "conv_channel":  # WavJEPA-Nat: a stack a channel
             self.extract_audio = ConvChannelFeatureExtractor(
@@ -188,18 +195,9 @@ class JEPA(nn.Module):
             int(cfg.encoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
             cfg.attn_impl,
         )
-        self.decoder = TransformerEncoder(
-            cfg.decoder_layers, cfg.decoder_dim, cfg.decoder_heads,
-            int(cfg.decoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
-            cfg.attn_impl if cfg.attn_impl_decoder is None else cfg.attn_impl_decoder,
-        )
-        self.encoder_to_decoder_mapper = Linear(cfg.encoder_dim, cfg.decoder_dim, dtype=cfg.dtype)
-        self.decoder_to_encoder_mapper = Linear(cfg.decoder_dim, cfg.encoder_dim, dtype=cfg.dtype)
-        self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.decoder_dim))
-        # fixed tables, not parameters: derived from the config, not stored
-        for name, dim in (("pos_encoding_encoder", cfg.encoder_dim),
-                          ("pos_encoding_decoder", cfg.decoder_dim)):
-            self.register_buffer(name, torch.from_numpy(cfg.pos_table(dim)), persistent=False)
+        # a fixed table, not a parameter: derived from the config, not stored
+        self.register_buffer("pos_encoding_encoder",
+                             torch.from_numpy(cfg.pos_table(cfg.encoder_dim)), persistent=False)
 
     @torch.no_grad()
     def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -213,20 +211,6 @@ class JEPA(nn.Module):
                 generator=generator,
             )
         self.encoder.init_parameters(generator)
-        # the training side after the encoder side, so that one seed gives
-        # the serving path the same weights as before it existed
-        self.decoder.init_parameters(generator)
-        for lin in (self.encoder_to_decoder_mapper, self.decoder_to_encoder_mapper):
-            nn.init.trunc_normal_(lin.weight, 0.0, 0.02, -0.04, 0.04, generator=generator)
-        self.mask_token.copy_(0.02 * torch.randn(self.mask_token.shape, generator=generator))
-
-    def build_teacher_encoder(self) -> TransformerEncoder:
-        """A copy of the context encoder (its attn_impl too, as the JAX
-        teacher runs the encoder module), outside autograd, for the EMA
-        teacher."""
-        teacher = copy.deepcopy(self.encoder)
-        teacher.requires_grad_(False)
-        return teacher
 
     def encode_features(self, audio: torch.Tensor) -> torch.Tensor:
         """(B, C, T_samples) → (B, total_patches, D_enc) positioned features."""
@@ -239,6 +223,44 @@ class JEPA(nn.Module):
                   padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Inference: features → context encoder under the padding mask."""
         return self.encoder(self.encode_features(audio), key_padding_mask=padding_mask)
+
+
+class JEPA(EncoderPath):
+    """The WavJEPA student under the reference's module names."""
+
+    def __init__(self, config: JEPAConfig):
+        super().__init__(config)
+        cfg = config
+        if cfg.attn_impl_decoder is not None:
+            check_attn_impl(cfg.attn_impl_decoder)
+        self.decoder = TransformerEncoder(
+            cfg.decoder_layers, cfg.decoder_dim, cfg.decoder_heads,
+            int(cfg.decoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
+            cfg.attn_impl if cfg.attn_impl_decoder is None else cfg.attn_impl_decoder,
+        )
+        self.encoder_to_decoder_mapper = Linear(cfg.encoder_dim, cfg.decoder_dim, dtype=cfg.dtype)
+        self.decoder_to_encoder_mapper = Linear(cfg.decoder_dim, cfg.encoder_dim, dtype=cfg.dtype)
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.decoder_dim))
+        self.register_buffer("pos_encoding_decoder",
+                             torch.from_numpy(cfg.pos_table(cfg.decoder_dim)), persistent=False)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        # the training side after the encoder side, so that one seed gives
+        # the serving path the same weights as before it existed
+        super().init_parameters(generator)
+        self.decoder.init_parameters(generator)
+        for lin in (self.encoder_to_decoder_mapper, self.decoder_to_encoder_mapper):
+            nn.init.trunc_normal_(lin.weight, 0.0, 0.02, -0.04, 0.04, generator=generator)
+        self.mask_token.copy_(0.02 * torch.randn(self.mask_token.shape, generator=generator))
+
+    def build_teacher_encoder(self) -> TransformerEncoder:
+        """A copy of the context encoder (its attn_impl too, as the JAX
+        teacher runs the encoder module), outside autograd, for the EMA
+        teacher."""
+        teacher = copy.deepcopy(self.encoder)
+        teacher.requires_grad_(False)
+        return teacher
 
     # ------------------------------------------------------------ student
 

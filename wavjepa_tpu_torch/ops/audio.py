@@ -41,11 +41,17 @@ def crops_at(audio: torch.Tensor, starts: torch.Tensor, crop_len: int) -> torch.
     return torch.gather(src, 3, idx)
 
 
+def random_starts(generator: torch.Generator, audio: torch.Tensor, crop_len: int,
+                  n_crops: int) -> torch.Tensor:
+    """(B, n_crops) crop starts, uniform over [0, L − crop_len], on
+    ``audio``'s device."""
+    b, _, length = audio.shape
+    return torch.randint(0, length - crop_len + 1, (b, n_crops), generator=generator,
+                         device=generator.device).to(audio.device)
+
+
 def random_crops(generator: torch.Generator, audio: torch.Tensor, crop_len: int,
                  n_crops: int) -> torch.Tensor:
-    """``n_crops`` random ``crop_len`` windows of each clip, starts uniform
-    over [0, L − crop_len] → (B, n_crops, C, crop_len)."""
-    b, _, length = audio.shape
-    starts = torch.randint(0, length - crop_len + 1, (b, n_crops), generator=generator,
-                           device=generator.device).to(audio.device)
-    return crops_at(audio, starts, crop_len)
+    """``n_crops`` random ``crop_len`` windows of each clip →
+    (B, n_crops, C, crop_len)."""
+    return crops_at(audio, random_starts(generator, audio, crop_len, n_crops), crop_len)

@@ -4,11 +4,15 @@ sidecar.
 Counterpart of ``wavjepa_tpu/train/checkpoint.py``. A checkpoint is one file
 ``<dir>/step_<N>.ckpt`` holding
 
-  * ``state_dict``: the student and ``teacher_encoder.*`` under the
-    reference's names, so the HEAR runtimes of both packages (and the
-    reference's loaders) read it as a reference-format checkpoint;
+  * ``state_dict``: the state's ``weights()`` under the reference's names
+    (a JEPA run's student and ``teacher_encoder.*``; a denoise run's
+    student, the encoder side alone), so the HEAR runtimes of both packages
+    (and the reference's loaders) read it as a reference-format checkpoint;
   * ``optimizer``: the AdamW state;
   * ``step``.
+
+A state is a ``TrainState`` or a ``DenoiseTrainState``: anything with
+``weights()``, ``load_weights()``, ``optimizer`` and ``step``.
 
 ``write_model_config``/``read_model_config`` keep the JEPAConfig beside the
 run in the JAX package's JSON format, so a loader rebuilds the architecture
@@ -26,18 +30,9 @@ from typing import Optional
 import torch
 
 from wavjepa_tpu_torch.models.jepa import JEPAConfig, jepa_config_from_dict, jepa_config_to_dict
-from wavjepa_tpu_torch.train.state import TrainState
 
 MODEL_CONFIG_NAME = "model_config.json"
 _CKPT = re.compile(r"step_(\d+)\.ckpt$")
-
-
-def state_dict_of(state: TrainState) -> dict[str, torch.Tensor]:
-    """The student's state_dict plus ``teacher_encoder.*``, on the CPU."""
-    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-    sd.update({f"teacher_encoder.{k}": v.detach().cpu()
-               for k, v in state.teacher_encoder.state_dict().items()})
-    return sd
 
 
 class CheckpointManager:
@@ -61,10 +56,10 @@ class CheckpointManager:
     def path(self, step: int) -> Path:
         return self.directory / f"step_{step:08d}.ckpt"
 
-    def save(self, step: int, state: TrainState, force: bool = False) -> bool:
+    def save(self, step: int, state, force: bool = False) -> bool:
         if not force and step % self.every:
             return False
-        blob = {"state_dict": state_dict_of(state),
+        blob = {"state_dict": {k: v.detach().cpu() for k, v in state.weights().items()},
                 "optimizer": state.optimizer.state_dict(), "step": state.step}
         tmp = self.path(step).with_suffix(".tmp")
         torch.save(blob, tmp)
@@ -74,18 +69,14 @@ class CheckpointManager:
                 self.path(old).unlink()
         return True
 
-    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
+    def restore(self, state, step: Optional[int] = None):
         """Load a checkpoint (the newest by default) into ``state`` in
         place. The file is this program's own: it is unpickled in full."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         blob = torch.load(self.path(step), map_location="cpu", weights_only=False)
-        sd = blob["state_dict"]
-        prefix = "teacher_encoder."
-        state.model.load_state_dict({k: v for k, v in sd.items() if not k.startswith(prefix)})
-        state.teacher_encoder.load_state_dict(
-            {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)})
+        state.load_weights(blob["state_dict"])
         state.optimizer.load_state_dict(blob["optimizer"])
         state.step = int(blob["step"])
         return state

@@ -251,8 +251,43 @@ class Config:
                 f"trainer.num_devices={tr.num_devices}: data parallelism has no port yet; "
                 f"the port trains on one device (set trainer.num_devices=1 or 0)")
 
-    def build_denoise_model_config(self):
-        raise NotImplementedError("the denoiser has no port yet")
+    def resolved_denoise_accum_steps(self) -> int:
+        """The denoise step's microbatches: trainer.accum_steps, with 0 =
+        auto: at a crop batch of 128 or more the largest of 4/2 that
+        divides it, else 1. The JAX package's rule (the denoise step has no
+        predictor and no packing, so its rule is not SSL's)."""
+        a = self.trainer.accum_steps
+        if a != 0:
+            return a
+        crops = self.trainer.batch_size * self.data.samples_per_audio
+        if crops >= 128:
+            for cand in (4, 2):
+                if crops % cand == 0:
+                    return cand
+        return 1
+
+    def build_denoise_model_config(self) -> JEPAConfig:
+        """The JEPAConfig of a denoise run: the teacher's and the student's.
+        Packing stays off (the denoise step runs whole sequences); with
+        microbatches and ``trainer.remat`` not set, ``remat`` goes off; the
+        explicit recomputation flags and the attention choices come from the
+        trainer, as the JAX package resolves them (the port does no
+        recomputation yet: the flags only round-trip). Raises on
+        multi-device settings (``check_devices``)."""
+        self.check_devices()
+        cfg = self._base_model_config()
+        tr = self.trainer
+        if self.resolved_denoise_accum_steps() > 1 and "trainer.remat" not in self.explicit_keys:
+            cfg = dataclasses.replace(cfg, remat=False)
+        return dataclasses.replace(
+            cfg,
+            remat_conv=tr.remat_conv,
+            remat_encoder=tr.remat_encoder,
+            remat_decoder=tr.remat_decoder,
+            remat_save_probs=tr.remat_save_probs,
+            attn_impl=tr.attn_impl,
+            attn_impl_decoder=tr.attn_impl_decoder,
+        )
 
     def build_model_config(self) -> JEPAConfig:
         """The JEPAConfig of this run, with packing and the recomputation

@@ -1,21 +1,45 @@
-"""Scene batches for training on synthesized scenes (WavJEPA-Nat).
+"""Denoise distillation: the teacher, the warm-started student, the step
+loop; and the scene batches that it and WavJEPA-Nat train on.
 
-Counterpart of the data half of ``wavjepa_tpu/train/denoise_loop.py``:
-``synthetic_denoise_batches``, ``effective_scene_flags`` and
-``build_denoise_data_iterator``. The scene length and the RIR length come
-from the Nat scene rate (``NatSceneConfig.original_sr``, 32 kHz) and the
-run's ``data.target_seconds`` (10 s), and 2-s RIRs. The denoiser's own
-training loop is not ported yet.
+Counterpart of ``wavjepa_tpu/train/denoise_loop.py``. ``train_denoiser``
+loads the teacher (``load_teacher``: the student weights of a JEPA
+checkpoint, frozen), copies its encoder path into the student, and runs the
+denoise step (``train/denoise_step.py``) over scene batches in
+``train/loop.run_loop``, the loop that ``train_jepa`` runs: a bank refresh
+is written after the step that consumed its batch, and throughput counts
+clips and crops apart. Checkpoints (the student alone, under the
+reference's names, which the HEAR runtime serves) go to
+``<save_dir>/Denoise-<run identity>/ckpt`` every ``min(trainer.ckpt_every,
+2500)`` steps; a run resumes from the newest.
+
+The batch builders (``synthetic_denoise_batches``,
+``effective_scene_flags``, ``build_denoise_data_iterator``) take the scene
+length and the RIR length from the scene rate (``NatSceneConfig``, 32 kHz),
+the run's ``data.target_seconds`` (10 s) and 2-s RIRs.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from pathlib import Path
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
+from wavjepa_tpu_torch.api.convert import load_torch_checkpoint, unwrap_state_dict
+from wavjepa_tpu_torch.api.runtime import DeviceLike, resolve_device
 from wavjepa_tpu_torch.data.pipeline import ShardBatches, process_group
+from wavjepa_tpu_torch.models.denoiser import DenoiserConfig, student_from_jepa
+from wavjepa_tpu_torch.models.jepa import ENCODER_SIDE, JEPA, JEPAConfig
 from wavjepa_tpu_torch.train.config import Config
+from wavjepa_tpu_torch.train.denoise_step import (
+    DenoiseOptimizerConfig,
+    DenoiseTrainState,
+    make_denoise_optimizer,
+    make_denoise_train_step,
+)
+from wavjepa_tpu_torch.train.loop import open_run, run_loop
+from wavjepa_tpu_torch.train.state import TEACHER_PREFIX
 from wavjepa_tpu_torch.train.step import NatSceneConfig
 
 RIR_SECONDS = 2.0
@@ -109,3 +133,93 @@ def build_denoise_data_iterator(cfg: Config) -> Iterator[dict[str, np.ndarray]]:
     batches = denoise_batches(source, cfg.trainer.batch_size,
                               refresh_rirs_per_batch=cfg.data.rir_refresh_per_batch)
     return ShardBatches(source, batches)
+
+
+def load_teacher(ckpt_path: str, model_cfg: JEPAConfig, seed: int,
+                 device: DeviceLike = "cpu") -> JEPA:
+    """The frozen teacher on ``device``: a JEPA of ``model_cfg`` with the
+    student weights of a port training checkpoint or a reference ``.ckpt``
+    (its ``teacher_encoder.*`` EMA weights are dropped, as the JAX package
+    takes the checkpoint's student); what the file lacks keeps its seeded
+    initialisation, and with no path the whole teacher is seeded. It takes
+    no gradient and is in no optimizer."""
+    teacher = JEPA(model_cfg)
+    teacher.init_parameters(torch.Generator().manual_seed(seed))
+    if ckpt_path:
+        if Path(ckpt_path).is_dir():
+            raise NotImplementedError("orbax checkpoint directories have no port yet")
+        names = set(teacher.state_dict())
+        sd = unwrap_state_dict(load_torch_checkpoint(ckpt_path))
+        sd = {k: v for k, v in sd.items() if k in names and not k.startswith(TEACHER_PREFIX)}
+        if not any(k.startswith(ENCODER_SIDE) for k in sd):
+            raise KeyError(f"{ckpt_path} holds no JEPA encoder weights")
+        teacher.load_state_dict(sd, strict=False)
+    teacher.requires_grad_(False)
+    return teacher.to(device).eval()
+
+
+def denoise_optimizer_config(cfg: Config) -> DenoiseOptimizerConfig:
+    """The run's optimizer settings. The warmup and total steps default to
+    min(5000, trainer.steps) and trainer.steps where the configuration has
+    the SSL defaults (100k / 375k) and neither key was set explicitly, as in
+    the JAX package."""
+    o = cfg.optimizer
+    ssl_defaults = (o.warmup_steps, o.total_steps) == (100_000, 375_000)
+
+    def default(key):
+        return ssl_defaults and key not in cfg.explicit_keys
+
+    return DenoiseOptimizerConfig(
+        lr=o.lr, b1=o.b1, b2=o.b2, eps=o.eps, weight_decay=o.weight_decay,
+        grad_clip=o.grad_clip,
+        warmup_steps=(min(5_000, cfg.trainer.steps) if default("optimizer.warmup_steps")
+                      else o.warmup_steps),
+        total_steps=cfg.trainer.steps if default("optimizer.total_steps") else o.total_steps,
+    )
+
+
+def build_denoise_run(cfg: Config, device: DeviceLike = None):
+    """(device, model configuration, fresh DenoiseTrainState, step function)
+    of a denoise run, as ``train_denoiser`` builds them before it restores a
+    checkpoint. The step function is ``step_fn(state, batch, generator,
+    rir_bank)``, the run's teacher (``load_teacher``) bound in."""
+    model_cfg = cfg.build_denoise_model_config()  # raises on settings the port lacks
+    dev = resolve_device(device)
+    teacher = load_teacher(cfg.teacher_ckpt, model_cfg, cfg.trainer.seed, dev)
+    student = student_from_jepa(teacher)
+    opt_cfg = denoise_optimizer_config(cfg)
+    state = DenoiseTrainState(student, make_denoise_optimizer(opt_cfg, student))
+    dcfg = DenoiserConfig(jepa=model_cfg, alpha=cfg.alpha,
+                          original_sr=NatSceneConfig().original_sr,
+                          nr_samples_per_audio=cfg.data.samples_per_audio,
+                          target_seconds=cfg.data.target_seconds,
+                          log_clean_loss=cfg.log_clean_loss)
+    step = make_denoise_train_step(opt_cfg, dcfg, *effective_scene_flags(cfg),
+                                   accum_steps=cfg.resolved_denoise_accum_steps())
+
+    def step_fn(state, batch, generator, rir_bank=None):
+        return step(state, teacher, batch, generator, rir_bank)
+
+    return dev, model_cfg, state, step_fn
+
+
+def train_denoiser(
+    cfg: Config,
+    data_iter: Optional[Iterator[dict]] = None,
+    max_steps: Optional[int] = None,
+    device: DeviceLike = None,
+) -> DenoiseTrainState:
+    """Run (or resume) denoise distillation on ``device`` (cuda unless told
+    otherwise; raises without CUDA). The teacher comes from
+    ``cfg.teacher_ckpt`` (``load_teacher``), the student is its encoder
+    path's copy. Without ``data_iter`` the batches come from
+    ``build_denoise_data_iterator``, and a shard pipeline built here is
+    stopped when the loop returns or raises. Returns the final state."""
+    dev, model_cfg, state, step_fn = build_denoise_run(cfg, device)
+    run_dir = Path(cfg.trainer.save_dir) / ("Denoise-" + cfg.run_identity())
+    ckpt = open_run(run_dir, model_cfg, state, cfg, min(cfg.trainer.ckpt_every, 2_500))
+    owned = None
+    if data_iter is None:
+        data_iter = owned = build_denoise_data_iterator(cfg)
+    total = max_steps if max_steps is not None else cfg.trainer.steps
+    return run_loop(cfg, state, step_fn, data_iter, owned, run_dir, ckpt, total, dev)

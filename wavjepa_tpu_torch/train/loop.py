@@ -1,5 +1,7 @@
 """JEPA pretraining: state set-up or resume, the step loop with a
-threaded host-to-device prefetch, checkpoints and metrics.
+threaded host-to-device prefetch, checkpoints and metrics. The loop itself
+(``open_run``, ``run_loop``, ``run_step``) also runs denoise distillation
+(``train/denoise_loop.py``).
 
 Counterpart of ``wavjepa_tpu/train/loop.py`` on one device. Every step
 draws its crops and masks from a generator on the device seeded from
@@ -39,10 +41,6 @@ from wavjepa_tpu_torch.ops.scenes import update_rir_bank
 from wavjepa_tpu_torch.train.checkpoint import CheckpointManager, write_model_config
 from wavjepa_tpu_torch.train.config import Config
 from wavjepa_tpu_torch.train.state import TrainState
-from wavjepa_tpu_torch.train.denoise_loop import (
-    build_denoise_data_iterator,
-    effective_scene_flags,
-)
 from wavjepa_tpu_torch.train.step import NatSceneConfig, make_jepa_train_step, make_optimizer
 from wavjepa_tpu_torch.utils.metrics import MetricLogger, Throughput
 
@@ -54,6 +52,8 @@ def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator:
     ``start_step`` does not apply; ``stop()`` stops its workers). With
     ``data.nat_scenes``, scene batches (``build_denoise_data_iterator``)."""
     if cfg.data.nat_scenes:
+        from wavjepa_tpu_torch.train.denoise_loop import build_denoise_data_iterator
+
         return build_denoise_data_iterator(cfg)
     if cfg.data.synthetic or not cfg.data.data_dirs:
         return synthetic_audio_batches(
@@ -135,12 +135,14 @@ def scene_config(cfg: Config) -> Optional[NatSceneConfig]:
     what its batches carry; None otherwise."""
     if not cfg.data.nat_scenes:
         return None
+    from wavjepa_tpu_torch.train.denoise_loop import effective_scene_flags
+
     with_rir, with_noise = effective_scene_flags(cfg)
     return NatSceneConfig(with_rir=with_rir, with_noise=with_noise,
                           n_channels=cfg.data.in_channels)
 
 
-def run_step(step_fn, state: TrainState, batch, generator: torch.Generator,
+def run_step(step_fn, state, batch, generator: torch.Generator,
              rir_bank: Optional[dict] = None):
     """One step on a batch. A scene batch's ``rir_bank_refresh`` is written
     into ``rir_bank`` after the step, which reads the bank as the batch's
@@ -150,6 +152,18 @@ def run_step(step_fn, state: TrainState, batch, generator: torch.Generator,
     if refresh is not None:
         update_rir_bank(rir_bank, refresh["slots"], refresh["rows"])
     return state, metrics
+
+
+def device_scene_bank(data_iter, device: torch.device) -> Optional[dict]:
+    """The host bank of a scene source with banks (a ``ShardBatches`` over
+    a ``DenoiseSampleSource``, as ``build_denoise_data_iterator`` gives),
+    sent to ``device`` once; None for any other source."""
+    if not (isinstance(data_iter, ShardBatches)
+            and isinstance(data_iter.source, DenoiseSampleSource)):
+        return None
+    bank = data_iter.source.scene_bank()
+    return None if bank is None else {k: torch.from_numpy(v).to(device)
+                                      for k, v in bank.items()}
 
 
 def build_run(cfg: Config, device: DeviceLike = None):
@@ -196,25 +210,40 @@ def train_jepa(
     refreshes it (``run_step``)."""
     dev, model_cfg, state, step_fn = build_run(cfg, device)
     run_dir = Path(cfg.trainer.save_dir) / cfg.run_identity()
-    write_model_config(run_dir, model_cfg)
-    ckpt = CheckpointManager(run_dir / "ckpt", keep=cfg.trainer.keep_ckpts,
-                             every=cfg.trainer.ckpt_every)
-    if ckpt.latest_step() is not None:
-        ckpt.restore(state)
-        print(f"resumed from step {state.step}", flush=True)
-
-    logger = MetricLogger(str(run_dir / "logs"))
+    ckpt = open_run(run_dir, model_cfg, state, cfg, cfg.trainer.ckpt_every)
     owned = None
     if data_iter is None:  # built after the restore: the stream starts at the next step
         data_iter = owned = build_data_iterator(cfg, start_step=state.step)
     total = max_steps if max_steps is not None else cfg.trainer.steps
+    return run_loop(cfg, state, step_fn, data_iter, owned, run_dir, ckpt, total, dev)
+
+
+def open_run(run_dir: Path, model_cfg, state, cfg: Config, every: int) -> CheckpointManager:
+    """Write the run's ``model_config.json``, and restore ``state`` in place
+    from the newest checkpoint under ``run_dir/ckpt`` if there is one.
+    Returns the run's CheckpointManager (saving every ``every`` steps)."""
+    write_model_config(run_dir, model_cfg)
+    ckpt = CheckpointManager(run_dir / "ckpt", keep=cfg.trainer.keep_ckpts, every=every)
+    if ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        print(f"resumed from step {state.step}", flush=True)
+    return ckpt
+
+
+def run_loop(cfg: Config, state, step_fn, data_iter: Iterator, owned, run_dir: Path,
+             ckpt: CheckpointManager, total: int, dev: torch.device):
+    """The step loop of a run, from ``state.step`` to ``total``: batches
+    from ``data_iter`` through the prefetch thread (a scene source's bank on
+    the device, refreshed by ``run_step``), each step's generator seeded
+    from (seed, step), metrics with throughput and ``data_wait_ms`` every
+    ``trainer.log_every`` steps into ``run_dir/logs``, checkpoints by
+    ``ckpt`` and one at the end. ``step_fn(state, batch, generator,
+    rir_bank)``. ``owned`` (the shard pipeline the caller built, or None)
+    is stopped when the loop returns or raises."""
+    logger = MetricLogger(str(run_dir / "logs"))
     throughput = Throughput(cfg.trainer.batch_size,
                             cfg.trainer.batch_size * cfg.data.samples_per_audio)
-    bank = None
-    if isinstance(data_iter, ShardBatches) and isinstance(data_iter.source, DenoiseSampleSource):
-        bank = data_iter.source.scene_bank()
-    rir_bank = None if bank is None else {k: torch.from_numpy(v).to(dev)
-                                          for k, v in bank.items()}
+    rir_bank = device_scene_bank(data_iter, dev)
     generator = torch.Generator(device=dev)
     batches = prefetch_to_device(data_iter, dev)
     wait_s, waited_steps = 0.0, 0

@@ -16,6 +16,8 @@ import torch
 from wavjepa_tpu_torch.models.jepa import JEPA
 from wavjepa_tpu_torch.ops.transformer import TransformerEncoder
 
+TEACHER_PREFIX = "teacher_encoder."
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -27,6 +29,20 @@ class TrainState:
     @classmethod
     def create(cls, model: JEPA, optimizer: torch.optim.Optimizer) -> "TrainState":
         return cls(model, model.build_teacher_encoder(), optimizer, 0)
+
+    def weights(self) -> dict[str, torch.Tensor]:
+        """The student's state_dict plus ``teacher_encoder.*``."""
+        sd = dict(self.model.state_dict())
+        sd.update({f"{TEACHER_PREFIX}{k}": v
+                   for k, v in self.teacher_encoder.state_dict().items()})
+        return sd
+
+    def load_weights(self, sd: dict) -> None:
+        self.model.load_state_dict({k: v for k, v in sd.items()
+                                    if not k.startswith(TEACHER_PREFIX)})
+        n = len(TEACHER_PREFIX)
+        self.teacher_encoder.load_state_dict({k[n:]: v for k, v in sd.items()
+                                              if k.startswith(TEACHER_PREFIX)})
 
 
 @torch.no_grad()

@@ -59,16 +59,63 @@ class EMAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NatSceneConfig:
-    """Scene synthesis in the step, for WavJEPA-Nat: the step takes dict
-    batches of clean clips at ``original_sr`` with their RIRs, noise and
-    SNRs (inline, or as indices into a device bank) and builds
-    ``n_channels``-channel scenes (2 binaural, 4 ambisonic) before it crops
-    them. ``with_rir``/``with_noise`` say what the run's batches carry."""
+    """Scene synthesis in the step (``build_scenes``), for WavJEPA-Nat and
+    the denoiser: the step takes dict batches of clean clips at
+    ``original_sr`` with their RIRs, noise and SNRs (inline, or as indices
+    into a device bank) and builds ``n_channels``-channel scenes (2
+    binaural, 4 ambisonic; 1, the RIR's first channel, for the denoiser)
+    before it crops them. ``with_rir``/``with_noise`` say what the run's
+    batches carry."""
 
     with_rir: bool = True
     with_noise: bool = True
     n_channels: int = 2
     original_sr: int = 32000  # the scene-synthesis rate
+
+
+def build_scenes(sc: NatSceneConfig, sample_rate: int, batch: dict,
+                 rir_bank: Optional[dict] = None) -> torch.Tensor:
+    """A scene batch → (B, sc.n_channels, T) f32 scenes at ``sample_rate``.
+    RIRs come inline (``source_rir``, ``noise_rirs``) or from the bank by
+    ``rir_index``; noise inline (``noise``, placed) or from the bank's faded
+    rows by ``noise_index`` and ``noise_start``."""
+    with torch.profiler.record_function("scene_synthesis"):
+        source_rir, noise_rirs = batch.get("source_rir"), batch.get("noise_rirs")
+        if sc.with_rir and source_rir is None:
+            source_rir, noise_rirs = gather_scene_rirs(rir_bank, batch["rir_index"])
+        noise = batch.get("noise")
+        if sc.with_noise and noise is None:
+            noise = place_noise_from_bank(rir_bank["noise"], batch["noise_index"],
+                                          batch["noise_start"])
+        scene = generate_scene(
+            wire_to_f32(batch["audio"]), source_rir,
+            None if noise is None else wire_to_f32(noise), noise_rirs,
+            batch.get("noise_start"), batch.get("noise_length"), batch.get("snr"),
+            with_rir=sc.with_rir, with_noise=sc.with_noise, n_channels=sc.n_channels)
+        if sc.original_sr != sample_rate:
+            scene = resample_torch(scene, sc.original_sr, sample_rate)
+    return scene
+
+
+def optimizer_update(params: list, optimizer: torch.optim.Optimizer, lr: float,
+                     grad_clip: float) -> torch.Tensor:
+    """The update after the gradients: a zero gradient for each parameter
+    without one (optax decays every parameter, with or without a gradient),
+    clipping by global norm as optax does (t / ‖g‖ · max only when ‖g‖ ≥
+    max), then one optimizer step at ``lr``. Returns the norm before
+    clipping."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = g_norm < grad_clip
+    torch._foreach_div_(grads, torch.where(keep, torch.ones_like(g_norm), g_norm))
+    torch._foreach_mul_(grads, torch.where(keep, 1.0, grad_clip).to(g_norm))
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    return g_norm
 
 
 def make_optimizer(cfg: OptimizerConfig, model: torch.nn.Module) -> torch.optim.AdamW:
@@ -161,26 +208,8 @@ class JEPATrainStep:
 
     def scenes(self, cfg, batch: dict, rir_bank: Optional[dict] = None) -> torch.Tensor:
         """A scene batch → (B, n_channels, T) f32 scenes at ``cfg``'s sample
-        rate. RIRs come inline (``source_rir``, ``noise_rirs``) or from the
-        bank by ``rir_index``; noise inline (``noise``, placed) or from the
-        bank's faded rows by ``noise_index`` and ``noise_start``."""
-        sc = self.scene_cfg
-        with torch.profiler.record_function("scene_synthesis"):
-            source_rir, noise_rirs = batch.get("source_rir"), batch.get("noise_rirs")
-            if sc.with_rir and source_rir is None:
-                source_rir, noise_rirs = gather_scene_rirs(rir_bank, batch["rir_index"])
-            noise = batch.get("noise")
-            if sc.with_noise and noise is None:
-                noise = place_noise_from_bank(rir_bank["noise"], batch["noise_index"],
-                                              batch["noise_start"])
-            scene = generate_scene(
-                wire_to_f32(batch["audio"]), source_rir,
-                None if noise is None else wire_to_f32(noise), noise_rirs,
-                batch.get("noise_start"), batch.get("noise_length"), batch.get("snr"),
-                with_rir=sc.with_rir, with_noise=sc.with_noise, n_channels=sc.n_channels)
-            if sc.original_sr != cfg.sample_rate:
-                scene = resample_torch(scene, sc.original_sr, cfg.sample_rate)
-        return scene
+        rate (``build_scenes``)."""
+        return build_scenes(self.scene_cfg, cfg.sample_rate, batch, rir_bank)
 
     def prepare(self, cfg, audio: torch.Tensor, generator: torch.Generator):
         """(B, C, L) or (B, L) clips → crops (B·n, C, crop) in ``cfg.dtype``
@@ -232,24 +261,11 @@ class JEPATrainStep:
                                 target_masks, visible_masks)
             loss.backward()
             loss = loss.detach()
-        for p in params:  # optax decays every parameter, with or without a gradient
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-
-        # clip by global norm as optax does: t / ‖g‖ · max only when ‖g‖ ≥ max
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        keep = g_norm < self.grad_clip
-        torch._foreach_div_(grads, torch.where(keep, torch.ones_like(g_norm), g_norm))
-        torch._foreach_mul_(grads, torch.where(keep, 1.0, self.grad_clip).to(g_norm))
-
         # EMA from the student encoder before its update, then the update
         decay = self.ema_schedule(state.step)
         ema_update(state.teacher_encoder, model.encoder, decay)
         lr = self.lr_schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
+        g_norm = optimizer_update(params, state.optimizer, lr, self.grad_clip)
         state.step += 1
         return state, {"loss": loss, "ema_decay": decay, "lr": lr, "grad_norm": g_norm}
 
