@@ -93,7 +93,24 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             card against CPU and bf16 against it;
             ``train_denoiser`` from phase 9's shards with device banks (the
             RIR's first channel); the CLI in a process of its own; and the
-            distilled student's checkpoint served by ``load_model``.
+            distilled student's checkpoint served by ``load_model``;
+11. eval     the HF-style surface (``api/hf.py``) on phase 5's checkpoint: the
+            feature extractor on a 10-s clip at 44.1 kHz and at 16 kHz into
+            ``WavJEPAForAudioEmbeddings``, whose embeddings must equal
+            ``load_model``'s bit for bit, and a 2-channel Nat request;
+            ``api/hear_wavjepa_w2v2`` (seeded weights): scene 8 × 10 s,
+            ragged timestamps (1.0, 4.02, 4.3, 30 s) and one window exactly
+            (64319 samples), 200 tokens a window and 20-ms steps, f32 card
+            against CPU and bf16 against f32; then the HEAR harness: two
+            synthetic 16-kHz tasks under ``build/chip_smoke_hear/`` at the
+            size of public HEAR tasks (ESC-50: 2000 tones of 5 s, 50
+            classes, 5 folds; DCASE 2016 task 2: 72 clips of 120 s with 30
+            tone events each, 11 labels), the embeddings runner with
+            ``api/hear_wavjepa`` in-process, ``predictions --grid faster``
+            with the probes on the card, the on-disk contract, clips/s,
+            audio-s/s, peak memory and probe ms an epoch, and both CLIs in
+            processes of their own on a small task. Each path: 12 flash
+            forwards an encoder forward, no other kernel.
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -192,6 +209,16 @@ DENOISE_TEACHER_SEED = 7
 DENOISE_STEPS, DENOISE_STEPS_BLEND = 6, 3
 DENOISE_FIRST_LOSS_CLEAN = 1e-6
 TRACE_WARMUP = 2
+# phase 11 (eval): phase 5's checkpoint kept for the HF surface, the HEAR
+# tasks and their embeddings; the wav2vec2 frontend's 200 tokens a 4.02-s
+# window are 20-ms steps on the integer-second grid (50 Hz), to within 1%
+EVAL_DIR = os.path.join("build", "chip_smoke_eval")
+HEAR_DIR = os.path.join("build", "chip_smoke_hear")
+W2V2_STEP_MS, W2V2_STEP_REL = 20.0, 0.01
+# grid points of predictions --grid faster a task: all 8 for the scene task;
+# 2 for the event task, whose 36 train clips of 120 s are ~430k probe rows
+# (~420 steps an epoch)
+HEAR_GRID_POINTS = {"scene": 8, "event": 2}
 # a run still going after this many seconds prints every thread's stack and
 # exits non-zero, inside the 1200 s a run may take
 WATCHDOG_S = 1100
@@ -205,6 +232,7 @@ ATTN_SHAPES = [
     ("whole_clip_b4", 4, 12, 999),
     ("large_windowed", 4, 16, 200),
     ("nat_windowed", 40, 12, 400),  # WavJEPA-Nat: 8 binaural clips, 2 × 200 tokens a window
+    ("w2v2_windowed", 24, 12, 200),  # the wav2vec2 frontend: 8 clips of 10 s, 3 windows of 4.02 s
 ]
 HEAD_DIM = 64
 # (name, B, T, D, heads) of the fused block: the packed decoder (4 groups a
@@ -860,7 +888,7 @@ def primed_shard_batches(cfg, build) -> tuple:
     return ShardBatches(batches.source, timed_batches()), batches, loader_waits, primed
 
 
-def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
+def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None) -> dict:
     """train_jepa on the AudioSet configuration as resolved, once per run
     (name, overrides, steps, launches of each counted wrapper a microbatch,
     whether to serve from its checkpoint), on synthetic clips (or scenes)
@@ -868,7 +896,8 @@ def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
     (``build_data_iterator``: clips, or Nat scene batches with their banks),
     wrapped so that the time each batch kept the loader waiting is recorded;
     the launch counts are set to 0 just before each run and read just after
-    it."""
+    it. ``keep`` maps a run's name to a directory that its last checkpoint
+    and model_config.json are moved to, for a later phase."""
     import shutil
 
     from wavjepa_tpu_torch.api.runtime import load_model
@@ -964,6 +993,10 @@ def phase_train(counters: dict, runs: list, shards: str = "") -> dict:
                     or rt.config.attn_impl_decoder != model_cfg.attn_impl_decoder):
                 raise AssertionError(f"{name}: sidecar not read ({rt.config})")
             rec["served_from_checkpoint"] = list(emb.shape)
+        if keep and name in keep:
+            os.makedirs(keep[name], exist_ok=True)
+            shutil.move(os.path.join(run_dir, "ckpt", f"step_{steps:08d}.ckpt"), keep[name])
+            shutil.copy(os.path.join(run_dir, "model_config.json"), keep[name])
         shutil.rmtree(save_dir)  # ~1.7 GB of base-width checkpoint
         record[name] = rec
         print(f"[train] {name}: {steps} steps of {b} clips × {cfg.data.samples_per_audio} "
@@ -1959,6 +1992,374 @@ def phase_denoise(counters: dict) -> dict:
     return record
 
 
+def timed_requests(tag: str, counters: dict, requests: list, layers: int) -> dict:
+    """Each request (name, call, expected embeddings shape, samples of its
+    longest clip or None for a scene request) once with its checks, then
+    timed: the flash forward once per encoder layer a call and no other
+    counted kernel; finite f32 embeddings of the expected shape; timestamps
+    on the runtime's uniform grid. The counts are set to 0 just before the
+    requests and read just after them."""
+    fwd = counters["flash_attention_fwd"]
+    for c in counters.values():  # the main path's run starts here
+        c.launches = 0
+    record, reps = {}, 12
+    for name, call, expect, n in requests:
+        before = fwd.launches
+        emb, ts = call()
+        torch.cuda.synchronize()
+        if fwd.launches - before != layers:
+            raise AssertionError(f"{tag} {name}: {fwd.launches - before} flash forwards, "
+                                 f"expected {layers}")
+        if tuple(emb.shape) != expect or emb.dtype != torch.float32 or not torch.isfinite(emb).all():
+            raise AssertionError(f"{tag} {name}: embeddings {tuple(emb.shape)} {emb.dtype}, "
+                                 f"expected {expect}, or not finite")
+        rec = {"shape": list(emb.shape)}
+        if ts is not None:
+            step = n / 16000 / expect[1] * 1000.0
+            if tuple(ts.shape) != expect[:2] or ts[0, 0].item() != 0.0 or \
+                    abs(ts[0, 1].item() - step) > 1e-9:
+                raise AssertionError(f"{tag} {name}: timestamps {tuple(ts.shape)} not a "
+                                     f"{step}-ms grid")
+            rec["step_ms"] = step
+        times = []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            if i >= 2:  # two warm-up requests
+                times.append((time.perf_counter() - t0) * 1e3)
+        rec.update(p50_ms=statistics.median(times), n=len(times))
+        record[name] = rec
+        print(f"[{tag}] {name}: out {tuple(emb.shape)}"
+              + (f", {rec['step_ms']:.4f}-ms steps" if ts is not None else "")
+              + f", p50 {rec['p50_ms']:.3f} ms over {len(times)} requests", flush=True)
+    launches = {k: c.launches for k, c in counters.items()}  # read just after
+    expected = dict.fromkeys(counters, 0)
+    expected["flash_attention_fwd"] = layers * (reps + 1) * len(requests)
+    if launches != expected:
+        raise AssertionError(f"{tag}: launches {launches}, expected {expected}")
+    record["launches"] = launches
+    return record
+
+
+def phase_eval_hf(counters: dict, ckpt: str) -> dict:
+    """The HF-style surface at base width: the feature extractor on a 10-s
+    clip at 44.1 kHz and at 16 kHz into ``WavJEPAForAudioEmbeddings`` of
+    phase 5's checkpoint, and a 2-channel WavJEPA-Nat request (seeded
+    weights); then its embeddings against ``load_model``'s on the same
+    checkpoint, bit for bit."""
+    from wavjepa_tpu_torch.api.hf import WavJEPAFeatureExtractor, WavJEPAForAudioEmbeddings
+    from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
+
+    model = WavJEPAForAudioEmbeddings.from_pretrained(ckpt)  # its model_config.json
+    nat = WavJEPAForAudioEmbeddings.from_pretrained("", in_channels=2, channel_wise=True)
+    rng = np.random.default_rng(51)
+    clip_44k = (0.1 * rng.standard_normal(441000)).astype(np.float32)
+    clip_16k = (0.1 * rng.standard_normal(160000)).astype(np.float32)
+    binaural = (0.1 * rng.standard_normal((1, 2, 160000))).astype(np.float32)
+    fx = WavJEPAFeatureExtractor()
+    from_44k = fx(clip_44k, sampling_rate=44100)
+    extract_ms = median_ms(lambda: fx(clip_44k, sampling_rate=44100), 5)
+    inputs = {"hf_44k1_10s": from_44k, "hf_16k_10s": fx(clip_16k, sampling_rate=16000),
+              "hf_nat_10s": WavJEPAFeatureExtractor(in_channels=2)(binaural)}
+    if from_44k.shape != (1, 1, 160000) or inputs["hf_nat_10s"].shape != (1, 2, 160000):
+        raise AssertionError(f"feature extractor: {from_44k.shape}, "
+                             f"{inputs['hf_nat_10s'].shape}")
+    _, _, rows, _ = chunk_padding(160000, model.runtime.unit_frames, 16000,
+                                  model.runtime.output_steps)
+    width = model.runtime.embedding_size
+    requests = [(name, (lambda m=m, x=inputs[name]: m(x)), (1, rows, width), 160000)
+                for name, m in (("hf_44k1_10s", model), ("hf_16k_10s", model),
+                                ("hf_nat_10s", nat))]
+    record = timed_requests("eval hf", counters, requests, model.config.encoder_layers)
+    record["extract_44k1_ms"] = extract_ms
+    # the same checkpoint through load_model: the same bits
+    runtime = load_model(ckpt)
+    for name in ("hf_44k1_10s", "hf_16k_10s"):
+        emb, ts = model(inputs[name])
+        ref_emb, ref_ts = runtime.get_timestamp_embeddings(inputs[name])
+        if not (torch.equal(emb, ref_emb) and torch.equal(ts, ref_ts)):
+            raise AssertionError(f"{name}: HF embeddings differ from load_model's "
+                                 f"(max {(emb - ref_emb).abs().max().item()})")
+    record["bitwise_equal_to_load_model"] = True
+    if model.config.dtype != torch.bfloat16 or model.config.pack_encoder is not None:
+        raise AssertionError(f"the checkpoint's sidecar not read: {model.config}")
+    print(f"[eval hf] phase 5's checkpoint: embeddings equal load_model's bit for bit; the "
+          f"extractor took {extract_ms:.1f} ms for 10 s at 44.1 kHz", flush=True)
+    return record
+
+
+def phase_eval_w2v2(counters: dict) -> dict:
+    """``api/hear_wavjepa_w2v2`` at base width with seeded weights: scene
+    embeddings of 8 clips of 10 s, timestamps of a ragged batch (1.0, 4.02,
+    4.3, 30 s) and of one clip of exactly one window (64319 samples, int(16000
+    · 4.02), which gains a whole padding window); 200 tokens a window and
+    20-ms steps; f32 on the card against the CPU, bf16 against f32."""
+    from wavjepa_tpu_torch.api import hear_wavjepa_w2v2 as w2v2
+    from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
+
+    rt = w2v2.load_model("", seed=0)
+    if (rt.output_steps, rt.unit_frames) != (200, 64319):
+        raise AssertionError(f"w2v2 window: {rt.unit_frames} samples, {rt.output_steps} tokens")
+    requests = []
+    for name, kind, clips in (("w2v2_scene_8x10s", "scene", make_clips([10.0] * 8, 61)),
+                              ("w2v2_timestamps_ragged", "timestamps",
+                               make_clips([1.0, 4.02, 4.3, 30.0], 62)),
+                              ("w2v2_timestamps_exact_window", "timestamps",
+                               make_clips([rt.unit_frames / 16000], 63))):
+        n = max(len(c) for c in clips)
+        _, _, rows, _ = chunk_padding(n, rt.unit_frames, 16000, rt.output_steps)
+        width = rt.embedding_size
+        expect = (len(clips), width) if kind == "scene" else (len(clips), rows, width)
+        requests.append((name, (lambda k=kind, c=clips: serve_request(rt, k, c)), expect,
+                         None if kind == "scene" else n))
+    record = timed_requests("eval w2v2", counters, requests, rt.config.encoder_layers)
+    for name in ("w2v2_timestamps_ragged", "w2v2_timestamps_exact_window"):
+        step = record[name]["step_ms"]
+        if not abs(step - W2V2_STEP_MS) <= W2V2_STEP_REL * W2V2_STEP_MS:
+            raise AssertionError(f"{name}: {step}-ms steps, not 20 ms")
+
+    cfg = dataclasses.replace(w2v2.w2v2_config("base"), dtype=torch.float32)
+    clips = make_clips([4.02, 1.0], 64)
+    e_card = load_model("", config=cfg, device="cuda", seed=0).get_timestamp_embeddings(clips)[0].cpu()
+    e_cpu = load_model("", config=cfg, device="cpu", seed=0).get_timestamp_embeddings(clips)[0]
+    err = (e_card - e_cpu).abs().max().item()
+    if not torch.allclose(e_card, e_cpu, atol=CARD_CPU_ATOL, rtol=CARD_CPU_ATOL):
+        raise AssertionError(f"w2v2 f32 card vs CPU: max abs err {err}")
+    e_bf16 = rt.get_timestamp_embeddings(clips)[0].cpu()
+    rel = (torch.linalg.norm(e_bf16 - e_card) / torch.linalg.norm(e_card)).item()
+    if not rel <= BF16_REL_FRO:
+        raise AssertionError(f"w2v2 bf16 vs f32: relative Frobenius {rel}")
+    record["parity"] = {"f32_card_vs_cpu_max_abs_err": err, "bf16_vs_f32_rel_fro": rel,
+                        "shape": list(e_card.shape)}
+    print(f"[eval w2v2] f32 card vs CPU max abs err {err:.3g} (atol {CARD_CPU_ATOL}); bf16 vs "
+          f"f32 relative Frobenius {rel:.4g} (limit {BF16_REL_FRO}), {tuple(e_card.shape)}",
+          flush=True)
+    return record
+
+
+def phase_eval_harness(counters: dict) -> dict:
+    """The HEAR harness on the card, at the size of two public HEAR tasks
+    (synthetic audio, ``eval/synthetic.py``): ESC-50's 2000 clips of 5 s in
+    5 folds and DCASE 2016 task 2's 72 clips of 120 s. The port's embeddings
+    runner in-process with ``api/hear_wavjepa`` at base width (seeded
+    weights), then ``predictions --grid faster`` with the probes on the
+    card; the on-disk contract, finite scores in range, the probes'
+    parameters on ``cuda``; clips/s, audio-s/s, peak memory, probe ms an
+    epoch; then both CLIs in processes of their own, on the port's
+    test-size tones task (their times are start-up smoke). Accuracy is
+    printed, not gated: the weights are random."""
+    import math
+    import pickle
+    import shutil
+
+    from wavjepa_tpu_torch.eval import embeddings, predictions, synthetic
+    from wavjepa_tpu_torch.eval.score import available_scores, label_vocab_as_dict, read_label_vocab
+    from wavjepa_tpu_torch.models.jepa import JEPAConfig
+
+    base = JEPAConfig()  # api/hear_wavjepa's model without a checkpoint
+    shutil.rmtree(HEAR_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    task_dirs = [synthetic.write_scene_task(HEAR_DIR, 16000, **synthetic.ESC50_LAYOUT),
+                 synthetic.write_event_task(HEAR_DIR, 16000, **synthetic.DCASE2016_TASK2_LAYOUT)]
+    write_s = time.perf_counter() - t0
+    files = {t.name: synthetic.split_files(t) for t in task_dirs}
+    print(f"[eval tasks] {', '.join(f'{t}: {sum(n.values())} clips' for t, n in files.items())}"
+          f" written in {write_s:.1f} s", flush=True)
+    tasks, emb_root = os.path.join(HEAR_DIR, "tasks"), os.path.join(HEAR_DIR, "embeddings")
+    module = "wavjepa_tpu_torch.api.hear_wavjepa"
+    calls = 0
+    for t in task_dirs:
+        with open(t / "task_metadata.json") as f:
+            bs = embeddings.estimated_batch_size(json.load(f), 16000)
+        calls += sum(math.ceil(n / bs) for n in files[t.name].values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():  # the main path's run starts here
+        c.launches = 0
+    t0 = time.perf_counter()
+    dirs = embeddings.runner(module, tasks_dir=tasks, embeddings_dir=emb_root)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}  # read just after
+    expected = dict.fromkeys(counters, 0)
+    expected["flash_attention_fwd"] = base.encoder_layers * calls
+    if launches != expected:
+        raise AssertionError(f"eval embeddings: launches {launches}, expected {expected} "
+                             f"({calls} module calls)")
+    record = {"launches": launches, "module_calls": calls, "wall_s": wall_s,
+              "tasks_written_s": write_s, "tasks": {}}
+    for d in dirs:
+        task = os.path.basename(d)
+        with open(os.path.join(d, "task_metadata.json")) as f:
+            metadata = json.load(f)
+        with open(os.path.join(d, "profile.embeddings.json")) as f:
+            profile = json.load(f)
+        n_clips = sum(files[task].values())
+        seconds = n_clips * metadata["sample_duration"]
+        for split in metadata["splits"]:
+            with open(os.path.join(d, f"{split}.embedding-dimensions.json")) as f:
+                dims = json.load(f)
+            x = np.memmap(os.path.join(d, f"{split}.embeddings.npy"), np.float32, "r",
+                          shape=tuple(dims))
+            with open(os.path.join(d, f"{split}.target-labels.pkl"), "rb") as f:
+                labels = pickle.load(f)
+            rows = files[task][split] if metadata["embedding_type"] == "scene" else len(labels)
+            if dims[1] != base.encoder_dim or dims[0] != rows or len(labels) != rows or \
+                    not np.isfinite(x).all():
+                raise AssertionError(f"{task} {split}: embeddings {dims}, {len(labels)} labels")
+            extra = (["filename-timestamps.json"] if metadata["embedding_type"] == "event"
+                     else [])
+            for name in [f"{split}.json", *[f"{split}.{e}" for e in extra]]:
+                if not os.path.isfile(os.path.join(d, name)):
+                    raise AssertionError(f"{task}: no {name}")
+        for name in ("task_metadata.json", "labelvocabulary.csv", ".done.embeddings"):
+            if not os.path.isfile(os.path.join(d, name)):
+                raise AssertionError(f"{task}: no {name}")
+        record["tasks"][task] = {
+            "clips": n_clips, "audio_s": seconds, "time_s": profile["time_s"],
+            "clips_per_s": n_clips / profile["time_s"],
+            "audio_s_per_s": seconds / profile["time_s"],
+            "device_max_mem_mb": profile["device_max_mem_mb"]}
+        print(f"[eval embeddings] {task}: {n_clips} clips, {seconds:.0f} s of audio in "
+              f"{profile['time_s']:.2f} s: {n_clips / profile['time_s']:.1f} clips/s, "
+              f"{seconds / profile['time_s']:.1f} audio-s/s; peak memory "
+              f"{profile['device_max_mem_mb']:.0f} MiB", flush=True)
+    print(f"[eval embeddings] {calls} module calls, {launches['flash_attention_fwd']} flash "
+          f"forwards ({base.encoder_layers} a call); {wall_s:.2f} s with the model's load",
+          flush=True)
+
+    # the probes on the card
+    devices = set()
+    forward = predictions.FullyConnectedProbe.forward
+
+    def seen_forward(self, x, generator=None):
+        devices.add((next(self.parameters()).device.type, x.device.type))
+        return forward(self, x, generator)
+
+    predictions.FullyConnectedProbe.forward = seen_forward
+    results, grid_points = {}, {}
+    try:
+        t0 = time.perf_counter()
+        for d in dirs:
+            with open(os.path.join(d, "task_metadata.json")) as f:
+                points = HEAR_GRID_POINTS[json.load(f)["embedding_type"]]
+            grid_points[os.path.basename(d)] = points
+            results.update(predictions.runner([str(d)], grid_points=points, grid="faster"))
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+    finally:
+        predictions.FullyConnectedProbe.forward = forward
+    if devices != {("cuda", "cuda")}:
+        raise AssertionError(f"probes ran on {devices}")
+    scores, task_pred_s = {}, {}
+    for d, res in results.items():
+        task = os.path.basename(d)
+        for name in ("test.predicted-scores.json", "prediction-done.json"):
+            if not os.path.isfile(os.path.join(d, name)):
+                raise AssertionError(f"{task}: no {name}")
+        with open(os.path.join(d, "prediction-done.json")) as f:
+            task_pred_s[task] = json.load(f)["time_s"]
+        # a test split's scores, or each fold's and their mean and deviation
+        folds = {k: v for k, v in res.items()
+                 if isinstance(v, dict) and any(n.startswith("test_") for n in v)}
+        for fold, values in folds.items():
+            for k, v in values.items():
+                if not k.startswith("test_"):
+                    continue
+                # an error rate (and "test_score", the last tuple score's
+                # first value: here segment_1s_er's) has no upper bound, nor
+                # has the mean or deviation of one over the folds
+                name = k.removesuffix("_mean").removesuffix("_std")
+                low, high = (0.0, math.inf) if name.endswith(("error_rate", "_score")) \
+                    else (0.0, 1.0)
+                if not (np.isfinite(v) and low <= v <= high):
+                    raise AssertionError(f"{task} {fold}: {k} = {v}")
+        top = res.get("aggregated_scores", res.get("test"))
+        scores[task] = {k: v for k, v in top.items() if k.startswith("test_")}
+    record.update(predictions_s=pred_s, predictions_task_s=task_pred_s, grid_points=grid_points,
+                  scores=scores, probe_devices=sorted(devices))
+    print(f"[eval predictions] --grid faster, probes on the card: {pred_s:.1f} s ("
+          f"{', '.join(f'{t} {v:.1f} s at {grid_points[t]} grid points' for t, v in task_pred_s.items())}"
+          f"); scores (random weights, not gated): {scores}", flush=True)
+
+    # probe ms an epoch on the first split's train rows, training alone (no
+    # validation), hidden 128: the time of 2n epochs less that of n, over n
+    # (n = 5, or 2 above 100k rows), so that loading the split and building
+    # the probe fall out
+    conf = dict(hidden_layers=1, hidden_dim=128, dropout=0.1, lr=1e-3, patience=1,
+                max_epochs=10, check_val_every_n_epoch=100, batch_size=1024,
+                initialization="xavier_uniform")
+    record["probe"] = {}
+    for d in dirs:
+        task = os.path.basename(d)
+        with open(os.path.join(d, "task_metadata.json")) as f:
+            metadata = json.load(f)
+        label_to_idx = label_vocab_as_dict(
+            read_label_vocab(os.path.join(d, "labelvocabulary.csv")), "label", "idx")
+        score_fns = [available_scores[s](label_to_idx=label_to_idx)
+                     for s in metadata["evaluation"]]
+        split = predictions.get_splits_from_metadata(metadata)[0]
+        rows = 0
+        for name in split["train"]:
+            with open(os.path.join(d, f"{name}.embedding-dimensions.json")) as f:
+                rows += json.load(f)[0]
+        args = (d, base.encoder_dim, metadata, split, label_to_idx, len(label_to_idx),
+                score_fns)
+        n = 2 if rows > 100_000 else 5  # the probes above warmed the card up
+        run_s = {}
+        for epochs in (n, 2 * n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predictions.task_predictions_train(*args, dict(conf, max_epochs=epochs))
+            torch.cuda.synchronize()
+            run_s[epochs] = time.perf_counter() - t0
+        ms = (run_s[2 * n] - run_s[n]) * 1e3 / n
+        record["probe"][task] = {"ms_per_epoch": ms, "rows": rows, "epochs_timed": n,
+                                 f"run_{n}_epochs_s": run_s[n],
+                                 "steps_per_epoch": math.ceil(rows / conf["batch_size"])}
+        print(f"[eval probe] {task}: {ms:.2f} ms an epoch of {rows} rows "
+              f"({math.ceil(rows / conf['batch_size'])} steps of 1024, hidden 128); {n} "
+              f"epochs with the split's load {run_s[n] * 1e3:.1f} ms", flush=True)
+
+    # both CLIs, each in a process of its own, on the tests' small tones task
+    cli_root = os.path.join(HEAR_DIR, "cli")
+    synthetic.write_scene_task(cli_root, 16000)
+    cmds = [[sys.executable, "-m", "wavjepa_tpu_torch.eval", "embeddings", module,
+             "--tasks-dir", os.path.join(cli_root, "tasks"), "--embeddings-dir", cli_root],
+            [sys.executable, "-m", "wavjepa_tpu_torch.eval", "predictions",
+             os.path.join(cli_root, module, "tones"), "--grid", "faster",
+             "--grid-points", "2"]]
+    record["cli"] = []
+    for cmd in cmds:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0 or ("test_top1_acc" not in proc.stdout and cmd[3] != "embeddings"):
+            raise AssertionError(f"{' '.join(cmd[2:4])}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        record["cli"].append({"cmd": cmd[2:], "seconds": cli_s})
+        print(f"[eval cli] {' '.join(cmd[2:4])}: exit 0 in {cli_s:.1f} s with start-up; "
+              f"{proc.stdout.strip().splitlines()[-1][:200]}", flush=True)
+    if not os.path.isfile(os.path.join(cli_root, module, "tones", "test.predicted-scores.json")):
+        raise AssertionError("the CLIs wrote no test.predicted-scores.json")
+    shutil.rmtree(HEAR_DIR)
+    return record
+
+
+def phase_eval(counters: dict) -> dict:
+    """Phase 11: the HF surface on phase 5's checkpoint, the w2v2 HEAR
+    module, and the HEAR harness, each path with its launch counts."""
+    import shutil
+
+    ckpt = os.path.join(EVAL_DIR, f"step_{TRAIN_STEPS:08d}.ckpt")
+    record = {"hf": phase_eval_hf(counters, ckpt)}
+    shutil.rmtree(EVAL_DIR)  # ~1.7 GB
+    record["w2v2"] = phase_eval_w2v2(counters)
+    record["harness"] = phase_eval_harness(counters)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
@@ -2029,7 +2430,7 @@ def main() -> int:
     train = phase_train(counters, [
         ("accum_auto", [], TRAIN_STEPS, default_path, True),
         ("accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS_ONE_PASS, default_path, False),
-    ])
+    ], keep={"accum_auto": EVAL_DIR})
     train_fused = phase_train(counters, [
         ("fused_decoder", ["trainer.attn_impl_decoder=fused_block"], TRAIN_STEPS,
          fused_decoder, True),
@@ -2071,6 +2472,8 @@ def main() -> int:
     done("nat")
     denoise = phase_denoise(counters)
     done("denoise")
+    evaluation = phase_eval(counters)
+    done("eval")
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -2087,6 +2490,9 @@ def main() -> int:
                                    nat["train_shards"], denoise["train"],
                                    denoise["train_shards"])
                       for name, r in runs.items()})
+        paths.update({"serve hf": evaluation["hf"]["launches"][kernel],
+                      "serve w2v2": evaluation["w2v2"]["launches"][kernel],
+                      "eval embeddings": evaluation["harness"]["launches"][kernel]})
         return paths
 
     fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39", 0,
@@ -2123,7 +2529,7 @@ def main() -> int:
                    "train_fused": train_fused, "train_parity": train_parity,
                    "train_parity_fused": train_parity_fused, "data": data,
                    "train_shards": train_shards, "trace": trace, "nat": nat,
-                   "denoise": denoise,
+                   "denoise": denoise, "eval": evaluation,
                    "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)

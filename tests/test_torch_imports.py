@@ -2,6 +2,7 @@
 package, and its entry points run on CUDA unless asked for the CPU."""
 
 import ast
+import os
 import pathlib
 
 import pytest
@@ -12,6 +13,8 @@ from wavjepa_tpu_torch.api import hear_wavjepa
 from wavjepa_tpu_torch.api import runtime as trt
 from wavjepa_tpu_torch.models.jepa import JEPAConfig
 
+# transformers imports TensorFlow where it is installed; nothing here needs it
+os.environ.setdefault("USE_TF", "0")
 PACKAGE = pathlib.Path(wavjepa_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "wavjepa_tpu")
 TINY = dict(conv_spec=((16, 10, 5), (16, 3, 2)), size="tiny",
@@ -78,3 +81,38 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
     base = hear_wavjepa.load_model("", device="cpu")
     assert base.embedding_size == 768 and base.config.dtype == torch.bfloat16
     assert next(base.model.parameters()).dtype == torch.float32
+
+
+def test_only_the_transformers_module_imports_transformers_and_none_sklearn_or_pandas():
+    files = sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
+    importers = set()
+    for path in files:
+        roots = {n.split(".")[0] for n in _imported(ast.parse(path.read_text(), str(path)))}
+        assert not roots & {"sklearn", "pandas"}, path
+        if "transformers" in roots:
+            importers.add(path.relative_to(PACKAGE.parent).as_posix())
+    assert importers == {"wavjepa_tpu_torch/api/hf_transformers.py"}
+
+
+def test_the_serving_and_eval_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from wavjepa_tpu_torch.api import hear_wavjepa_hf, hear_wavjepa_w2v2, hf, hf_transformers
+    from wavjepa_tpu_torch.eval import embeddings, predictions
+
+    for load in (hf.WavJEPAForAudioEmbeddings.from_pretrained, hear_wavjepa_hf.load_model,
+                 hear_wavjepa_w2v2.load_model):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load("")
+    export = hf_transformers.export_transformers_pretrained(
+        tmp_path / "hf", trt.load_model("", config=JEPAConfig(**TINY), device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hf_transformers.WavJEPATransformersModel.from_pretrained(export)
+    model = hf_transformers.WavJEPATransformersModel.from_pretrained(export, device="cpu")
+    assert model.device.type == "cpu"
+    (tmp_path / "tasks" / "t").mkdir(parents=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        embeddings.runner("wavjepa_tpu_torch.api.hear_wavjepa", tasks_dir=str(tmp_path / "tasks"),
+                          embeddings_dir=str(tmp_path / "emb"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predictions.runner([str(tmp_path / "emb")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predictions.task_predictions(tmp_path / "emb")

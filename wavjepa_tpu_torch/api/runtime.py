@@ -78,8 +78,11 @@ class RuntimeJEPA:
 
     ``state_dict`` holds the port's (reference-named) weights; without it
     the weights are random, drawn from a CPU generator seeded with ``seed``,
-    so one seed gives the same weights on every device. Embeddings are
-    averaged over the channels for a per-channel frontend."""
+    so one seed gives the same weights on every device. ``model`` serves
+    modules built elsewhere, as they are (the transformers model of
+    ``api/hf_transformers.py``, which holds an ``EncoderPath``'s modules),
+    in place of a JEPA built from ``config``. Embeddings are averaged over
+    the channels for a per-channel frontend."""
 
     def __init__(
         self,
@@ -87,19 +90,21 @@ class RuntimeJEPA:
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
         device: DeviceLike = None,
         seed: int = 0,
+        model: Optional[torch.nn.Module] = None,
     ):
         self.device = resolve_device(device)
         self.config = config
-        model = JEPA(config)
-        if state_dict is None:
-            model.init_parameters(torch.Generator().manual_seed(seed))
-        else:
-            # serving needs the encoder side; the predictor may be absent
-            missing, unexpected = model.load_state_dict(dict(state_dict), strict=False)
-            missing = [k for k in missing if k.startswith(ENCODER_SIDE)]
-            if missing or unexpected:
-                raise KeyError(f"state_dict does not fit the model: missing {missing}, "
-                               f"unexpected {unexpected}")
+        if model is None:
+            model = JEPA(config)
+            if state_dict is None:
+                model.init_parameters(torch.Generator().manual_seed(seed))
+            else:
+                # serving needs the encoder side; the predictor may be absent
+                missing, unexpected = model.load_state_dict(dict(state_dict), strict=False)
+                missing = [k for k in missing if k.startswith(ENCODER_SIDE)]
+                if missing or unexpected:
+                    raise KeyError(f"state_dict does not fit the model: missing {missing}, "
+                                   f"unexpected {unexpected}")
         self.model = model.to(self.device).eval()
         self.sample_rate = config.sample_rate
         self.embedding_size = config.encoder_dim
