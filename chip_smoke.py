@@ -110,7 +110,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             with the probes on the card, the on-disk contract, clips/s,
             audio-s/s, peak memory and probe ms an epoch, and both CLIs in
             processes of their own on a small task. Each path: 12 flash
-            forwards an encoder forward, no other kernel.
+            forwards an encoder forward, no other kernel;
+12. arch/xares  the ARCH recipe on ESC-50 written at its size under
+            ``build/chip_smoke_arch/`` (2000 clips of 5 s, 44.1 kHz mono
+            PCM16, 50 classes, 5 folds): ``ESC50(path).evaluate`` of a
+            ``WavJEPAModel`` (seeded weights) in the linear, non-linear and
+            attention-pooling modes over all folds (each clip decoded and
+            resampled to 16 kHz on the host, embedded in batches of 32, the
+            probes on the card; epochs cut to 20, 20 and 5), the ARCH CLI in
+            a process of its own on a 48-clip layout; then X-ARES:
+            ``check_audio_encoder`` on the default and a ``fused_block``
+            runtime, the encoder's request at (4, 10 s), ``run_stub_task``,
+            ``run_task_protocol`` of ``config_esc50`` on 400 in-memory 5-s
+            clips and of ``config_fsd50k`` (multilabel, 10-s clips); the f32
+            encoder on the card against the CPU. Embeddings finite, of the
+            contract's shapes; every metric finite and in range (printed, not
+            gated: random weights); 12 flash forwards an encoder forward, the
+            fused forward on the fused check, no other kernel.
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -219,6 +235,13 @@ W2V2_STEP_MS, W2V2_STEP_REL = 20.0, 0.01
 # 2 for the event task, whose 36 train clips of 120 s are ~430k probe rows
 # (~420 steps an epoch)
 HEAR_GRID_POINTS = {"scene": 8, "event": 2}
+# phase 12 (ARCH and X-ARES): ESC-50 at its size under build/ (~880 MB of
+# 44.1-kHz PCM16, deleted at the end); the probes' epochs a mode, cut for time
+# from the CLI's 100; the in-memory X-ARES clips (train, test) a task
+ARCH_DIR = os.path.join("build", "chip_smoke_arch")
+ARCH_EPOCHS = {"linear": 20, "non-linear": 20, "attention-pooling": 5}
+XARES_CLIPS = {"esc50": (300, 100), "fsd50k": (160, 80)}
+XARES_REQUEST = (4, 10.0)  # the encoder request timed: 4 clips of 10 s
 # a run still going after this many seconds prints every thread's stack and
 # exits non-zero, inside the 1200 s a run may take
 WATCHDOG_S = 1100
@@ -233,6 +256,7 @@ ATTN_SHAPES = [
     ("large_windowed", 4, 16, 200),
     ("nat_windowed", 40, 12, 400),  # WavJEPA-Nat: 8 binaural clips, 2 × 200 tokens a window
     ("w2v2_windowed", 24, 12, 200),  # the wav2vec2 frontend: 8 clips of 10 s, 3 windows of 4.02 s
+    ("arch_windowed", 96, 12, 200),  # ARCH's ESC-50 batch: 32 clips of 5 s, 3 windows each
 ]
 HEAD_DIM = 64
 # (name, B, T, D, heads) of the fused block: the packed decoder (4 groups a
@@ -2360,6 +2384,260 @@ def phase_eval(counters: dict) -> dict:
     return record
 
 
+def phase_arch(counters: dict) -> dict:
+    """The ARCH recipe on ESC-50 at its size: every mode over the 5 folds,
+    each mode's launches counted from 0 just before its run and read just
+    after it; then the CLI in a process of its own on a 48-clip layout."""
+    import math
+    import shutil
+
+    from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
+    from wavjepa_tpu_torch.eval.arch import ESC50, WavJEPAModel, datasets, probes
+    from wavjepa_tpu_torch.eval.synthetic import write_arch_esc50
+
+    shutil.rmtree(ARCH_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    root = str(write_arch_esc50(os.path.join(ARCH_DIR, "esc50")))
+    write_s = time.perf_counter() - t0
+    model = WavJEPAModel(load_model("", seed=0))
+    rt = model.runtime
+    recipe = ESC50(root)
+    n_clips = len(recipe._all_audio_paths())
+    if (n_clips, recipe.num_classes, len(recipe.folds)) != (2000, 50, 5):
+        raise AssertionError(f"ESC-50 layout: {n_clips} clips, {recipe.num_classes} classes, "
+                             f"{len(recipe.folds)} folds")
+    print(f"[arch] ESC-50 layout: {n_clips} clips of 5 s at 44.1 kHz, 50 classes, 5 folds, "
+          f"written in {write_s:.1f} s", flush=True)
+    _, _, tokens, _ = chunk_padding(80000, rt.unit_frames, rt.sample_rate, rt.output_steps)
+    acc = {}
+    load, embed, train = datasets.load_clip, model.get_batch_embeddings, \
+        probes.ClassificationProbe.train
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t
+            acc[key + "_n"] += 1
+            return out
+        return wrapper
+
+    datasets.load_clip = timed("load", load)
+    model.get_batch_embeddings = timed("embed", embed)
+    probes.ClassificationProbe.train = timed("probe", train)
+    record = {"clips": n_clips, "write_s": write_s, "tokens_per_clip": tokens, "modes": {}}
+    try:
+        for mode, epochs in ARCH_EPOCHS.items():
+            acc.update(dict.fromkeys(("load", "load_n", "embed", "embed_n", "probe",
+                                      "probe_n"), 0))
+            for c in counters.values():  # the main path's run starts here
+                c.launches = 0
+            t0 = time.perf_counter()
+            results = recipe.evaluate(model, mode=mode, max_num_epochs=epochs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}  # read just after
+            expected = dict.fromkeys(counters, 0)
+            expected["flash_attention_fwd"] = rt.config.encoder_layers * acc["embed_n"]
+            if launches != expected:
+                raise AssertionError(f"arch {mode}: launches {launches}, expected {expected}")
+            kind = "token" if mode == "attention-pooling" else "clip"
+            embs = [v for (_, k), v in recipe._embedding_cache.items() if k == kind]
+            shape = (tokens, rt.embedding_size) if kind == "token" else (rt.embedding_size,)
+            if len(embs) != n_clips or any(e.shape != shape or not np.isfinite(e).all()
+                                           for e in embs):
+                raise AssertionError(f"arch {mode}: {len(embs)} {kind} embeddings, not "
+                                     f"{n_clips} finite ones of {shape}")
+            for k, v in results.items():
+                high = math.inf if k.startswith("loss") or k.endswith("_std") else 1.0
+                if not (np.isfinite(v) and 0.0 <= v <= high):
+                    raise AssertionError(f"arch {mode}: {k} = {v}")
+            embedded = acc["load_n"]
+            rec = {"results": results, "launches": launches, "wall_s": wall,
+                   "embed_calls": acc["embed_n"], "clips_embedded": embedded,
+                   "decode_resample_s": acc["load"], "embed_s": acc["embed"],
+                   "probe_s": acc["probe"], "epochs": epochs, "folds": acc["probe_n"],
+                   "probe_ms_per_epoch": acc["probe"] * 1e3 / (epochs * acc["probe_n"])}
+            if embedded:
+                host_s = acc["load"] + acc["embed"]
+                rec.update(clips_per_s=embedded / host_s,
+                           audio_s_per_s=embedded * 5.0 / host_s,
+                           decode_resample_share=acc["load"] / host_s)
+                print(f"[arch {mode}] embeddings: {embedded} clips in {host_s:.2f} s "
+                      f"({rec['clips_per_s']:.1f} clips/s, {rec['audio_s_per_s']:.1f} "
+                      f"audio-s/s); decode + resample {acc['load']:.2f} s, "
+                      f"{rec['decode_resample_share']:.3f} of it; {acc['embed_n']} calls, "
+                      f"{launches['flash_attention_fwd']} flash forwards", flush=True)
+            print(f"[arch {mode}] probe {rec['probe_ms_per_epoch']:.1f} ms an epoch "
+                  f"({epochs} epochs x {acc['probe_n']} folds, {acc['probe']:.2f} s); fold "
+                  f"mean (random weights, not gated): accuracy "
+                  f"{results['accuracy']:.4f} ± {results['accuracy_std']:.4f}, f1 "
+                  f"{results['f1']:.4f}; {wall:.1f} s", flush=True)
+            record["modes"][mode] = rec
+    finally:
+        datasets.load_clip, probes.ClassificationProbe.train = load, train
+    del recipe, model
+    torch.cuda.empty_cache()
+
+    # the CLI in a process of its own (start-up smoke): 12 classes x 4 clips
+    cli_root = os.path.join(ARCH_DIR, "cli")
+    write_arch_esc50(os.path.join(cli_root, "esc50"), classes=12, clips_per_class=4, folds=2,
+                     seconds=2.0)
+    tsv = os.path.join(cli_root, "results.tsv")
+    cmd = [sys.executable, "-m", "wavjepa_tpu_torch.eval.arch", "--data-dir", cli_root,
+           "--datasets", "esc50", "--mode", "linear", "--max-epochs", "2", "--tsv", tsv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    rows = open(tsv).read().splitlines() if os.path.isfile(tsv) else []
+    if proc.returncode != 0 or len(rows) != 7 or not rows[1].startswith("esc50\tlinear\t"):
+        raise AssertionError(f"arch CLI: exit {proc.returncode}, {len(rows)} TSV rows\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    record["cli"] = {"cmd": cmd[2:], "seconds": cli_s, "tsv_rows": len(rows) - 1}
+    print(f"[arch cli] exit 0 in {cli_s:.1f} s with start-up; {len(rows) - 1} TSV rows",
+          flush=True)
+    shutil.rmtree(ARCH_DIR)
+    return record
+
+
+def xares_tones(n_per_class: int, classes: int, seconds: float, seed: int,
+                multilabel: bool = False) -> list:
+    """In-memory X-ARES samples at 16 kHz: one class's tone a clip (label
+    ``class<k>``), or for ``multilabel`` one to three of ``classes`` tones
+    (``labels``), each plus noise of σ 0.01."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000
+    freqs = 100.0 * 2.0 ** (6.0 * np.arange(classes) / max(1, classes - 1))
+    out = []
+    for i in range(n_per_class * classes):
+        ks = (sorted(rng.choice(classes, int(rng.integers(1, 4)), replace=False))
+              if multilabel else [i % classes])
+        wav = sum(rng.uniform(0.2, 0.5) * np.sin(2 * np.pi * freqs[k] * t + rng.uniform(0, 6.28))
+                  for k in ks) + 0.01 * rng.standard_normal(t.size)
+        sample = {"audio": wav.astype(np.float32)}
+        sample.update({"labels": [int(k) for k in ks]} if multilabel else
+                      {"label": f"class{ks[0]:02d}"})
+        out.append(sample)
+    return out
+
+
+def phase_xares(counters: dict) -> dict:
+    """X-ARES at base width (seeded weights): the contract check, the timed
+    request, the stub task and the vendored protocol on ESC-50 and FSD50K
+    shapes, counted from 0 just before and read just after; the contract
+    check on a ``fused_block`` runtime likewise; then the f32 encoder card
+    against CPU on one batch."""
+    from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
+    from wavjepa_tpu_torch.eval.xares import WavJEPAEncoder, check_audio_encoder
+    from wavjepa_tpu_torch.eval.xares import run as xrun
+    from wavjepa_tpu_torch.eval.xares import vendored_protocol as vp
+    from wavjepa_tpu_torch.models.jepa import JEPAConfig
+
+    enc = WavJEPAEncoder()  # seeded weights (no WAVJEPA_CKPT), on the card
+    fused = WavJEPAEncoder(runtime=load_model(
+        "", config=JEPAConfig(attn_impl="fused_block", dtype=torch.bfloat16), seed=0))
+    forwards = {}
+    for name, e in (("default", enc), ("fused", fused)):
+        def counted(*args, _f=e.runtime._forward, _n=name):
+            forwards[_n] += 1
+            return _f(*args)
+        e.runtime._forward = counted
+    n_esc, n_fsd = XARES_CLIPS["esc50"], XARES_CLIPS["fsd50k"]
+    t0 = time.perf_counter()
+    esc = {"train": xares_tones(n_esc[0] // 50, 50, 5.0, 81),
+           "test": xares_tones(n_esc[1] // 50, 50, 5.0, 82)}
+    fsd = {"train": xares_tones(n_fsd[0] // 20, 20, 10.0, 83, multilabel=True),
+           "test": xares_tones(n_fsd[1] // 20, 20, 10.0, 84, multilabel=True)}
+    data_s = time.perf_counter() - t0
+    b, seconds = XARES_REQUEST
+    request = torch.from_numpy(np.stack(make_clips([seconds] * b, 85)))
+    _, _, frames, _ = chunk_padding(request.shape[1], enc.runtime.unit_frames,
+                                    enc.sampling_rate, enc.runtime.output_steps)
+    layers = enc.runtime.config.encoder_layers
+
+    forwards.update(default=0, fused=0)
+    for c in counters.values():  # the main path's run starts here
+        c.launches = 0
+    t0 = time.perf_counter()
+    check_audio_encoder(enc)
+    times = []
+    for i in range(12):
+        t = time.perf_counter()
+        out = enc(request)
+        if i >= 2:  # two warm-up requests; the output is on the host
+            times.append((time.perf_counter() - t) * 1e3)
+    stub = xrun.run_stub_task(enc)
+    esc_result = vp.run_task_protocol(vp.config_esc50(enc), esc)
+    fsd_result = vp.run_task_protocol(vp.config_fsd50k(enc), fsd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}  # read just after
+    expected = dict.fromkeys(counters, 0)
+    expected["flash_attention_fwd"] = layers * forwards["default"]
+    if launches != expected or forwards["fused"]:
+        raise AssertionError(f"xares: launches {launches}, expected {expected}")
+    if tuple(out.shape) != (b, frames, enc.output_dim) or out.device.type != "cpu":
+        raise AssertionError(f"xares request: {tuple(out.shape)} on {out.device}")
+    for name, res, key in (("stub", stub, "value"), ("esc50", esc_result, "value"),
+                           ("esc50 knn", esc_result, "knn_accuracy"),
+                           ("fsd50k", fsd_result, "value")):
+        if not (np.isfinite(res[key]) and 0.0 <= res[key] <= 1.0):
+            raise AssertionError(f"xares {name}: {res[key]}")
+    if (esc_result["n_test"], fsd_result["n_test"]) != (n_esc[1], n_fsd[1]):
+        raise AssertionError(f"xares test splits: {esc_result}, {fsd_result}")
+    record = {"launches": launches, "encoder_forwards": forwards["default"], "wall_s": wall,
+              "data_s": data_s, "request": list(XARES_REQUEST),
+              "request_p50_ms": statistics.median(times), "stub": stub, "esc50": esc_result,
+              "fsd50k": fsd_result}
+    print(f"[xares] contract checked; encoder request ({b}, {seconds} s) p50 "
+          f"{record['request_p50_ms']:.2f} ms; stub accuracy {stub['value']:.4f}; ESC-50 "
+          f"protocol ({n_esc[0]} + {n_esc[1]} clips of 5 s) accuracy {esc_result['value']:.4f}, "
+          f"kNN {esc_result['knn_accuracy']:.4f}; FSD50K protocol ({n_fsd[0]} + {n_fsd[1]} "
+          f"clips of 10 s) mAP {fsd_result['value']:.4f} (random weights, not gated); "
+          f"{forwards['default']} encoder forwards, {launches['flash_attention_fwd']} flash "
+          f"forwards in {wall:.1f} s", flush=True)
+
+    forwards["fused"] = 0
+    for c in counters.values():  # the fused path's run starts here
+        c.launches = 0
+    check_audio_encoder(fused)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}  # read just after
+    expected = dict.fromkeys(counters, 0)
+    expected["fused_attention_block_fwd"] = layers * forwards["fused"]
+    if launches != expected or not forwards["fused"]:
+        raise AssertionError(f"xares fused: launches {launches}, expected {expected}")
+    record["fused"] = {"launches": launches, "encoder_forwards": forwards["fused"]}
+    print(f"[xares fused] contract checked on a fused_block runtime: "
+          f"{launches['fused_attention_block_fwd']} fused forwards, no flash", flush=True)
+
+    # the f32 encoder on the card against the CPU, the same seed, one batch
+    cfg = JEPAConfig(dtype=torch.float32)
+    batch = torch.from_numpy(np.stack(make_clips([3.1, 3.1], 86)))
+    e_card = WavJEPAEncoder(runtime=load_model("", config=cfg, device="cuda", seed=0))(batch)
+    e_cpu = WavJEPAEncoder(runtime=load_model("", config=cfg, device="cpu", seed=0))(batch)
+    err = (e_card - e_cpu).abs().max().item()
+    if e_card.shape != e_cpu.shape or not torch.allclose(e_card, e_cpu, atol=CARD_CPU_ATOL,
+                                                         rtol=CARD_CPU_ATOL):
+        raise AssertionError(f"xares f32 encoder card vs CPU: max abs err {err}")
+    record["parity"] = {"f32_card_vs_cpu_max_abs_err": err, "shape": list(e_card.shape)}
+    print(f"[xares parity] f32 encoder card vs CPU max abs err {err:.3g} (atol "
+          f"{CARD_CPU_ATOL}), {tuple(e_card.shape)}", flush=True)
+    return record
+
+
+def phase_arch_xares(counters: dict) -> dict:
+    """Phase 12: the ARCH recipe and the X-ARES surfaces on the card."""
+    t0 = time.perf_counter()
+    record = {"arch": phase_arch(counters)}
+    record["xares"] = phase_xares(counters)
+    record["seconds"] = time.perf_counter() - t0
+    print(f"[arch/xares] phase 12 took {record['seconds']:.1f} s", flush=True)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
@@ -2474,6 +2752,8 @@ def main() -> int:
     done("denoise")
     evaluation = phase_eval(counters)
     done("eval")
+    arch_xares = phase_arch_xares(counters)
+    done("eval arch/xares")
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -2493,6 +2773,10 @@ def main() -> int:
         paths.update({"serve hf": evaluation["hf"]["launches"][kernel],
                       "serve w2v2": evaluation["w2v2"]["launches"][kernel],
                       "eval embeddings": evaluation["harness"]["launches"][kernel]})
+        paths.update({f"eval arch {mode}": r["launches"][kernel]
+                      for mode, r in arch_xares["arch"]["modes"].items()})
+        paths.update({"eval xares": arch_xares["xares"]["launches"][kernel],
+                      "eval xares fused": arch_xares["xares"]["fused"]["launches"][kernel]})
         return paths
 
     fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39", 0,
@@ -2529,7 +2813,7 @@ def main() -> int:
                    "train_fused": train_fused, "train_parity": train_parity,
                    "train_parity_fused": train_parity_fused, "data": data,
                    "train_shards": train_shards, "trace": trace, "nat": nat,
-                   "denoise": denoise, "eval": evaluation,
+                   "denoise": denoise, "eval": evaluation, "eval_arch_xares": arch_xares,
                    "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)

@@ -120,7 +120,7 @@ def _jepa_checkpoint(tmp_path):
 def test_load_teacher_takes_the_checkpoints_student_as_the_jax_package(tmp_path):
     cfg, path = _jepa_checkpoint(tmp_path)
     model_cfg = cfg.build_denoise_model_config()
-    teacher = load_teacher(path, model_cfg, seed=5)
+    teacher = load_teacher(path, model_cfg, seed=5, device="cpu")
     sd = torch.load(path, weights_only=False)["state_dict"]
     got = teacher.state_dict()
     for k, v in got.items():
@@ -141,16 +141,16 @@ def test_load_teacher_takes_the_checkpoints_student_as_the_jax_package(tmp_path)
 def test_load_teacher_seeds_what_the_file_lacks_and_refuses_a_foreign_file(tmp_path):
     cfg, _ = _jepa_checkpoint(tmp_path)
     model_cfg = cfg.build_denoise_model_config()
-    seeded = load_teacher("", model_cfg, seed=5).state_dict()
+    seeded = load_teacher("", model_cfg, seed=5, device="cpu").state_dict()
     encoder_only = {k: torch.randn_like(v) for k, v in seeded.items()
                     if k.startswith(ENCODER_SIDE)}
     torch.save({"state_dict": encoder_only}, tmp_path / "enc.ckpt")
-    teacher = load_teacher(str(tmp_path / "enc.ckpt"), model_cfg, seed=5).state_dict()
+    teacher = load_teacher(str(tmp_path / "enc.ckpt"), model_cfg, seed=5, device="cpu").state_dict()
     for k, v in teacher.items():
         torch.testing.assert_close(v, encoder_only.get(k, seeded[k]), rtol=0, atol=0, msg=k)
     torch.save({"state_dict": {"head.weight": torch.zeros(2)}}, tmp_path / "other.ckpt")
     with pytest.raises(KeyError, match="no JEPA encoder weights"):
-        load_teacher(str(tmp_path / "other.ckpt"), model_cfg, seed=5)
+        load_teacher(str(tmp_path / "other.ckpt"), model_cfg, seed=5, device="cpu")
 
 
 def _run_dir(cfg):

@@ -16,7 +16,8 @@ from wavjepa_tpu_torch.models.jepa import JEPAConfig
 # transformers imports TensorFlow where it is installed; nothing here needs it
 os.environ.setdefault("USE_TF", "0")
 PACKAGE = pathlib.Path(wavjepa_tpu_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "wavjepa_tpu")
+# the card's machine has neither scikit-learn nor pandas
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "wavjepa_tpu", "sklearn", "pandas")
 TINY = dict(conv_spec=((16, 10, 5), (16, 3, 2)), size="tiny",
             sample_rate=1600, process_seconds=0.201)
 
@@ -73,6 +74,15 @@ def test_entry_points_raise_without_cuda(no_cuda):
         hear_wavjepa.load_model("")
 
 
+def test_the_denoise_teacher_loader_defaults_to_cuda(no_cuda):
+    from wavjepa_tpu_torch.train.denoise_loop import load_teacher
+
+    cfg = JEPAConfig(**TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_teacher("", cfg, seed=0)
+    assert next(load_teacher("", cfg, seed=0, device="cpu").parameters()).device.type == "cpu"
+
+
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
     rt = trt.load_model("", config=JEPAConfig(**TINY), device="cpu")
     assert rt.device.type == "cpu"
@@ -116,3 +126,33 @@ def test_the_serving_and_eval_entry_points_raise_without_cuda(no_cuda, tmp_path)
         predictions.runner([str(tmp_path / "emb")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         predictions.task_predictions(tmp_path / "emb")
+
+
+def test_the_arch_and_xares_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    import numpy as np
+
+    from wavjepa_tpu_torch.eval import synthetic
+    from wavjepa_tpu_torch.eval.arch import (ESC50, ClassificationProbe, HFWrapperModel,
+                                             SequenceProbe, WavJEPAModel)
+    from wavjepa_tpu_torch.eval.arch.__main__ import main as arch_main
+    from wavjepa_tpu_torch.eval.xares import WavJEPAEncoder
+    from wavjepa_tpu_torch.eval.xares import run, vendored_protocol
+
+    x, y = np.ones((4, 3), np.float32), np.array([0, 1, 0, 1])
+    calls = [ClassificationProbe, SequenceProbe, WavJEPAModel.from_checkpoint,
+             HFWrapperModel.from_pretrained, WavJEPAEncoder,
+             lambda: run.main(["stub"]), lambda: run._train_probe(x, y, 2),
+             lambda: vendored_protocol.knn_classify(x, y, x),
+             lambda: vendored_protocol._train_probe_multilabel(x, np.eye(4, 2)),
+             lambda: arch_main(["--data-dir", str(tmp_path), "--datasets", "esc50"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    synthetic.write_arch_esc50(tmp_path / "esc50", 1600, classes=2, clips_per_class=5,
+                               seconds=0.25)
+    model = WavJEPAModel(trt.load_model("", config=JEPAConfig(**TINY), device="cpu"))
+    recipe = ESC50(str(tmp_path / "esc50"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recipe.evaluate(model, max_num_epochs=1)
+    result = recipe.evaluate(model, max_num_epochs=1, device="cpu")
+    assert 0.0 <= result["accuracy"] <= 1.0

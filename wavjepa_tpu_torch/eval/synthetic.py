@@ -8,7 +8,9 @@ in low noise, one in each slot of a clip, onset F-measure and 1-s segment
 error rate). Their defaults are the small tasks of the port's tests;
 ``ESC50_LAYOUT`` and ``DCASE2016_TASK2_LAYOUT`` give the clip counts, clip
 lengths, labels and splits of two public HEAR tasks, for timing the harness
-at a real task's size. The audio is synthetic in every case.
+at a real task's size. ``write_arch_esc50`` writes ESC-50 in its own
+layout, as the ARCH recipe reads it (``meta/esc50.csv`` and
+``audio/*.wav``). The audio is synthetic in every case.
 """
 
 import json
@@ -163,3 +165,44 @@ def split_files(task: Path) -> Dict[str, int]:
     metadata = json.loads((Path(task) / "task_metadata.json").read_text())
     return {s: len(json.loads((Path(task) / f"{s}.json").read_text()))
             for s in metadata["splits"]}
+
+
+def write_arch_esc50(
+    root: Path,
+    sr: int = 44100,
+    *,
+    classes: int = 50,
+    clips_per_class: int = 40,
+    folds: int = 5,
+    seconds: float = 5.0,
+    seed: int = 0,
+) -> Path:
+    """ESC-50 in the layout of its release (Piczak 2015) as the ARCH recipe
+    reads it: ``<root>/meta/esc50.csv`` (filename, fold, target, category,
+    esc10, src_file, take) and ``<root>/audio/<fold>-<src>-<take>-<target>.wav``,
+    mono 16-bit PCM at ``sr``. By default the dataset's size: 2000 clips of
+    5 s at 44.1 kHz, 50 classes of 40 clips, 5 folds of 8 clips a class.
+    A clip is its class's tone (frequencies as ``ESC50_LAYOUT``'s, amplitude
+    drawn in [0.3, 0.7]) plus noise of σ 0.01. Returns ``root``."""
+    root = Path(root)
+    (root / "meta").mkdir(parents=True, exist_ok=True)
+    (root / "audio").mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = int(sr * seconds)
+    t = np.arange(n) / sr
+    rows = ["filename,fold,target,category,esc10,src_file,take"]
+    for target in range(classes):
+        freq = 100.0 * 2.0 ** (6.0 * target / max(1, classes - 1))
+        # sin(ωt + φ) = sin(ωt)·cos(φ) + cos(ωt)·sin(φ), in f32
+        sin, cos = (f(2 * np.pi * freq * t).astype(np.float32) for f in (np.sin, np.cos))
+        for k in range(clips_per_class):
+            fold = 1 + k * folds // clips_per_class
+            src = 100000 + 100 * target + k
+            name = f"{fold}-{src}-A-{target}.wav"
+            amp, phase = rng.uniform(0.3, 0.7), rng.uniform(0, 6.28)
+            wav = np.float32(amp * np.cos(phase)) * sin + np.float32(amp * np.sin(phase)) * cos
+            _write_wav(root / "audio" / name,
+                       wav + 0.01 * rng.standard_normal(n, dtype=np.float32), sr)
+            rows.append(f"{name},{fold},{target},class{target:02d},False,{src},A")
+    (root / "meta" / "esc50.csv").write_text("\n".join(rows) + "\n")
+    return root

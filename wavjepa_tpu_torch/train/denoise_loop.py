@@ -136,13 +136,15 @@ def build_denoise_data_iterator(cfg: Config) -> Iterator[dict[str, np.ndarray]]:
 
 
 def load_teacher(ckpt_path: str, model_cfg: JEPAConfig, seed: int,
-                 device: DeviceLike = "cpu") -> JEPA:
-    """The frozen teacher on ``device``: a JEPA of ``model_cfg`` with the
+                 device: DeviceLike = None) -> JEPA:
+    """The frozen teacher on ``device`` (``cuda`` unless the caller names
+    another, raising with no CUDA device): a JEPA of ``model_cfg`` with the
     student weights of a port training checkpoint or a reference ``.ckpt``
     (its ``teacher_encoder.*`` EMA weights are dropped, as the JAX package
     takes the checkpoint's student); what the file lacks keeps its seeded
     initialisation, and with no path the whole teacher is seeded. It takes
     no gradient and is in no optimizer."""
+    dev = resolve_device(device)
     teacher = JEPA(model_cfg)
     teacher.init_parameters(torch.Generator().manual_seed(seed))
     if ckpt_path:
@@ -155,7 +157,7 @@ def load_teacher(ckpt_path: str, model_cfg: JEPAConfig, seed: int,
             raise KeyError(f"{ckpt_path} holds no JEPA encoder weights")
         teacher.load_state_dict(sd, strict=False)
     teacher.requires_grad_(False)
-    return teacher.to(device).eval()
+    return teacher.to(dev).eval()
 
 
 def denoise_optimizer_config(cfg: Config) -> DenoiseOptimizerConfig:
