@@ -126,7 +126,24 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             encoder on the card against the CPU. Embeddings finite, of the
             contract's shapes; every metric finite and in range (printed, not
             gated: random weights); 12 flash forwards an encoder forward, the
-            fused forward on the fused check, no other kernel.
+            fused forward on the fused check, no other kernel;
+13. parallel  data parallelism: (a) the train CLI on the AudioSet
+            configuration (phase 5's steps) and the denoise CLI at its
+            defaults (2 steps) under ``torch.distributed.run --standalone
+            --nproc_per_node=1`` over NCCL, as this file's worker rank
+            (``--parallel-worker torchrun_cli``) that calls each CLI's
+            ``main`` with its launches counted: exit 0, one writer's files,
+            the step p50 beside phase 5's spread (at world size 1 the step
+            issues no collective), the denoise student served by
+            ``load_model``, and the gradient all-reduce of the base model
+            (0.44 GB of f32) timed alone on that NCCL group; (b) two ranks on the
+            one card in a gloo group made here (``--parallel-worker gloo``;
+            NCCL takes one rank a card), 8 clips a step at accum 2 (phase 5's
+            accum-16 microbatch shapes a rank), 3 f32 steps, 3 bf16 steps
+            and one Nat step, against one process at the same seed: f32
+            losses and gradient norms within phase 6's limits, weights and
+            teacher bit for bit equal on both ranks, the bf16 and Nat loss
+            differences printed.
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -136,6 +153,7 @@ name and power limit, the ``kernels`` JSON line and
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import faulthandler
 import json
@@ -2638,6 +2656,322 @@ def phase_arch_xares(counters: dict) -> dict:
     return record
 
 
+# phase 13 (data parallelism): (a) both CLIs under torchrun at world size 1
+# over NCCL, and the gradient all-reduce alone at the base model's gradients;
+# (b) two ranks on the one card over gloo (NCCL takes one rank a card),
+# against one process at the same seed. The two ranks' f32 steps differ from
+# the one process's only in how the crops are grouped into microbatches and
+# in the all-reduce's order of sums, within phase 6's f32 limits (STEP_*,
+# card against CPU through 24 layers of reordered sums); their weights must
+# be equal bit for bit, every rank receiving the same sums.
+PARALLEL_DIR = os.path.join("build", "chip_smoke_parallel")
+PARALLEL_STEPS = 3  # (b)'s mono steps, f32 and bf16; and one Nat step
+PARALLEL_BATCH, PARALLEL_ACCUM = 8, 2  # 16 crops a rank's microbatch, phase 5's accum-16 shapes
+ALLREDUCE_REPS = 10
+
+
+def launch_counters() -> dict:
+    from wavjepa_tpu_torch.ops import fused_attention_block as fab
+    from wavjepa_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd,
+            "fused_attention_block_fwd": fab.fused_attention_block_fwd,
+            "fused_attention_block_bwd": fab.fused_attention_block_bwd}
+
+
+def counted_run(counters: dict, fn) -> dict:
+    """Launches of each counted wrapper in ``fn()``: set to 0 just before,
+    read just after."""
+    for counter in counters.values():
+        counter.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items()}
+
+
+def worker_torchrun_cli(out: str, train_dir: str, denoise_dir: str) -> int:
+    """Phase 13(a), one rank under torchrun: the train CLI on the AudioSet
+    configuration and the denoise CLI at its defaults, as ``python -m`` runs
+    them (their ``main``), each run's launches counted; then the gradient
+    all-reduce of the base model timed on the run's NCCL group."""
+    import torch.distributed as dist
+
+    from wavjepa_tpu_torch import denoise as denoise_cli
+    from wavjepa_tpu_torch.models.jepa import JEPA
+    from wavjepa_tpu_torch.parallel.mesh import all_reduce_gradients
+    from wavjepa_tpu_torch.train import __main__ as train_cli
+    from wavjepa_tpu_torch.train.config import Config
+
+    counters = launch_counters()
+    record = {"launches": {}}
+    common = ["data.synthetic=true", "trainer.log_every=1", "optimizer.warmup_steps=2"]
+    record["launches"]["train"] = counted_run(counters, lambda: train_cli.main(
+        [*common, f"trainer.steps={TRAIN_STEPS}", f"trainer.save_dir={train_dir}"]))
+    record["launches"]["denoise"] = counted_run(counters, lambda: denoise_cli.main(
+        [*common, f"trainer.steps={CLI_STEPS}", f"trainer.save_dir={denoise_dir}"]))
+    record["backend"], record["world"] = dist.get_backend(), dist.get_world_size()
+    record["device"] = str(torch.cuda.current_device())
+    model = JEPA(Config().build_model_config()).to("cuda")
+    params = list(model.parameters())
+    for p in params:
+        p.grad = torch.randn_like(p)
+    record["allreduce_bytes"] = sum(p.numel() * p.element_size() for p in params)
+    record["allreduce_ms"] = cuda_ms(lambda: all_reduce_gradients(params),
+                                     iters=ALLREDUCE_REPS, warmup=2)
+    with open(out, "w") as f:
+        json.dump(record, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def weights_digest(module) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_leg(items: list, steps: int) -> dict:
+    """``build_run`` on the card and ``steps`` steps from the run's own
+    synthetic data (a rank's rows in a process group), each step's generator
+    seeded from (seed, step) as ``run_loop`` seeds it: the losses, gradient
+    norms and the digests of the weights and the teacher after the steps."""
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.loop import (
+        build_data_iterator,
+        build_run,
+        prefetch_to_device,
+        run_step,
+        step_seed,
+    )
+
+    cfg = apply_overrides(Config(), ["data.synthetic=true", "optimizer.warmup_steps=2",
+                                     f"trainer.batch_size={PARALLEL_BATCH}",
+                                     f"trainer.accum_steps={PARALLEL_ACCUM}", *items])
+    dev, _, state, step_fn = build_run(cfg, device="cuda")
+    batches = prefetch_to_device(build_data_iterator(cfg), dev)
+    generator = torch.Generator(device=dev)
+    losses, norms = [], []
+    try:
+        for _ in range(steps):
+            generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
+            state, m = run_step(step_fn, state, next(batches), generator)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    finally:
+        batches.close()
+    record = {"losses": losses, "grad_norms": norms, "weights": weights_digest(state.model),
+              "teacher": weights_digest(state.teacher_encoder)}
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return record
+
+
+PARALLEL_LEGS = {"f32": (["trainer.precision=f32"], PARALLEL_STEPS),
+                 "bf16": ([], PARALLEL_STEPS),
+                 "nat": (list(NAT_OVERRIDES), 1)}
+
+
+def worker_gloo(out: str, port: int, rank: int) -> int:
+    """Phase 13(b), one of two ranks on the one card in a gloo group made
+    here: every leg of ``PARALLEL_LEGS``, their launches counted."""
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    counters = launch_counters()
+    record = {}
+    record["launches"] = counted_run(counters, lambda: record.update(
+        {name: parallel_leg(items, steps) for name, (items, steps) in PARALLEL_LEGS.items()}))
+    with open(out, "w") as f:
+        json.dump(record, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_workers(cmds: dict, timeout: float) -> None:
+    """Run each command (its output to ``PARALLEL_DIR/<name>.log``) and wait
+    for all; one that fails, or the time limit, ends the rest. Raises with
+    their output unless every one exited 0."""
+    logs = {k: os.path.join(PARALLEL_DIR, f"{k.replace(' ', '_')}.log") for k in cmds}
+    procs = {}
+    for k, cmd in cmds.items():
+        with open(logs[k], "w") as log:
+            procs[k] = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs.values()):
+        if (any(p.poll() not in (None, 0) for p in procs.values())
+                or time.monotonic() > deadline):
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+        time.sleep(0.2)
+    if any(p.returncode != 0 for p in procs.values()):
+        raise AssertionError("; ".join(
+            f"{k} exited {p.returncode}:\n{open(logs[k]).read()[-3000:]}"
+            for k, p in procs.items()))
+
+
+def run_files(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def phase_parallel(counters: dict, train: dict) -> dict:
+    """Phase 13: (a) both CLIs under ``torch.distributed.run --standalone
+    --nproc_per_node=1`` over NCCL (a process of their own): exit 0, the
+    files of one writer, the mono step p50 beside phase 5's, the denoise
+    run's student served, the all-reduce's ms, bytes and GB/s; (b) two ranks
+    on the one card over gloo against one process at the same seed: f32
+    losses and gradient norms within phase 6's limits, weights and teacher
+    bit for bit equal on both ranks, the bf16 losses' difference printed;
+    one Nat step likewise."""
+    import shutil
+    import socket
+
+    from wavjepa_tpu_torch.api.runtime import load_model
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    torch.cuda.empty_cache()
+    record = {}
+    me = os.path.abspath(__file__)
+    # (a)
+    out_a = os.path.join(PARALLEL_DIR, "torchrun_cli.json")
+    train_dir = os.path.join(PARALLEL_DIR, "train")
+    denoise_dir = os.path.join(PARALLEL_DIR, "denoise")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           me, "--parallel-worker", "torchrun_cli", out_a, train_dir, denoise_dir]
+    t0 = time.perf_counter()
+    run_workers({"torchrun": cmd}, 400)
+    with open(out_a) as f:
+        a = json.load(f)
+    a["seconds"] = time.perf_counter() - t0
+    cfg = apply_overrides(Config(), [])
+    mcfg = cfg.build_model_config()
+    enc, dec = mcfg.encoder_layers, mcfg.decoder_layers
+    # a microbatch: the student encoder, the teacher and the predictor forward
+    # and the first and last backward; the denoiser's teacher, clean and noisy
+    # student forward and the noisy one's backward (α = 0); 16 and 4
+    # microbatches at the CLIs' defaults
+    mono, accum = (2 * enc + dec, enc + dec), cfg.resolved_accum_steps()
+    expected = {"train": dict(zip(counters, (mono[0] * accum * TRAIN_STEPS,
+                                             mono[1] * accum * TRAIN_STEPS, 0, 0))),
+                "denoise": dict(zip(counters, (3 * enc * 4 * CLI_STEPS, enc * 4 * CLI_STEPS,
+                                               0, 0)))}
+    if a["launches"] != expected or a["backend"] != "nccl" or a["world"] != 1:
+        raise AssertionError(f"torchrun CLIs: launches {a['launches']} (expected {expected}), "
+                             f"backend {a['backend']}, world {a['world']}")
+    for name, d, steps in (("train", train_dir, TRAIN_STEPS), ("denoise", denoise_dir, CLI_STEPS)):
+        files = run_files(d)
+        metrics = [f for f in files if f.endswith("metrics.jsonl")]
+        ckpts = [f for f in files if f.endswith(".ckpt")]
+        events = [f for f in files if "tfevents" in f]
+        rest = set(files) - set(metrics) - set(ckpts) - set(events)
+        if (len(metrics) != 1 or len(ckpts) != 1 or not ckpts[0].endswith(f"{steps:08d}.ckpt")
+                or len(events) > 1 or {os.path.basename(f) for f in rest} != {"model_config.json"}
+                or len(rest) != 1):
+            raise AssertionError(f"torchrun {name}: files {files}")
+        with open(os.path.join(d, metrics[0])) as f:
+            lines = [json.loads(line) for line in f]
+        if [x["step"] for x in lines] != list(range(1, steps + 1)) or not all(
+                np.isfinite(x["loss"]) for x in lines):
+            raise AssertionError(f"torchrun {name}: metrics {lines}")
+        a[name] = {"files": files, "losses": [x["loss"] for x in lines],
+                   "step_ms": [x["step_time_ms"] for x in lines]}
+    times = a["train"]["step_ms"][TRAIN_WARMUP:]
+    a["train"]["step_p50_ms"] = statistics.median(times)
+    base = train["accum_auto"]
+    spread = base["step_ms"][TRAIN_WARMUP:]
+    a["train"]["phase5_step_p50_ms"] = base["step_p50_ms"]
+    a["train"]["phase5_spread_ms"] = [min(spread), max(spread)]
+    a["train"]["within_phase5_spread"] = min(spread) <= a["train"]["step_p50_ms"] <= max(spread)
+    a["allreduce_gb_per_s"] = a["allreduce_bytes"] / (a["allreduce_ms"] * 1e-3) / 1e9
+    ckpt = os.path.join(denoise_dir, [f for f in a["denoise"]["files"] if f.endswith(".ckpt")][0])
+    rt = load_model(ckpt)
+    emb = rt.get_scene_embeddings(make_clips([10.0, 4.0], 43))
+    torch.cuda.synchronize()
+    if tuple(emb.shape) != (2, rt.embedding_size) or not torch.isfinite(emb).all():
+        raise AssertionError(f"torchrun denoise: served {tuple(emb.shape)} from {ckpt}")
+    a["denoise"]["served"] = list(emb.shape)
+    del rt
+    record["torchrun"] = a
+    print(f"[parallel] torchrun --nproc_per_node=1 (NCCL, world 1): train CLI step p50 "
+          f"{a['train']['step_p50_ms']:.1f} ms beside phase 5's {base['step_p50_ms']:.1f} "
+          f"(its spread {min(spread):.1f}-{max(spread):.1f}; within: "
+          f"{a['train']['within_phase5_spread']}), losses "
+          f"{', '.join(f'{x:.5f}' for x in a['train']['losses'])}; denoise CLI losses "
+          f"{', '.join(f'{x:.5f}' for x in a['denoise']['losses'])}, its student served "
+          f"{tuple(emb.shape)}; one writer's files; the gradient all-reduce "
+          f"{a['allreduce_ms']:.3f} ms for {a['allreduce_bytes'] / 1e9:.3f} GB "
+          f"({a['allreduce_gb_per_s']:.1f} GB/s); launches {a['launches']}; "
+          f"{a['seconds']:.1f} s with start-up", flush=True)
+    shutil.rmtree(train_dir)
+    shutil.rmtree(denoise_dir)
+    # (b)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    outs = [os.path.join(PARALLEL_DIR, f"gloo_rank{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    cmds = {f"rank {r}": [sys.executable, me, "--parallel-worker", "gloo", outs[r], str(port),
+                          str(r)] for r in range(2)}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # the ranks beside one process
+        waiter = pool.submit(run_workers, cmds, 400)
+        alone = {name: parallel_leg(items, steps) for name, (items, steps) in
+                 PARALLEL_LEGS.items()}
+        waiter.result()
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    b = {"alone": alone, "ranks": ranks, "seconds": time.perf_counter() - t0}
+    per_rank = {k: (2 * PARALLEL_STEPS + 1) * PARALLEL_ACCUM * n for k, n in
+                zip(counters, (*mono, 0, 0))}
+    for r, seen in enumerate(ranks):
+        if seen["launches"] != per_rank:
+            raise AssertionError(f"gloo rank {r}: launches {seen['launches']}, "
+                                 f"expected {per_rank}")
+        for name in PARALLEL_LEGS:
+            if not all(np.isfinite(seen[name]["losses"])):
+                raise AssertionError(f"gloo rank {r} {name}: losses {seen[name]['losses']}")
+            for part in ("weights", "teacher"):
+                if seen[name][part] != ranks[0][name][part]:
+                    raise AssertionError(f"gloo {name}: rank {r}'s {part} differ from rank 0's")
+    f32 = alone["f32"]
+    loss_rel = max(abs(x - y) / abs(y) for seen in ranks
+                   for x, y in zip(seen["f32"]["losses"], f32["losses"]))
+    gn_rel = max(abs(x - y) / abs(y) for seen in ranks
+                 for x, y in zip(seen["f32"]["grad_norms"], f32["grad_norms"]))
+    if not (loss_rel <= STEP_LOSS_REL and gn_rel <= STEP_GRAD_NORM_REL):
+        raise AssertionError(f"gloo f32, two ranks vs one process: loss rel {loss_rel} (limit "
+                             f"{STEP_LOSS_REL}), grad_norm rel {gn_rel} (limit "
+                             f"{STEP_GRAD_NORM_REL})")
+    b["f32_loss_rel"], b["f32_grad_norm_rel"] = loss_rel, gn_rel
+    for name in ("bf16", "nat"):
+        b[f"{name}_loss_rel"] = max(abs(x - y) / abs(y) for x, y in
+                                    zip(ranks[0][name]["losses"], alone[name]["losses"]))
+    b["launches"] = {k: sum(seen["launches"][k] for seen in ranks) for k in counters}
+    record["gloo"] = b
+    print(f"[parallel] two ranks on one card (gloo), {PARALLEL_BATCH} clips a step, accum "
+          f"{PARALLEL_ACCUM} (16 crops a rank's microbatch), against one process: f32 losses "
+          f"{', '.join(f'{x:.6f}' for x in ranks[0]['f32']['losses'])} vs "
+          f"{', '.join(f'{x:.6f}' for x in f32['losses'])} (max rel {loss_rel:.3g}, limit "
+          f"{STEP_LOSS_REL}), grad_norm max rel {gn_rel:.3g} (limit {STEP_GRAD_NORM_REL}); "
+          f"weights and teacher bit for bit equal on both ranks; bf16 loss max rel "
+          f"{b['bf16_loss_rel']:.3g}, Nat step loss rel {b['nat_loss_rel']:.3g} (not gated); "
+          f"launches {b['launches']}; {b['seconds']:.1f} s", flush=True)
+    shutil.rmtree(PARALLEL_DIR)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
@@ -2647,11 +2981,7 @@ def main() -> int:
     from wavjepa_tpu_torch.models.jepa import JEPAConfig
     from wavjepa_tpu_torch.ops import _build
     from wavjepa_tpu_torch.ops import fused_attention_block as fab
-    from wavjepa_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_bwd,
-        flash_attention_fwd,
-    )
+    from wavjepa_tpu_torch.ops.flash_attention import flash_attention, flash_attention_fwd
 
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     # f32 comparisons hold the maths in full f32: no TF32 in cuDNN or cuBLAS
@@ -2696,10 +3026,7 @@ def main() -> int:
     del served, fused_requests
     parity = phase_parity(load_model, JEPAConfig, bf16_runtime)
     done("serve, parity")
-    counters = {"flash_attention_fwd": flash_attention_fwd,
-                "flash_attention_bwd": flash_attention_bwd,
-                "fused_attention_block_fwd": fab.fused_attention_block_fwd,
-                "fused_attention_block_bwd": fab.fused_attention_block_bwd}
+    counters = launch_counters()
     # launches a microbatch: 12 layers each of the student encoder, the
     # teacher and the predictor forward, the student encoder and the
     # predictor backward
@@ -2754,6 +3081,8 @@ def main() -> int:
     done("eval")
     arch_xares = phase_arch_xares(counters)
     done("eval arch/xares")
+    parallel = phase_parallel(counters, train)
+    done("parallel")
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -2777,6 +3106,9 @@ def main() -> int:
                       for mode, r in arch_xares["arch"]["modes"].items()})
         paths.update({"eval xares": arch_xares["xares"]["launches"][kernel],
                       "eval xares fused": arch_xares["xares"]["fused"]["launches"][kernel]})
+        paths.update({f"parallel torchrun {name}": n[kernel]
+                      for name, n in parallel["torchrun"]["launches"].items()})
+        paths["parallel gloo 2 ranks"] = parallel["gloo"]["launches"][kernel]
         return paths
 
     fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39", 0,
@@ -2814,6 +3146,7 @@ def main() -> int:
                    "train_parity_fused": train_parity_fused, "data": data,
                    "train_shards": train_shards, "trace": trace, "nat": nat,
                    "denoise": denoise, "eval": evaluation, "eval_arch_xares": arch_xares,
+                   "parallel": parallel,
                    "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)
@@ -2825,4 +3158,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:3] == ["--parallel-worker", "torchrun_cli"]:  # phase 13(a)'s rank
+        sys.exit(worker_torchrun_cli(*sys.argv[3:]))
+    if sys.argv[1:3] == ["--parallel-worker", "gloo"]:  # one of phase 13(b)'s ranks
+        out, port, rank = sys.argv[3:]
+        sys.exit(worker_gloo(out, int(port), int(rank)))
     sys.exit(main())

@@ -68,7 +68,10 @@ def test_denoise_model_config_resolves_as_the_jax_package(overrides):
 
 def test_denoise_model_config_refuses_multi_device_settings():
     cfg = tcfg.apply_overrides(tcfg.Config(), ["trainer.num_devices=2"])
-    with pytest.raises(NotImplementedError, match="trainer.num_devices"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=2"):
+        cfg.build_denoise_model_config()  # no process group of two
+    cfg = tcfg.apply_overrides(tcfg.Config(), ["trainer.model_parallel=2"])
+    with pytest.raises(NotImplementedError, match="trainer.model_parallel"):
         cfg.build_denoise_model_config()
 
 

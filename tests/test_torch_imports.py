@@ -52,6 +52,14 @@ def test_the_denoise_modules_are_among_the_files_checked():
         assert not {n.split(".")[0] for n in _imported(tree)} & set(FORBIDDEN), name
 
 
+def test_the_parallel_modules_are_among_the_files_checked():
+    checked = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    for name in ("parallel/__init__.py", "parallel/mesh.py"):
+        assert name in checked, name
+        tree = ast.parse((PACKAGE / name).read_text())
+        assert not {n.split(".")[0] for n in _imported(tree)} & set(FORBIDDEN), name
+
+
 def test_ast_walk_catches_a_forbidden_import():
     tree = ast.parse("def f():\n    from wavjepa_tpu.ops import pos_embed\n    import jax.numpy\n")
     assert [n.split(".")[0] for n in _imported(tree)] == ["wavjepa_tpu", "jax"]

@@ -82,10 +82,14 @@ def test_bad_overrides_raise_like_the_jax_package():
     with pytest.raises(ValueError, match="pack_tokens"):
         tcfg.apply_overrides(tcfg.Config(), ["trainer.pack_tokens=yes"]).packing_bounds(200)
     # the denoiser's configuration resolves since the denoiser has a port; a
-    # setting the port cannot honour still raises
+    # setting this process cannot honour still raises: two data-parallel
+    # ranks with no process group of two, tensor parallelism
     assert tcfg.Config().build_denoise_model_config().pack_encoder is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=2"):
         tcfg.apply_overrides(tcfg.Config(), ["trainer.num_devices=2"]).build_denoise_model_config()
+    with pytest.raises(NotImplementedError):
+        tcfg.apply_overrides(tcfg.Config(),
+                             ["trainer.model_parallel=2"]).build_denoise_model_config()
 
 
 def test_the_masker_builds_the_ports_maskers():

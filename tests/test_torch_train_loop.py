@@ -222,14 +222,21 @@ def test_the_shard_source_stops_when_the_loop_returns_or_raises(tmp_path, monkey
     assert len(built) == 2 and built[1].source.alive() == 0
 
 
-@pytest.mark.parametrize("setting", ["trainer.model_parallel=2", "trainer.num_devices=2"])
+# tensor parallelism has no port; two data-parallel ranks need a process
+# group of two, which a process not launched by torchrun does not join
+REFUSED = {"trainer.model_parallel=2": (NotImplementedError, "trainer.model_parallel=2"),
+           "trainer.num_devices=2": (RuntimeError, "torchrun --nproc_per_node=2")}
+
+
+@pytest.mark.parametrize("setting", list(REFUSED))
 def test_multi_device_settings_raise(tmp_path, setting):
+    error, said = REFUSED[setting]
     cfg = _cfg(tmp_path, setting)
-    with pytest.raises(NotImplementedError, match=setting.split("=")[0]):
+    with pytest.raises(error, match=said):
         cfg.build_model_config()
-    with pytest.raises(NotImplementedError, match=setting.split("=")[0]):
+    with pytest.raises(error, match=said):
         train_jepa(cfg, max_steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match=setting.split("=")[0]):
+    with pytest.raises(error, match=said):
         cli.main([*TINY_RUN, setting, f"trainer.save_dir={tmp_path}", "--device", "cpu"])
     assert not (tmp_path / "Data=AudioSet").exists()  # refused before any run directory
 
@@ -240,4 +247,5 @@ def test_all_visible_devices_train_on_one_and_say_so(tmp_path, monkeypatch, caps
     for setting, said in (("trainer.num_devices=0", True), ("trainer.num_devices=1", False)):
         train_jepa(_cfg(tmp_path / setting, setting), max_steps=1, device="cpu")
         out = capsys.readouterr().out
-        assert ("2 CUDA devices are visible, and the port trains on one of them" in out) is said
+        assert ("2 CUDA devices are visible, and this process trains on one of them (cpu); "
+                "launch it with torchrun --nproc_per_node=2 to train on all" in out) is said

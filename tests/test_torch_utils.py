@@ -46,6 +46,17 @@ def test_step_flops_equal_the_jax_packages(name):
         assert got > flops.jepa_step_flops(tcfg.Config().build_model_config(), crops)
 
 
+def test_mfu_and_throughput_are_per_card_over_data_parallel_ranks():
+    # a step of 989 TFLOP over 4 cards in 1 s uses a quarter of each card
+    assert flops.mfu(989e12, 1.0, n_cards=4) == pytest.approx(0.25)
+    t = metrics.Throughput(clips_per_step=32, crops_per_step=256, n_cards=4)
+    t.step()
+    rates = t.rates()
+    assert rates["clips_per_sec_per_card"] == pytest.approx(rates["clips_per_sec"] / 4)
+    assert rates["crops_per_sec_per_card"] == pytest.approx(rates["crops_per_sec"] / 4)
+    assert rates["crops_per_sec"] == pytest.approx(8 * rates["clips_per_sec"])
+
+
 def test_mfu_uses_the_h100_bf16_peak():
     assert flops.H100_BF16_PEAK_FLOPS == 989e12
     assert flops.mfu(989e12, 2.0) == pytest.approx(0.5)

@@ -299,13 +299,24 @@ def process_group() -> tuple[int, int]:
     return 0, 1
 
 
+def rank_batch_size(batch_size: int, world: int) -> int:
+    """A rank's share of the global batch of ``batch_size`` clips; raises
+    where ``world`` ranks do not divide it."""
+    if batch_size % world:
+        raise ValueError(f"trainer.batch_size={batch_size} does not split over {world} "
+                         f"data-parallel ranks")
+    return batch_size // world
+
+
 def audio_shard_batches(cfg) -> ShardBatches:
     """The configured input pipeline, started: (B, 1, sr·10) batches, f32
     or int16 (``data.transfer_dtype``), from ``data.num_workers`` worker
     processes, or from one thread of this process at ``num_workers=0`` (as
     torch's DataLoader loads in-process at 0). Shards are striped over the
-    ranks of the torch.distributed process group when one is initialised."""
+    ranks of the torch.distributed process group when one is initialised,
+    and each rank batches its share of ``trainer.batch_size``."""
     host_id, num_hosts = process_group()
+    batch = rank_batch_size(cfg.trainer.batch_size, num_hosts)
     source = ShardAudioSource(
         cfg.data.data_dirs,
         target_sr=cfg.data.sr,
@@ -318,6 +329,6 @@ def audio_shard_batches(cfg) -> ShardBatches:
         backend="process" if cfg.data.num_workers > 0 else "thread",
         transfer_dtype=cfg.data.transfer_dtype,
     ).start()
-    return ShardBatches(source, shuffled_batches(iter(source), cfg.trainer.batch_size,
+    return ShardBatches(source, shuffled_batches(iter(source), batch,
                                                  shuffle_buffer=cfg.data.shuffle_buffer,
                                                  seed=cfg.trainer.seed))

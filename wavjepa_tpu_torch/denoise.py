@@ -15,7 +15,13 @@ min(5000, steps), total = steps. From shards:
         "data.rir_dir=/data/rirs-{000..009}.tar" "data.noise_dir=/data/wham-{000..019}.tar"
 
 and from synthetic scene batches when ``data.synthetic=true`` or
-``data.data_dirs`` is empty. A smoke run of the tiny model on the CPU:
+``data.data_dirs`` is empty. Data-parallel on all 8 cards of a host
+(``trainer.batch_size`` is the global batch; gloo ranks on the CPU with
+``--device cpu``):
+
+    torchrun --standalone --nproc_per_node=8 -m wavjepa_tpu_torch.denoise teacher_ckpt=...
+
+A smoke run of the tiny model on the CPU:
 
     python -m wavjepa_tpu_torch.denoise data.synthetic=true trainer.size=tiny \\
         trainer.steps=2 trainer.batch_size=1 data.samples_per_audio=2 \\

@@ -8,6 +8,8 @@ so a test can feed the same crops to both packages.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -42,12 +44,14 @@ def crops_at(audio: torch.Tensor, starts: torch.Tensor, crop_len: int) -> torch.
 
 
 def random_starts(generator: torch.Generator, audio: torch.Tensor, crop_len: int,
-                  n_crops: int) -> torch.Tensor:
-    """(B, n_crops) crop starts, uniform over [0, L − crop_len], on
-    ``audio``'s device."""
+                  n_crops: int, n_clips: Optional[int] = None) -> torch.Tensor:
+    """(n_clips, n_crops) crop starts, uniform over [0, L − crop_len], on
+    ``audio``'s device; ``n_clips`` is ``audio``'s batch unless given (a
+    data-parallel step draws for the global batch, of which ``audio`` holds
+    a rank's rows)."""
     b, _, length = audio.shape
-    return torch.randint(0, length - crop_len + 1, (b, n_crops), generator=generator,
-                         device=generator.device).to(audio.device)
+    return torch.randint(0, length - crop_len + 1, (n_clips or b, n_crops),
+                         generator=generator, device=generator.device).to(audio.device)
 
 
 def random_crops(generator: torch.Generator, audio: torch.Tensor, crop_len: int,

@@ -10,7 +10,13 @@ decoded by ``data.num_workers`` spawned worker processes:
         "data.data_dirs=/data/audioset/train-{000000..000999}.tar"
 
 and synthetic clips when ``data.synthetic=true`` or ``data.data_dirs`` is
-empty. A smoke run of the tiny model on the CPU:
+empty. On all 8 cards of a host, data-parallel (``trainer.batch_size`` is
+the global batch; gloo ranks on the CPU with ``--device cpu``):
+
+    torchrun --standalone --nproc_per_node=8 -m wavjepa_tpu_torch.train \\
+        configs/audioset.yaml "data.data_dirs=..."
+
+A smoke run of the tiny model on the CPU:
 
     python -m wavjepa_tpu_torch.train data.synthetic=true trainer.size=tiny \\
         trainer.steps=2 trainer.batch_size=1 data.samples_per_audio=2 \\

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from wavjepa_tpu_torch.models.jepa import JEPAConfig, jepa_config_from_dict, jepa_config_to_dict
+from wavjepa_tpu_torch.parallel.mesh import barrier, process_group
 
 MODEL_CONFIG_NAME = "model_config.json"
 _CKPT = re.compile(r"step_(\d+)\.ckpt$")
@@ -37,15 +38,21 @@ _CKPT = re.compile(r"step_(\d+)\.ckpt$")
 
 class CheckpointManager:
     """Saves every ``every`` steps (or when forced) and keeps the newest
-    ``keep`` files (0 = all)."""
+    ``keep`` files (0 = all). In a torch.distributed process group rank 0
+    alone writes, and every rank waits at each save until the file is
+    there, so that all of them read the same directory."""
 
     def __init__(self, directory: "str | Path", keep: int = 0, every: int = 1):
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.writer = process_group()[0] == 0
+        if self.writer:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.every = max(1, every)
 
     def steps(self) -> list[int]:
+        if not self.directory.is_dir():
+            return []
         return sorted(int(m.group(1)) for p in self.directory.iterdir()
                       if (m := _CKPT.search(p.name)))
 
@@ -59,14 +66,16 @@ class CheckpointManager:
     def save(self, step: int, state, force: bool = False) -> bool:
         if not force and step % self.every:
             return False
-        blob = {"state_dict": {k: v.detach().cpu() for k, v in state.weights().items()},
-                "optimizer": state.optimizer.state_dict(), "step": state.step}
-        tmp = self.path(step).with_suffix(".tmp")
-        torch.save(blob, tmp)
-        os.replace(tmp, self.path(step))  # a reader never sees half a file
-        if self.keep:
-            for old in self.steps()[:-self.keep]:
-                self.path(old).unlink()
+        if self.writer:
+            blob = {"state_dict": {k: v.detach().cpu() for k, v in state.weights().items()},
+                    "optimizer": state.optimizer.state_dict(), "step": state.step}
+            tmp = self.path(step).with_suffix(".tmp")
+            torch.save(blob, tmp)
+            os.replace(tmp, self.path(step))  # a reader never sees half a file
+            if self.keep:
+                for old in self.steps()[:-self.keep]:
+                    self.path(old).unlink()
+        barrier()
         return True
 
     def restore(self, state, step: Optional[int] = None):

@@ -22,6 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from wavjepa_tpu_torch.data.pipeline import process_group, rank_batch_size
 from wavjepa_tpu_torch.masking import (
     SpeechMaskConfig,
     TimeInverseMaskConfig,
@@ -116,13 +117,12 @@ class MaskerConfig:
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 375_000
-    batch_size: int = 32  # clips per step
+    batch_size: int = 32  # clips per step, over all data-parallel ranks
     precision: str = "bf16"  # "bf16" | "f32"
     size: str = "base"  # "base" | "large"
     average_top_k_layers: int = 8
-    # devices: the port trains on one (0 = all visible, of which it takes
-    # one); more, or tensor parallelism, raise until data parallelism is
-    # ported (check_devices)
+    # data-parallel ranks: 0 = as many as the launch started (torchrun), or
+    # exactly that many (check_devices); tensor parallelism raises
     num_devices: int = 0
     model_parallel: int = 1
     # recomputation flags, kept so that configurations round-trip; the port
@@ -238,18 +238,32 @@ class Config:
                     return cand
         return 1
 
-    def check_devices(self) -> None:
-        """Raise on multi-device settings, which the port cannot honour yet:
-        a run that asked for them must not train on one device unawares."""
+    def check_devices(self, accum_steps: int) -> None:
+        """Raise on device settings this process cannot honour. The
+        data-parallel world size is that of the torch.distributed process
+        group this process belongs to (1 without one):
+        ``trainer.num_devices`` is 0 (whatever the launch gave) or must equal
+        it, so that a run that asked for several cards never trains on one
+        unawares; tensor parallelism raises, having no port yet.
+        ``trainer.batch_size`` is the global batch: over several ranks it
+        must split into equal shares, each of whose crops split into
+        ``accum_steps`` microbatches."""
         tr = self.trainer
         if tr.model_parallel != 1:
             raise NotImplementedError(
                 f"trainer.model_parallel={tr.model_parallel}: tensor parallelism has no port "
-                f"yet; the port trains on one device (set trainer.model_parallel=1)")
-        if tr.num_devices > 1:
-            raise NotImplementedError(
-                f"trainer.num_devices={tr.num_devices}: data parallelism has no port yet; "
-                f"the port trains on one device (set trainer.num_devices=1 or 0)")
+                f"yet (set trainer.model_parallel=1)")
+        _, world = process_group()
+        if tr.num_devices not in (0, world):
+            raise RuntimeError(
+                f"trainer.num_devices={tr.num_devices}, but this process is one of {world} "
+                f"data-parallel rank(s): launch the run with torchrun "
+                f"--nproc_per_node={tr.num_devices}, or set trainer.num_devices=0")
+        if world > 1:
+            crops = rank_batch_size(tr.batch_size, world) * self.data.samples_per_audio
+            if crops % accum_steps:
+                raise ValueError(f"a rank's {crops} crops do not split into {accum_steps} "
+                                 f"microbatches (trainer.accum_steps)")
 
     def resolved_denoise_accum_steps(self) -> int:
         """The denoise step's microbatches: trainer.accum_steps, with 0 =
@@ -273,8 +287,8 @@ class Config:
         explicit recomputation flags and the attention choices come from the
         trainer, as the JAX package resolves them (the port does no
         recomputation yet: the flags only round-trip). Raises on
-        multi-device settings (``check_devices``)."""
-        self.check_devices()
+        device settings this process cannot honour (``check_devices``)."""
+        self.check_devices(self.resolved_denoise_accum_steps())
         cfg = self._base_model_config()
         tr = self.trainer
         if self.resolved_denoise_accum_steps() > 1 and "trainer.remat" not in self.explicit_keys:
@@ -291,9 +305,9 @@ class Config:
 
     def build_model_config(self) -> JEPAConfig:
         """The JEPAConfig of this run, with packing and the recomputation
-        flags resolved as the JAX package resolves them. Raises on
-        multi-device settings (``check_devices``)."""
-        self.check_devices()
+        flags resolved as the JAX package resolves them. Raises on device
+        settings this process cannot honour (``check_devices``)."""
+        self.check_devices(self.resolved_accum_steps())
         cfg = self._base_model_config()
         pe, pd = self.packing_bounds(cfg.total_patches)
         if pe is not None:

@@ -16,6 +16,11 @@ The batch builders (``synthetic_denoise_batches``,
 ``effective_scene_flags``, ``build_denoise_data_iterator``) take the scene
 length and the RIR length from the scene rate (``NatSceneConfig``, 32 kHz),
 the run's ``data.target_seconds`` (10 s) and 2-s RIRs.
+
+Under torchrun both runs are data-parallel as ``train/loop.py`` says: every
+rank loads the teacher, the student starts from rank 0's, and each rank is
+given its rows of the global synthetic batch or batches its share from its
+own shards, with a scene bank of its own.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from wavjepa_tpu_torch.api.convert import load_torch_checkpoint, unwrap_state_dict
 from wavjepa_tpu_torch.api.runtime import DeviceLike, resolve_device
-from wavjepa_tpu_torch.data.pipeline import ShardBatches, process_group
+from wavjepa_tpu_torch.data.pipeline import ShardBatches, process_group, rank_batch_size
 from wavjepa_tpu_torch.models.denoiser import DenoiserConfig, student_from_jepa
 from wavjepa_tpu_torch.models.jepa import ENCODER_SIDE, JEPA, JEPAConfig
 from wavjepa_tpu_torch.train.config import Config
@@ -38,7 +43,8 @@ from wavjepa_tpu_torch.train.denoise_step import (
     make_denoise_optimizer,
     make_denoise_train_step,
 )
-from wavjepa_tpu_torch.train.loop import open_run, run_loop
+from wavjepa_tpu_torch.parallel.mesh import replicated, shard_batch
+from wavjepa_tpu_torch.train.loop import join_run, open_run, run_loop
 from wavjepa_tpu_torch.train.state import TEACHER_PREFIX
 from wavjepa_tpu_torch.train.step import NatSceneConfig
 
@@ -97,11 +103,13 @@ def build_denoise_data_iterator(cfg: Config) -> Iterator[dict[str, np.ndarray]]:
     ``.source.scene_bank()`` is the host bank (None unless
     ``data.rir_bank_size`` or ``data.noise_bank_size`` is above 0), which
     the train loop sends to the device once. The JAX package returns the
-    bank beside the batches instead."""
+    bank beside the batches instead. A data-parallel rank is given its rows
+    of each global synthetic batch, or batches its share of
+    ``trainer.batch_size`` from its own shards."""
     sr = NatSceneConfig().original_sr
     with_rir, with_noise = effective_scene_flags(cfg)
     if cfg.data.synthetic or not cfg.data.data_dirs:
-        return synthetic_denoise_batches(
+        return map(shard_batch, synthetic_denoise_batches(
             cfg.trainer.batch_size,
             scene_len=int(sr * cfg.data.target_seconds),
             rir_len=int(sr * RIR_SECONDS),
@@ -109,10 +117,11 @@ def build_denoise_data_iterator(cfg: Config) -> Iterator[dict[str, np.ndarray]]:
             with_noise=with_noise,
             n_channels=cfg.data.in_channels if cfg.data.nat_scenes else 1,
             seed=cfg.trainer.seed,
-        )
+        ))
     from wavjepa_tpu_torch.data.denoise_pipeline import DenoiseSampleSource, denoise_batches
 
     host_id, num_hosts = process_group()
+    batch = rank_batch_size(cfg.trainer.batch_size, num_hosts)
     source = DenoiseSampleSource(
         cfg.data.data_dirs,
         rir_pattern=cfg.data.rir_dir if with_rir else None,
@@ -130,7 +139,7 @@ def build_denoise_data_iterator(cfg: Config) -> Iterator[dict[str, np.ndarray]]:
         rir_bank_size=cfg.data.rir_bank_size if with_rir else 0,
         noise_bank_size=cfg.data.noise_bank_size if with_noise else 0,
     )
-    batches = denoise_batches(source, cfg.trainer.batch_size,
+    batches = denoise_batches(source, batch,
                               refresh_rirs_per_batch=cfg.data.rir_refresh_per_batch)
     return ShardBatches(source, batches)
 
@@ -184,10 +193,11 @@ def build_denoise_run(cfg: Config, device: DeviceLike = None):
     """(device, model configuration, fresh DenoiseTrainState, step function)
     of a denoise run, as ``train_denoiser`` builds them before it restores a
     checkpoint. The step function is ``step_fn(state, batch, generator,
-    rir_bank)``, the run's teacher (``load_teacher``) bound in."""
+    rir_bank)``, the run's teacher (``load_teacher``) bound in. In a
+    process group the teacher, and so the student, are rank 0's."""
+    dev = join_run(cfg, device)
     model_cfg = cfg.build_denoise_model_config()  # raises on settings the port lacks
-    dev = resolve_device(device)
-    teacher = load_teacher(cfg.teacher_ckpt, model_cfg, cfg.trainer.seed, dev)
+    teacher = replicated(load_teacher(cfg.teacher_ckpt, model_cfg, cfg.trainer.seed, dev))
     student = student_from_jepa(teacher)
     opt_cfg = denoise_optimizer_config(cfg)
     state = DenoiseTrainState(student, make_denoise_optimizer(opt_cfg, student))
@@ -212,7 +222,8 @@ def train_denoiser(
     device: DeviceLike = None,
 ) -> DenoiseTrainState:
     """Run (or resume) denoise distillation on ``device`` (cuda unless told
-    otherwise; raises without CUDA). The teacher comes from
+    otherwise; raises without CUDA), as one rank of a data-parallel run when
+    launched under torchrun. The teacher comes from
     ``cfg.teacher_ckpt`` (``load_teacher``), the student is its encoder
     path's copy. Without ``data_iter`` the batches come from
     ``build_denoise_data_iterator``, and a shard pipeline built here is

@@ -21,6 +21,12 @@ run, and ``loss_clean`` is 0.
 
 ``DenoiseTrainStep.step_on`` runs the step from given crops: torch cannot
 reproduce ``jax.random``, so the tests feed both packages the same crops.
+
+In a torch.distributed process group each rank is given its rows of the
+global scene batch, draws the crop starts for the global batch and takes
+its rows (as ``train/step.py``), and sums its gradients and loss terms with
+the other ranks' once a step; divided by the world size they are the mean
+of the ranks' equal microbatch means, the JAX package's global mean.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from wavjepa_tpu_torch.models.denoiser import (
 from wavjepa_tpu_torch.models.jepa import JEPA
 from wavjepa_tpu_torch.ops.audio import crops_at, instance_normalize, random_starts, wire_to_f32
 from wavjepa_tpu_torch.ops.resample import resample_torch
+from wavjepa_tpu_torch.parallel.mesh import all_reduce_gradients, process_group, shard_batch
 from wavjepa_tpu_torch.train.schedule import warmup_cosine_schedule
 from wavjepa_tpu_torch.train.step import (
     NatSceneConfig,
@@ -107,16 +114,18 @@ class DenoiseTrainStep:
         return self.step_on(state, teacher, crops_clean, crops_noisy)
 
     def prepare(self, batch: dict, generator: torch.Generator, rir_bank=None):
-        """A scene batch → (clean crops, noisy crops), each (B·n, 1, crop)
-        in the compute dtype, cut at the same offsets, drawn from
-        ``generator``."""
+        """A scene batch (this rank's rows of the global batch) → (clean
+        crops, noisy crops), each (B·n, 1, crop) in the compute dtype, cut at
+        the same offsets, drawn from ``generator`` for the global batch."""
         jcfg = self.cfg.jepa
         noisy = build_scenes(self.scene_cfg, jcfg.sample_rate, batch, rir_bank)
         clean = wire_to_f32(batch["audio"])[:, None, :]
         if self.cfg.original_sr != jcfg.sample_rate:
             clean = resample_torch(clean, self.cfg.original_sr, jcfg.sample_rate)
-        starts = random_starts(generator, noisy, jcfg.target_length,
-                               self.cfg.nr_samples_per_audio)
+        _, world = process_group()
+        starts = shard_batch(random_starts(generator, noisy, jcfg.target_length,
+                                           self.cfg.nr_samples_per_audio,
+                                           n_clips=noisy.shape[0] * world))
         views = []
         for audio in (clean, noisy):
             crops = instance_normalize(crops_at(audio, starts, jcfg.target_length))
@@ -162,8 +171,13 @@ class DenoiseTrainStep:
             l_mb.backward()
             loss = loss + l_mb.detach()
             parts = {k: parts.get(k, 0.0) + v.detach() for k, v in p_mb.items()}
-        if a > 1:  # the mean of equal microbatch means, as the JAX package
-            inv = 1.0 / a
+        n_means, world = a, process_group()[1]
+        if world > 1:  # every rank's microbatch means
+            loss, *sums = all_reduce_gradients(params, loss, *parts.values())
+            parts = dict(zip(parts, sums))
+            n_means *= world
+        if n_means > 1:  # the mean of equal microbatch means, as the JAX package
+            inv = 1.0 / n_means
             for p in params:
                 if p.grad is not None:
                     p.grad.mul_(inv)

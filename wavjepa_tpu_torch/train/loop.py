@@ -3,12 +3,19 @@ threaded host-to-device prefetch, checkpoints and metrics. The loop itself
 (``open_run``, ``run_loop``, ``run_step``) also runs denoise distillation
 (``train/denoise_loop.py``).
 
-Counterpart of ``wavjepa_tpu/train/loop.py`` on one device. Every step
-draws its crops and masks from a generator on the device seeded from
-(seed, step), so a step depends on the run's seed and its index only, as
-the JAX package folds the step into its key; resuming from a checkpoint
-therefore repeats the steps an uninterrupted run would have taken, on the
-synthetic source. The shard source (``data.data_dirs``) is a shuffled
+Counterpart of ``wavjepa_tpu/train/loop.py``. Every step draws its crops
+and masks from a generator on the device seeded from (seed, step), so a
+step depends on the run's seed and its index only, as the JAX package folds
+the step into its key; resuming from a checkpoint therefore repeats the
+steps an uninterrupted run would have taken, on the synthetic source.
+
+Under torchrun (``parallel/mesh.py``) each process is a data-parallel rank
+on ``cuda:LOCAL_RANK`` (gloo ranks on the CPU with ``--device cpu``):
+``trainer.batch_size`` is the global batch, of which each rank takes its
+rows (the synthetic source's) or batches its share (a shard pipeline, its
+shards striped over the ranks); the initial weights are rank 0's; rank 0
+alone writes ``model_config.json``, the metrics and the checkpoints, and
+every rank waits for each checkpoint and restores from the same file. The shard source (``data.data_dirs``) is a shuffled
 stream with no position: a resumed run starts it afresh and does not skip
 the batches it has already taken, as in the JAX package.
 
@@ -18,7 +25,8 @@ scenes. From shards with device banks, the host bank goes to the device
 once, and each batch's ``rir_bank_refresh`` is written into it after the
 step that consumed the batch (``run_step``): the JAX package writes it
 before, so a clip drawn for a slot that its own batch refreshes reads the
-new row with the old row's noise placement.
+new row with the old row's noise placement. Each rank's bank is its own,
+drawn from its own shards, and its batches index it.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wavjepa_tpu_torch.api.runtime import DeviceLike, resolve_device
 from wavjepa_tpu_torch.data.denoise_pipeline import DenoiseSampleSource
@@ -38,6 +47,12 @@ from wavjepa_tpu_torch.data.pipeline import ShardBatches, audio_shard_batches
 from wavjepa_tpu_torch.data.synthetic import synthetic_audio_batches
 from wavjepa_tpu_torch.models.jepa import JEPA
 from wavjepa_tpu_torch.ops.scenes import update_rir_bank
+from wavjepa_tpu_torch.parallel.mesh import (
+    initialize_multihost,
+    process_group,
+    replicated,
+    shard_batch,
+)
 from wavjepa_tpu_torch.train.checkpoint import CheckpointManager, write_model_config
 from wavjepa_tpu_torch.train.config import Config
 from wavjepa_tpu_torch.train.state import TrainState
@@ -50,17 +65,18 @@ def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator:
     ``data.synthetic`` is set or ``data.data_dirs`` is empty, else the shard
     pipeline, started (``data/pipeline.py``; it has no position, so
     ``start_step`` does not apply; ``stop()`` stops its workers). With
-    ``data.nat_scenes``, scene batches (``build_denoise_data_iterator``)."""
+    ``data.nat_scenes``, scene batches (``build_denoise_data_iterator``).
+    Each data-parallel rank is given its rows of the global batch."""
     if cfg.data.nat_scenes:
         from wavjepa_tpu_torch.train.denoise_loop import build_denoise_data_iterator
 
         return build_denoise_data_iterator(cfg)
     if cfg.data.synthetic or not cfg.data.data_dirs:
-        return synthetic_audio_batches(
+        return map(shard_batch, synthetic_audio_batches(
             cfg.trainer.batch_size, in_channels=cfg.data.in_channels,
             seconds=cfg.data.target_seconds, sr=cfg.data.sr, seed=cfg.trainer.seed,
             start_batch=start_step,
-        )
+        ))
     return audio_shard_batches(cfg)
 
 
@@ -166,18 +182,30 @@ def device_scene_bank(data_iter, device: torch.device) -> Optional[dict]:
                                       for k, v in bank.items()}
 
 
+def join_run(cfg: Config, device: DeviceLike = None) -> torch.device:
+    """This process's device for a run (``cuda:LOCAL_RANK`` under torchrun),
+    in the run's process group where it was launched into one
+    (``initialize_multihost``). A process alone with several cards visible
+    and ``trainer.num_devices=0`` trains on one of them, and says so."""
+    dev = initialize_multihost(device=resolve_device(device))
+    n_visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cfg.trainer.num_devices == 0 and n_visible > 1 and not dist.is_initialized():
+        print(f"trainer.num_devices=0 (all visible): {n_visible} CUDA devices are visible, "
+              f"and this process trains on one of them ({dev}); launch it with torchrun "
+              f"--nproc_per_node={n_visible} to train on all", flush=True)
+    return dev
+
+
 def build_run(cfg: Config, device: DeviceLike = None):
     """(device, model configuration, fresh TrainState, step function) of a
-    run, as ``train_jepa`` builds them before it restores a checkpoint."""
+    run, as ``train_jepa`` builds them before it restores a checkpoint: the
+    initial weights are the seeded ones, broadcast from rank 0 in a process
+    group."""
+    dev = join_run(cfg, device)
     model_cfg = cfg.build_model_config()  # raises on settings the port lacks
-    dev = resolve_device(device)
-    n_visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if cfg.trainer.num_devices == 0 and n_visible > 1:
-        print(f"trainer.num_devices=0 (all visible): {n_visible} CUDA devices are "
-              f"visible, and the port trains on one of them ({dev})", flush=True)
     model = JEPA(model_cfg)
     model.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
-    model.to(dev)
+    replicated(model.to(dev))
     state = TrainState.create(model, make_optimizer(cfg.optimizer, model))
     masker, masker_cfg = cfg.masker.build()
     step_fn = make_jepa_train_step(
@@ -199,7 +227,8 @@ def train_jepa(
     device: DeviceLike = None,
 ) -> TrainState:
     """Run (or resume) JEPA pretraining on ``device`` (cuda unless told
-    otherwise; raises without CUDA). Returns the final TrainState.
+    otherwise; raises without CUDA), as one rank of a data-parallel run when
+    launched under torchrun. Returns the final TrainState.
 
     Without ``data_iter`` the batches come from ``build_data_iterator``,
     and a shard pipeline built here is stopped when the loop returns or
@@ -219,14 +248,18 @@ def train_jepa(
 
 
 def open_run(run_dir: Path, model_cfg, state, cfg: Config, every: int) -> CheckpointManager:
-    """Write the run's ``model_config.json``, and restore ``state`` in place
-    from the newest checkpoint under ``run_dir/ckpt`` if there is one.
-    Returns the run's CheckpointManager (saving every ``every`` steps)."""
-    write_model_config(run_dir, model_cfg)
+    """Write the run's ``model_config.json`` (rank 0), and restore ``state``
+    in place from the newest checkpoint under ``run_dir/ckpt`` if there is
+    one (every rank). Returns the run's CheckpointManager (saving every
+    ``every`` steps)."""
+    main = process_group()[0] == 0
+    if main:
+        write_model_config(run_dir, model_cfg)
     ckpt = CheckpointManager(run_dir / "ckpt", keep=cfg.trainer.keep_ckpts, every=every)
     if ckpt.latest_step() is not None:
         ckpt.restore(state)
-        print(f"resumed from step {state.step}", flush=True)
+        if main:
+            print(f"resumed from step {state.step}", flush=True)
     return ckpt
 
 
@@ -239,10 +272,13 @@ def run_loop(cfg: Config, state, step_fn, data_iter: Iterator, owned, run_dir: P
     ``trainer.log_every`` steps into ``run_dir/logs``, checkpoints by
     ``ckpt`` and one at the end. ``step_fn(state, batch, generator,
     rir_bank)``. ``owned`` (the shard pipeline the caller built, or None)
-    is stopped when the loop returns or raises."""
-    logger = MetricLogger(str(run_dir / "logs"))
+    is stopped when the loop returns or raises. In a process group rank 0
+    logs the metrics, which are global, with rates over all ranks and a
+    card."""
+    rank, world = process_group()
+    logger = MetricLogger(str(run_dir / "logs")) if rank == 0 else None
     throughput = Throughput(cfg.trainer.batch_size,
-                            cfg.trainer.batch_size * cfg.data.samples_per_audio)
+                            cfg.trainer.batch_size * cfg.data.samples_per_audio, world)
     rir_bank = device_scene_bank(data_iter, dev)
     generator = torch.Generator(device=dev)
     batches = prefetch_to_device(data_iter, dev)
@@ -256,20 +292,21 @@ def run_loop(cfg: Config, state, step_fn, data_iter: Iterator, owned, run_dir: P
             generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
             state, metrics = run_step(step_fn, state, batch, generator, rir_bank)
             throughput.step()
-            if state.step % cfg.trainer.log_every == 0 or state.step == total:
+            if logger and (state.step % cfg.trainer.log_every == 0 or state.step == total):
                 scalars = {k: float(v) for k, v in metrics.items()}  # waits for the device
                 scalars.update(throughput.rates())
                 scalars["data_wait_ms"] = 1000.0 * wait_s / waited_steps
                 wait_s, waited_steps = 0.0, 0
                 throughput.start()
                 logger.log(state.step, scalars)
-            if ckpt.save(state.step, state):
+            if ckpt.save(state.step, state) and logger:
                 print(f"checkpoint @ {state.step}", flush=True)
     finally:
         if hasattr(owned, "stop"):  # the shard pipeline's worker processes
             owned.stop()
         batches.close()
-        logger.close()
+        if logger:
+            logger.close()
     if ckpt.latest_step() != state.step:
         ckpt.save(state.step, state, force=True)
     return state

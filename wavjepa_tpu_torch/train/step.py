@@ -14,6 +14,16 @@ clips through the whole step on the device:
   the learning rate of the step before the increment → EMA of the teacher
   from the student encoder before the update → step + 1.
 
+Data parallelism (``parallel/mesh.py``): in a torch.distributed process
+group each rank is given its rows of the global clip batch. The crop starts
+and the masks are drawn for the global batch on every rank and each takes
+its rows, so a rank's crops are those one process would cut from the same
+clips. The loss numerators and target counts are summed over the ranks with
+the gradients, in one all-reduce after the last microbatch, so the loss,
+the gradients and their norm are the global ones and every rank takes the
+same update. At world size 1, in a group or not, the step issues no
+collective and is the one-process step.
+
 ``JEPATrainStep.step_on`` runs the step from given crops and masks: torch
 cannot reproduce ``jax.random``, so the tests feed both packages the same
 crops and masks through it.
@@ -29,9 +39,10 @@ import torch
 from wavjepa_tpu_torch.ops.resample import resample_torch
 from wavjepa_tpu_torch.masking import TimeInverseMaskConfig, time_inverse_block_masks
 from wavjepa_tpu_torch.models.jepa import JEPA, masked_prediction_loss
-from wavjepa_tpu_torch.ops.audio import instance_normalize, random_crops, wire_to_f32
+from wavjepa_tpu_torch.ops.audio import crops_at, instance_normalize, random_starts, wire_to_f32
 from wavjepa_tpu_torch.ops.scenes import gather_scene_rirs, generate_scene, place_noise_from_bank
 from wavjepa_tpu_torch.ops.transformer import TransformerEncoder
+from wavjepa_tpu_torch.parallel.mesh import all_reduce_gradients, process_group, shard_batch
 from wavjepa_tpu_torch.train.schedule import ema_decay_schedule, warmup_cosine_schedule
 from wavjepa_tpu_torch.train.state import TrainState, ema_update
 
@@ -173,7 +184,9 @@ class JEPATrainStep:
     """``step(state, audio, generator) -> (state, metrics)``; see the module
     docstring for the order. ``state`` is updated in place and returned.
     ``metrics`` holds ``loss`` and ``grad_norm`` (the norm before clipping)
-    as device tensors, and ``lr`` and ``ema_decay`` as floats."""
+    as device tensors, and ``lr`` and ``ema_decay`` as floats. In a process
+    group ``audio`` is this rank's rows of the global batch, ``step_on``'s
+    crops and masks likewise, and the metrics are global."""
 
     def __init__(
         self,
@@ -212,20 +225,23 @@ class JEPATrainStep:
         return build_scenes(self.scene_cfg, cfg.sample_rate, batch, rir_bank)
 
     def prepare(self, cfg, audio: torch.Tensor, generator: torch.Generator):
-        """(B, C, L) or (B, L) clips → crops (B·n, C, crop) in ``cfg.dtype``
-        and masks for the whole crop batch, drawn from ``generator``."""
+        """(B, C, L) or (B, L) clips, this rank's rows of the global batch →
+        crops (B·n, C, crop) in ``cfg.dtype`` and their masks. The starts and
+        masks are drawn from ``generator`` for the global batch (W·B clips at
+        world size W), and this rank's rows taken."""
         audio = wire_to_f32(audio)
         if audio.dim() == 2:
             audio = audio[:, None, :]
-        crops = random_crops(generator, audio, cfg.target_length, self.n_crops)
+        _, world = process_group()
+        starts = random_starts(generator, audio, cfg.target_length, self.n_crops,
+                               n_clips=audio.shape[0] * world)
+        crops = crops_at(audio, shard_batch(starts), cfg.target_length)
         crops = instance_normalize(crops, dims=(-2, -1))
         b, s, c, length = crops.shape
         crops = crops.reshape(b * s, c, length).to(cfg.dtype)
-        ctx_mask, target_masks, visible_masks = self.masker(
-            generator, batch_size=b * s, n_times=cfg.total_patches,
-            in_channels=cfg.in_channels, cfg=self.masker_cfg,
-        )
-        return crops, ctx_mask, target_masks, visible_masks
+        masks = self.masker(generator, batch_size=b * s * world, n_times=cfg.total_patches,
+                            in_channels=cfg.in_channels, cfg=self.masker_cfg)
+        return (crops, *(shard_batch(m) for m in masks))
 
     def step_on(self, state: TrainState, crops, ctx_mask, target_masks, visible_masks):
         model, cfg = state.model, state.model.config
@@ -237,7 +253,8 @@ class JEPATrainStep:
         for p in params:
             p.grad = None
         n_rows = crops.shape[0]
-        if self.accum_steps > 1:
+        world = process_group()[1]
+        if self.accum_steps > 1 or world > 1:
             if n_rows % self.accum_steps:
                 raise ValueError(f"crop batch {n_rows} not divisible by "
                                  f"accum_steps={self.accum_steps}")
@@ -251,6 +268,8 @@ class JEPATrainStep:
                 num.backward()  # the gradients sum ∇num over microbatches
                 num_sum = num_sum + num.detach()
                 den_sum = den_sum + den
+            if world > 1:  # global numerator, target count and gradients
+                num_sum, den_sum = all_reduce_gradients(params, num_sum, den_sum)
             inv = 1.0 / (den_sum + 1e-8)
             for p in params:
                 if p.grad is not None:

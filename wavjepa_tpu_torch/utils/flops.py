@@ -98,6 +98,8 @@ def denoise_step_flops(cfg, n_crops: int, alpha: float | None = None,
     return n_crops * (2 * 3 * fwd + fwd)
 
 
-def mfu(flops_per_step: int, step_seconds: float, peak: float = H100_BF16_PEAK_FLOPS) -> float:
-    """Model FLOPs utilization: useful FLOPs a second over the peak."""
-    return flops_per_step / step_seconds / peak
+def mfu(flops_per_step: int, step_seconds: float, peak: float = H100_BF16_PEAK_FLOPS,
+        n_cards: int = 1) -> float:
+    """Model FLOPs utilization a card: the step's useful FLOPs (over all
+    ``n_cards`` data-parallel ranks) a second over ``n_cards`` peaks."""
+    return flops_per_step / (step_seconds * n_cards * peak)

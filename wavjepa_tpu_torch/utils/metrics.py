@@ -55,13 +55,15 @@ class MetricLogger:
 
 
 class Throughput:
-    """Clips and crops a second, and the mean step time, since ``start``,
-    on the host clock. Read it after the device has finished the steps
-    counted (the train loop reads it after fetching the metrics)."""
+    """Clips and crops a second, over all ``n_cards`` data-parallel ranks
+    and a card, and the mean step time, since ``start``, on the host clock.
+    Read it after the device has finished the steps counted (the train loop
+    reads it after fetching the metrics)."""
 
-    def __init__(self, clips_per_step: int, crops_per_step: int):
+    def __init__(self, clips_per_step: int, crops_per_step: int, n_cards: int = 1):
         self.clips_per_step = clips_per_step
         self.crops_per_step = crops_per_step
+        self.n_cards = n_cards
         self._t0 = time.perf_counter()
         self._steps = 0
 
@@ -74,8 +76,12 @@ class Throughput:
 
     def rates(self) -> dict:
         elapsed = max(time.perf_counter() - self._t0, 1e-9)
+        clips = self.clips_per_step * self._steps / elapsed
+        crops = self.crops_per_step * self._steps / elapsed
         return {
-            "clips_per_sec": self.clips_per_step * self._steps / elapsed,
-            "crops_per_sec": self.crops_per_step * self._steps / elapsed,
+            "clips_per_sec": clips,
+            "crops_per_sec": crops,
+            "clips_per_sec_per_card": clips / self.n_cards,
+            "crops_per_sec_per_card": crops / self.n_cards,
             "step_time_ms": 1000.0 * elapsed / max(self._steps, 1),
         }

@@ -30,13 +30,20 @@ from typing import Iterator, Optional
 
 import torch
 
+from wavjepa_tpu_torch.parallel.mesh import process_group
+
 
 @contextlib.contextmanager
 def trace(log_dir: str, name: str = "trace") -> Iterator["torch.profiler.profile"]:
     """Profile the block with CPU and (when CUDA is available) CUDA
     activity; on exit, waits for the card and writes
     ``<log_dir>/<name>.json.gz``. Yields the profiler, whose
-    ``key_averages()`` and ``events()`` can be read after the block."""
+    ``key_averages()`` and ``events()`` can be read after the block. In a
+    data-parallel run rank 0 alone traces: the others run the block
+    unprofiled and are given None."""
+    if process_group()[0] != 0:
+        yield None
+        return
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
