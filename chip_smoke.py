@@ -9,19 +9,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             (one process each, all at once), print the card and its power
             limit, ptxas's register and spill report, and the count of
             wgmma instructions (``HGMMA`` in ``cuobjdump -sass``) in each
-            library: none in a flash or fused library fails the run;
+            library and, in the backward's, in each bf16 kernel function:
+            none in a flash or fused library, or in a bf16 backward kernel
+            (the one-pass kernel and both two-pass kernels), fails the run;
 2. kernels  hold each kernel against its plain PyTorch version on the card at
             the shapes the serving and training paths give it, in bf16 and
             f32, and time kernel, plain version, one PyTorch library call,
             and the bound; also where the kernels change tile or route (the
             forward at T = 64, 65 and 999, the backward at T = 128 and past
-            it on its two-pass route), each row naming the route it took;
+            it on its two-pass route up to T = 400), each row naming the
+            route it took;
             the backward also with a fully masked row, whose dq must be
             non-zero and equal the plain version's, and twice with equal
             bits; the fused
             block (forward and backward, weight gradients too) likewise at
             the decoder's, the encoder's and serving's shapes, its backward
-            twice with equal bits; and the fused block's bf16 product alone
+            also at the unpacked 200-token encoder (its core on the two-pass
+            route) and twice with equal bits; and the fused block's bf16 product alone
             (``csrc/hopper_gemm.cu``) against ``torch.matmul`` at the QKV and
             weight-gradient products of the decoder batch and serving's QKV
             product, both timed in turns, in TFLOP/s;
@@ -293,6 +297,8 @@ FUSED_BWD_SHAPES = [
     ("decoder_mb", 64, 128, 384, 12), ("decoder", 1024, 128, 384, 12),
     ("student_encoder_mb", 16, 88, 768, 12), ("ragged_t100", 16, 100, 768, 12),
     ("odd_rows", 3, 99, 384, 12),
+    # the unpacked 200-token encoder: its core takes the two-pass route
+    ("unpacked_encoder_t200", 16, 200, 768, 12),
 ]
 # the training path's attention, AudioSet configuration (256 crops): the
 # packed student encoder, the packed decoder (4 groups a crop) and the
@@ -322,7 +328,7 @@ TRAIN_BWD_SHAPES = [
 # where the kernels change tile or route: the forward at one 64-row tile and
 # one row past it, and the whole clip at head_dim 32; the backward at the
 # largest T of its one-pass kernel (128) and past it, where the two-pass
-# kernel takes over (129, and the unpacked 200-token encoder)
+# kernels take over (129, the unpacked 200-token encoder, and 400)
 EDGE_FWD_SHAPES = [
     ("edge_t64", 16, 12, 64, 64), ("edge_t65", 16, 12, 65, 32),
     ("edge_t999_d32", 4, 12, 999, 32),
@@ -330,7 +336,11 @@ EDGE_FWD_SHAPES = [
 EDGE_BWD_SHAPES = [
     ("edge_t128_d64", 16, 12, 128, 64), ("edge_t129", 16, 12, 129, 64),
     ("edge_t129_d32", 16, 12, 129, 32), ("unpacked_encoder_t200", 16, 12, 200, 64),
+    ("edge_t400", 4, 12, 400, 64),  # the two-pass route past the main paths' T
 ]
+# the backward's bf16 kernels, each built at d = 32 and 64, that must run on
+# wgmma: the one-pass kernel (T ≤ 128) and both passes above it
+BWD_WGMMA_KERNELS = ("bwd_single_pass_bf16", "bwd_dq_bf16", "bwd_dkdv_bf16")
 
 
 def card_line() -> str:
@@ -680,14 +690,22 @@ PRODUCT_BF16_REL = 1e-2  # bf16 output: one rounding of an f32 sum
 PRODUCT_F32_REL = 1e-4   # f32 output: the same sums over 131k rows in another order
 
 
-def sass_wgmma_counts(build) -> dict[str, int]:
-    """HGMMA instructions (wgmma) in each built library's machine code."""
+def sass_wgmma_counts(build) -> dict[str, dict[str, int]]:
+    """HGMMA instructions (wgmma) in each built library's machine code, by
+    kernel function (its mangled name, as ``cuobjdump -sass`` heads it)."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     counts = {}
     for name in sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")):
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
-        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+        functions, current = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                current = line.split("Function :", 1)[1].strip()
+                functions.setdefault(current, 0)
+            elif "HGMMA" in line and current is not None:
+                functions[current] += 1
+        counts[name] = functions
     return counts
 
 
@@ -3003,12 +3021,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    wgmma = sass_wgmma_counts(_build)
+    wgmma_by_function = sass_wgmma_counts(_build)
+    wgmma = {name: sum(f.values()) for name, f in wgmma_by_function.items()}
     print(f"[build] HGMMA instructions (cuobjdump -sass): {wgmma}", flush=True)
     for name in ("flash_attention_fwd", "flash_attention_bwd", "fused_attention_block_fwd",
                  "fused_attention_block_bwd"):
         if not wgmma.get(name):
             raise AssertionError(f"{name}: no wgmma (HGMMA) in its machine code")
+    # the backward's kernels one by one: each bf16 route's (d = 32 and 64)
+    bwd_functions = wgmma_by_function["flash_attention_bwd"]
+    for kernel in BWD_WGMMA_KERNELS:
+        found = {f: n for f, n in bwd_functions.items() if kernel in f}
+        print(f"[build] flash_attention_bwd {kernel}: HGMMA {sorted(found.values())}", flush=True)
+        if not found or not all(found.values()):
+            raise AssertionError(f"flash_attention_bwd {kernel}: HGMMA by function {found}")
 
     done("build")
     kernel_rows = phase_kernels(flash_attention)
@@ -3139,7 +3165,8 @@ def main() -> int:
     kernels = [fwd, bwd, fused_fwd, fused_bwd]
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "build_s": build_s, "hgmma": wgmma, "products": products,
+        json.dump({"card": card, "build_s": build_s, "hgmma": wgmma,
+                   "hgmma_by_function": wgmma_by_function, "products": products,
                    "kernels": kernels, "serve": serve,
                    "serve_fused": serve_fused, "parity": parity, "train": train,
                    "train_fused": train_fused, "train_parity": train_parity,

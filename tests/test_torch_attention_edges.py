@@ -3,8 +3,9 @@ package's Pallas kernel (interpret mode) at every sequence length where the
 Hopper kernels change tile or route: one key or query tile of 64 and its
 edges (1, 8, 63, 64, 65), the training shapes (88 packed encoder, 100
 ragged, 128 packed decoder, the backward's largest one-pass T), the first T
-of the two-pass backward (129) and the windowed encoder (200); head_dim 32
-and 64. Each batch has a fully masked first row and a clean last row. The
+of the two-pass backward (129), the windowed encoder (200) and WavJEPA-Nat's
+packed encoder and decoder (176, 256), both on the two-pass route; head_dim
+32 and 64. Each batch has a fully masked first row and a clean last row. The
 tolerances are those of tests/test_flash_attention.py (forward, f32: atol
 2e-5, rtol 1e-4) and of the roadmap's gradient contract (atol 5e-5, rtol
 1e-3): the same maths, summed over T keys in another order."""
@@ -21,7 +22,7 @@ from wavjepa_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 
-EDGE_T = [1, 8, 63, 64, 65, 88, 100, 128, 129, 200]
+EDGE_T = [1, 8, 63, 64, 65, 88, 100, 128, 129, 176, 200, 256]
 HEAD_DIMS = [32, 64]
 FWD_ATOL, FWD_RTOL = 2e-5, 1e-4
 BWD_ATOL, BWD_RTOL = 5e-5, 1e-3

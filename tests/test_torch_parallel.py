@@ -5,7 +5,9 @@ This file runs itself as a worker (``python tests/test_torch_parallel.py
 PORT RANK DIR``, as tests/multihost_worker.py does for the JAX package): one
 module-scoped pair of rank processes joins a process group of two through
 ``initialize_multihost`` (tcp://) and runs every leg, each rank writing what
-it saw to ``DIR/rank<r>.pt``. Beside them both CLIs run under
+it saw to ``DIR/rank<r>.pt``; a third process (``python
+tests/test_torch_parallel.py alone DIR``) runs the same legs in no group
+into ``DIR/alone.pt``. Beside them both CLIs run under
 ``torch.distributed.run --nproc_per_node=2 --device cpu``. The tests hold
 the two ranks against:
 
@@ -13,7 +15,11 @@ the two ranks against:
   holds) and the JAX loss and gradients over a 2-device mesh, on the same
   crops and masks, at tests/test_torch_train_step.py's tolerances (loss
   rtol 1e-5, gradient norm rtol 1e-4);
-* the port's one-process run at the same seed: losses rtol 1e-5, per-leaf
+* the port's one-process run at the same seed (its own process, at one
+  thread like the ranks, so that it inherits nothing of this test process:
+  not its thread count, nor the floating-point mode that a library built
+  with -ffast-math, such as the JAX package's native data library, leaves
+  behind when an earlier test loaded it): losses rtol 1e-5, per-leaf
   step-1 gradients rtol 1e-5 atol 1e-6 (MULTICHIP_r05.json's gate), at
   accum 1 and 2, through ``step_on`` and through ``build_run`` from
   synthetic clips; the Nat step from synthetic scene batches and the
@@ -266,6 +272,14 @@ def run_legs(inputs: dict, root: Path) -> dict:
     }
 
 
+def alone(out_dir: str) -> None:
+    """The legs in a process of its own, in no group: the one-process run."""
+    torch.set_num_threads(1)
+    out_dir = Path(out_dir)
+    inputs = torch.load(out_dir / "inputs.pt", weights_only=False)
+    torch.save(run_legs(inputs, out_dir), out_dir / "alone.pt")
+
+
 def worker(port: int, rank: int, out_dir: str) -> None:
     from wavjepa_tpu_torch.parallel.mesh import initialize_multihost, process_group
 
@@ -349,8 +363,12 @@ def _wait(procs: dict, root: Path, timeout: float) -> dict:
         time.sleep(0.1)
     out = {name: (root / f"{name}.log").read_text() for name in procs}
     for name, p in procs.items():
-        assert p.returncode == 0, f"{name} exited {p.returncode}:\n{out[name][-4000:]}"
+        assert p.returncode == 0, f"{name} exited {p.returncode}:\n{_tail(out[name])}"
     return out
+
+
+def _tail(log: str, n: int = 4000) -> str:
+    return log[-n:]
 
 
 @pytest.fixture(scope="module")
@@ -380,11 +398,12 @@ def runs(tmp_path_factory, jax_params):
         port = _free_port()
         procs.update(_start({f"rank{r}": [sys.executable, __file__, str(port), str(r), str(root)]
                              for r in range(WORLD)}, root))
-        alone = run_legs(inputs, root)
+        procs.update(_start({"alone": [sys.executable, __file__, "alone", str(root)]}, root))
         jax_mesh = _jax_mesh_steps(params, batches, jc)
     finally:
         out = _wait(procs, root, timeout=300)
     ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    alone = torch.load(root / "alone.pt", weights_only=False)
     return {"root": root, "ranks": ranks, "alone": alone, "jax_mesh": jax_mesh, "out": out}
 
 
@@ -413,10 +432,28 @@ def _jax_mesh_steps(params, batches, jc):
     return out
 
 
-def _close(got: dict, want: dict, **tol):
-    assert got.keys() == want.keys()
-    for k in want:
-        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), err_msg=k, **tol)
+def _diffs(got: np.ndarray, want: np.ndarray) -> str:
+    """The largest absolute and relative difference, for a failure message."""
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    rel = diff / np.maximum(np.abs(want.astype(np.float64)), np.finfo(np.float64).tiny)
+    return f"max abs diff {diff.max():.6g}, max rel diff {rel.max():.6g}"
+
+
+def _close(got, want, what: str, rtol: float, atol: float = 0.0):
+    """``got`` within (rtol, atol) of ``want``: two lists of scalars, or two
+    dicts of tensors leaf by leaf. A failure names ``what`` (the leg, the
+    accumulation, the rank and the quantity), the leaf and the largest
+    differences."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), f"{what}: leaves {sorted(got)} vs {sorted(want)}"
+        pairs = [(f"{what}, leaf {k}", got[k].numpy(), want[k].numpy()) for k in want]
+    else:
+        pairs = [(what, np.asarray(got), np.asarray(want))]
+    for name, g, w in pairs:
+        assert g.shape == w.shape, f"{name}: shape {g.shape} vs {w.shape}"
+        ok = np.abs(g.astype(np.float64) - w.astype(np.float64)) <= atol + rtol * np.abs(w)
+        assert ok.all(), (f"{name}: {int((~ok).sum())} of {ok.size} outside rtol {rtol}, "
+                          f"atol {atol}; {_diffs(g, w)}")
 
 
 def test_a_rank_holds_the_rows_the_jax_mesh_places_on_its_device(runs):
@@ -445,74 +482,88 @@ def test_replicated_weights_are_rank_zeros(runs):
 @pytest.mark.parametrize("accum", [1, 2])
 def test_two_ranks_take_the_jax_mesh_step(runs, accum):
     ref = runs["jax_mesh"]
-    for seen in runs["ranks"]:
-        got = seen["step_on"][accum]
-        np.testing.assert_allclose(got["loss"], [r[0] for r in ref], rtol=1e-5)
-        np.testing.assert_allclose(got["grad_norm"], [r[1] for r in ref], rtol=1e-4)
+    for rank, seen in enumerate(runs["ranks"]):
+        got, what = seen["step_on"][accum], f"leg step_on, accum {accum}, rank {rank}"
+        _close(got["loss"], [r[0] for r in ref], f"{what}, loss vs the JAX mesh", rtol=1e-5)
+        _close(got["grad_norm"], [r[1] for r in ref], f"{what}, gradient norm vs the JAX mesh",
+               rtol=1e-4)
+
+
+def _against_alone(got: dict, alone: dict, what: str, parts: tuple) -> None:
+    """A rank's leg against the one-process run's, at this file's limits."""
+    _close(got["loss"], alone["loss"], f"{what}, loss", rtol=1e-5)
+    _close(got["grad_norm"], alone["grad_norm"], f"{what}, gradient norm", rtol=1e-4)
+    _close(got["grads"], alone["grads"], f"{what}, step-1 gradients", rtol=1e-5, atol=1e-6)
+    for part in parts:
+        _close(got[part], alone[part], f"{what}, {part}", rtol=1e-4, atol=2e-6)
 
 
 @pytest.mark.parametrize("leg", ["step_on", "seeded"])
 @pytest.mark.parametrize("accum", [1, 2])
 def test_two_ranks_take_the_one_process_step(runs, leg, accum):
-    alone = runs["alone"][leg][accum]
-    for seen in runs["ranks"]:
-        got = seen[leg][accum]
-        np.testing.assert_allclose(got["loss"], alone["loss"], rtol=1e-5)
-        np.testing.assert_allclose(got["grad_norm"], alone["grad_norm"], rtol=1e-4)
-        _close(got["grads"], alone["grads"], rtol=1e-5, atol=1e-6)
-        _close(got["weights"], alone["weights"], rtol=1e-4, atol=2e-6)
-        _close(got["teacher"], alone["teacher"], rtol=1e-4, atol=2e-6)
+    for rank, seen in enumerate(runs["ranks"]):
+        _against_alone(seen[leg][accum], runs["alone"][leg][accum],
+                       f"leg {leg}, accum {accum}, rank {rank}", ("weights", "teacher"))
 
 
 @pytest.mark.parametrize("leg", ["nat", "denoise_bank"])
 def test_nat_and_denoise_with_a_scene_bank_take_the_one_process_step(runs, leg):
     alone = runs["alone"][leg]
-    assert np.isfinite(alone["loss"]).all()
-    for seen in runs["ranks"]:
-        np.testing.assert_allclose(seen[leg]["loss"], alone["loss"], rtol=1e-5)
-        np.testing.assert_allclose(seen[leg]["grad_norm"], alone["grad_norm"], rtol=1e-4)
-        _close(seen[leg]["grads"], alone["grads"], rtol=1e-5, atol=1e-6)
-        _close(seen[leg]["weights"], alone["weights"], rtol=1e-4, atol=2e-6)
+    assert np.isfinite(alone["loss"]).all(), f"leg {leg}, accum 2, one process: {alone['loss']}"
+    for rank, seen in enumerate(runs["ranks"]):
+        _against_alone(seen[leg], alone, f"leg {leg}, accum 2, rank {rank}", ("weights",))
 
 
 def test_both_ranks_hold_the_same_weights_bit_for_bit(runs):
     r0, r1 = runs["ranks"]
     for leg, key in (("step_on", 1), ("step_on", 2), ("seeded", 1), ("seeded", 2)):
         for part in ("weights", "teacher"):
-            _close(r1[leg][key][part], r0[leg][key][part], rtol=0, atol=0)
+            _close(r1[leg][key][part], r0[leg][key][part],
+                   f"leg {leg}, accum {key}, rank 1 vs rank 0, {part}", rtol=0)
     for leg in ("nat", "denoise_bank"):
-        _close(r1[leg]["weights"], r0[leg]["weights"], rtol=0, atol=0)
+        _close(r1[leg]["weights"], r0[leg]["weights"],
+               f"leg {leg}, accum 2, rank 1 vs rank 0, weights", rtol=0)
 
 
 def test_a_resume_at_two_ranks_repeats_the_uninterrupted_run(runs):
-    for seen in runs["ranks"]:
-        _close(seen["resume"]["resumed"], seen["resume"]["whole"], rtol=0, atol=0)
+    for rank, seen in enumerate(runs["ranks"]):
+        _close(seen["resume"]["resumed"], seen["resume"]["whole"],
+               f"leg resume, accum 2, rank {rank}, resumed vs uninterrupted weights", rtol=0)
 
 
 def test_rank_zero_alone_writes_the_run(runs):
     from wavjepa_tpu_torch.train.checkpoint import CheckpointManager
 
+    logs = "\n".join(f"{r}: {_tail(runs['out'][r], 1500)}" for r in ("rank0", "rank1"))
     for name, launches in (("whole", 1), ("resumed", 2)):
-        run = next((runs["root"] / "runs" / name).rglob("model_config.json")).parent
+        files = sorted(str(p.relative_to(runs["root"])) for p in
+                       (runs["root"] / "runs" / name).rglob("*"))
+        where = f"leg resume, accum 2, the {name} run; files {files}; logs\n{logs}"
+        configs = list((runs["root"] / "runs" / name).rglob("model_config.json"))
+        assert len(configs) == 1, where
+        run = configs[0].parent
         lines = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
-        assert [x["step"] for x in lines] == [1, 2, 3, 4]  # one line a step, not one a rank
+        # one line a step, not one a rank
+        assert [x["step"] for x in lines] == [1, 2, 3, 4], f"metrics {lines}; {where}"
         assert lines[-1]["clips_per_sec_per_card"] == pytest.approx(
-            lines[-1]["clips_per_sec"] / WORLD)
-        assert CheckpointManager(run / "ckpt").steps() == [1, 2, 3, 4]
-        assert not list(run.rglob("*.tmp"))
+            lines[-1]["clips_per_sec"] / WORLD), f"metrics {lines[-1]}; {where}"
+        assert CheckpointManager(run / "ckpt").steps() == [1, 2, 3, 4], where
+        assert not list(run.rglob("*.tmp")), where
         events = list((run / "logs").glob("events.out.tfevents.*"))
-        assert len(events) <= launches  # rank 0's writer, once a launch
+        assert len(events) <= launches, where  # rank 0's writer, once a launch
 
 
 @pytest.mark.parametrize("cli, prefix", [("train_cli", "Data="), ("denoise_cli", "Denoise-")])
 def test_both_clis_take_two_steps_under_torchrun(runs, cli, prefix):
     out = runs["out"][cli]
-    for step in (1, 2):
-        assert out.count(f"[step {step}] loss=") == 1, out[-3000:]  # rank 0 logs
     save_dir = runs["root"] / cli
+    files = sorted(str(p.relative_to(save_dir)) for p in save_dir.rglob("*"))
+    where = f"{cli}: files {files}; log\n{_tail(out)}"
+    for step in (1, 2):
+        assert out.count(f"[step {step}] loss=") == 1, where  # rank 0 logs
     ckpts = list(save_dir.rglob("step_00000002.ckpt"))
-    assert len(ckpts) == 1 and ckpts[0].relative_to(save_dir).parts[0].startswith(prefix)
-    assert len(list(save_dir.rglob("metrics.jsonl"))) == 1
+    assert len(ckpts) == 1 and ckpts[0].relative_to(save_dir).parts[0].startswith(prefix), where
+    assert len(list(save_dir.rglob("metrics.jsonl"))) == 1, where
 
 
 def test_without_a_group_nothing_is_joined_and_two_devices_raise(tmp_path):
@@ -532,4 +583,7 @@ def test_without_a_group_nothing_is_joined_and_two_devices_raise(tmp_path):
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1] == "alone":
+        alone(sys.argv[2])
+    else:
+        worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

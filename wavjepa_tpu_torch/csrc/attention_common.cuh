@@ -1,7 +1,6 @@
 // Helpers shared by the attention kernels (flash_attention_fwd.cu and
-// flash_attention_bwd.cu): the bf16 mma.sync product of the two-pass
-// backward, fragment packing, the reductions over the lanes that share a
-// row, 2^x, a key's sentinel, and the per-head strides.
+// flash_attention_bwd.cu): bf16 packing, the reductions over the lanes that
+// share a row, 2^x, a key's sentinel, and the per-head strides.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,27 +11,9 @@
 
 namespace wavjepa {
 
-// C (16×8, f32) += A (16×16, bf16, row-major) · B (16×8, bf16, column-major).
-// Fragment layout of mma m16n8k16 (PTX ISA), lane = 4·g + c:
-//   A (16×16): a0 (row g, cols 2c, 2c+1), a1 (row g+8, same), a2/a3 (cols +8)
-//   B (16×8):  b0 (k = 2c, 2c+1, n = g), b1 (k + 8)
-//   C (16×8):  c0, c1 (row g, cols 2c, 2c+1), c2, c3 (row g+8)
-__device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                            uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // max / sum over the four lanes of a quad, which share two rows of a fragment
@@ -92,22 +73,5 @@ inline HeadStrides contiguous_heads(int H, int seq, int d) {
   return {(long long)H * seq * d, (long long)seq * d, d};
 }
 inline HeadStrides token_major(int seq, int ld, int d) { return {(long long)seq * ld, d, ld}; }
-
-// The A fragments of 16 rows (row0 and row0 + 8 for this lane) of a
-// row-major bf16 matrix with rows ld apart, all of D; rows past the end read
-// as zero.
-template <int D>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const __nv_bfloat16* base,
-                                            int ld, int row0, bool in0, bool in1, int c) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const __nv_bfloat16* p0 = base + (size_t)row0 * ld + ks * 16 + 2 * c;
-    const __nv_bfloat16* p1 = p0 + 8 * (size_t)ld;
-    a[ks][0] = in0 ? load_u32(p0) : 0u;
-    a[ks][1] = in1 ? load_u32(p1) : 0u;
-    a[ks][2] = in0 ? load_u32(p0 + 8) : 0u;
-    a[ks][3] = in1 ? load_u32(p1 + 8) : 0u;
-  }
-}
 
 }  // namespace wavjepa

@@ -59,21 +59,46 @@
 //     S and dP (128 f32 registers of its 232) and the block 2 × 64 KB of
 //     input slots (d = 64) beside 64 KB of P_lo and dS_lo; at KT = 192 the
 //     two accumulators alone take 192 registers and P_lo, dS_lo 144 KB.
-//   * T > 128 (the unpacked 200-token encoder, which train/config.py's
-//     packing options reach): two deterministic passes of 64-row blocks with
-//     mma.sync m16n8k16, each walking the other side in tiles of 64:
-//       1. one block per (query block, head, batch) makes dQ. Its first sweep
-//          over the keys sums D = rowsum(dP ⊙ P) exactly as the TPU kernel
-//          does (rowsum(dO ⊙ O) would differ by the forward's bf16 rounding
-//          of P and O), and writes D to the caller's scratch `dsum`; its
-//          second sweep forms dS and dQ.
-//       2. one block per (key block, head, batch) makes dK and dV, walking
-//          the query tiles with their (m, l, D).
-//     They re-read q, k, v, dO once per 64-row block and recompute Q Kᵀ and
-//     dO Vᵀ three times in all (nine products instead of five). Tiles read
-//     as B with k along the row are staged row-major, those read with k down
-//     the column transposed; each staged row is padded by 8 values so that
-//     fragment loads hit 32 distinct banks.
+//   * T > 128 (WavJEPA-Nat's packed encoder and decoder, T = 176 and 256,
+//     and the unpacked 200-token encoder of the denoiser): two deterministic
+//     passes over 64-row items, built as the one-pass kernel is. Every sum
+//     stays in one block, so D = rowsum(dP ⊙ P) is exact as the TPU kernel
+//     takes it (rowsum(dO ⊙ O) would differ by the forward's bf16 rounding
+//     of P and O) and no partial dQ crosses blocks:
+//       1. bwd_dq_bf16: an item is (batch, head, 64 query rows). Q and dO
+//          are loaded once; K, V and the keys' mask bytes stream past in
+//          tiles of 64 keys, twice. The first sweep forms S = Q·Kᵀ and
+//          dP = dO·Vᵀ (wgmma, both operands in shared memory) and sums D,
+//          which goes to the caller's scratch `dsum`; the second forms them
+//          again, dS in registers, and dQ += dS_lo·K (wgmma with dS_lo from
+//          registers, K read MN-major).
+//       2. bwd_dkdv_bf16: an item is (batch, head, 64 keys). K and V are
+//          loaded once; Q, dO and the rows' (m, l) and D stream past in tiles
+//          of 64 query rows. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then Pᵀ and dSᵀ in
+//          registers, dV += Pᵀ_lo·dO and dK += dSᵀ_lo·Q (dO and Q MN-major).
+//     What bounds them. Nine T×T×d products instead of five (S and dP are
+//     formed three times) and three exponentials a score instead of one;
+//     both stay far above the byte bound, which a T² score block in device
+//     memory (the only way to five products and one exponential without
+//     cross-block sums) would break at these T. Yet neither the tensor
+//     cores nor the special function unit's 2^x is what holds a step: the
+//     chain of one 64-row step (its products, then its scores' softmax,
+//     then the products that use them) is, so the design keeps two such
+//     chains on every SM and no load on them. Each block is persistent (one
+//     an SM) and runs two pipelines, each one producer thread that keeps
+//     TMA loads of the walked side in flight (a ring of 4 stages, full and
+//     empty mbarriers; the item's own tiles in two slots, so the next item
+//     loads under the current one) and one consumer warpgroup of 64 rows.
+//     No value is transposed by a thread: every product is wgmma, the
+//     accumulating ones with their A from registers and B read MN-major,
+//     skipping their 16-row steps past T. P = 2^(s·scale·log2(e) −
+//     m·log2(e)) / l as in the forward and the one-pass kernel; each step's
+//     per-key (pass 1) or per-row (pass 2) terms go through a 64-entry
+//     table that the warpgroup builds once. The rank-4 tensor maps read
+//     both HeadStrides layouts and zero-fill rows past T; the row statistics
+//     and D come in 1-D boxes from the 16-byte boundary at or before the
+//     tile's first row. dq, dk, dv are rounded into the item's own tiles
+//     (read for the last time) and stored by TMA, which drops rows past T.
 // f32 (parity checks) runs the two passes with 256 threads of CUDA-core
 // FMAs, 4×4 of each 64×64 tile a thread, products through shared memory.
 
@@ -92,8 +117,7 @@
 namespace wavjepa {
 namespace flash_bwd {
 
-constexpr int kBlock = 64;  // rows a block owns, and rows of a tile it walks
-constexpr int kPad = 8;     // bf16 values of padding at the end of a staged row
+constexpr int kBlock = 64;  // rows a block owns, and rows of a tile it walks (f32)
 
 using namespace hopper;
 
@@ -264,7 +288,7 @@ bwd_single_pass_bf16(const __grid_constant__ CUtensorMap map_q,
 
     // 4. dQ = dS_lo K (dS_lo from registers, K MN-major) ...
     uint32_t dsa[KT / 16][4];
-    hopper::pack_a<KT>(dsa, dp);  // not the two-pass kernel's pack_a below
+    pack_a<KT>(dsa, dp);
     float dq[D / 2], dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq[i] = dk[i] = dv[i] = 0.f;
@@ -328,243 +352,507 @@ bwd_single_pass_bf16(const __grid_constant__ CUtensorMap map_q,
   if (threadIdx.x % 128 == 0) bulk_wait<false>();
 }
 
-// ---------------------------------------------------- bf16, two passes, mma.sync
+// ------------------------------------- bf16, T > 128: two passes, TMA and wgmma
 
-constexpr int kMmaThreads = (kBlock / 16) * 32;  // one warp per 16 rows
-constexpr int kNTiles = kBlock / 8;               // 8-wide C tiles across a tile
+constexpr int kPipes = 2;      // pipelines a block: a producer thread and a consumer warpgroup each
+constexpr int kPassThreads = 128 * (1 + kPipes);  // the producers' warpgroup, then the consumers
+constexpr int kTileRows = 64;  // rows of an item, and of a tile of the walked side
+constexpr int kTileMaskBox = kTileRows + 16;  // a key tile's mask bytes from the 16-byte boundary
+constexpr int kStatsBox = 2 * kTileRows + 4;  // a query tile's (m, l), f32, likewise
+constexpr int kDsumBox = kTileRows + 4;       // its D
 
-// Copy rows r0 .. r0+63 of a row-major bf16 matrix of D columns (rows ld
-// apart) into shared memory, row-major into `rows` (stride D + kPad) and,
-// when `cols` is not null, transposed into `cols` (stride kBlock + kPad).
-// Rows past T are zero.
+// Shared memory of a pipeline, from a 1024-aligned base: two slots of the
+// item's own pair of tiles (Q and dO in pass 1, K and V in pass 2), the ring
+// of the walked pair (K and V, or Q and dO), each stage's extra bytes, then
+// the barriers: the slots' full and empty, the stages' full and empty. A
+// stage's extra bytes hold what TMA loads beside the tiles (pass 1: the
+// keys' mask bytes; pass 2: the rows' (m, l), then their D) and, at kTable,
+// the consumer's table of the tile's 64 rows made from them (pass 1: each
+// key's additive term; pass 2: each query row's (m·log2(e), 1/l, D)).
 template <int D>
-__device__ __forceinline__ void stage(const __nv_bfloat16* src, int ld, int r0, int seq,
-                                      __nv_bfloat16* rows, __nv_bfloat16* cols) {
-  constexpr int kChunks = kBlock * D / 8;  // 16-byte chunks of a tile
-  src += (size_t)r0 * ld;  // in-tile offsets fit an int
-  for (int i = threadIdx.x; i < kChunks; i += kMmaThreads) {
-    const int r = i / (D / 8), col = (i % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < seq) x = *reinterpret_cast<const uint4*>(src + (r * ld + col));
-    *reinterpret_cast<uint4*>(&rows[r * (D + kPad) + col]) = x;
-    if (cols != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cols[(col + j) * (kBlock + kPad) + r] = e[j];
+struct PassSmem {
+  static constexpr int kTile = kTileRows * 2 * D;  // 64 rows of q, k, v or dO
+  static constexpr int kStages = 4;
+  static constexpr int kHeld = 0;
+  static constexpr int kRing = kHeld + 2 * 2 * kTile;
+  static constexpr int kExtra = kRing + kStages * 2 * kTile;
+  static constexpr int kDsum = 640;    // D's offset in a stage's extra bytes
+  static constexpr int kTable = 1024;  // the table's
+  static constexpr int kExtraStride = 2048;
+  static constexpr int kBars = kExtra + kStages * kExtraStride;
+  static constexpr int kPipe = (kBars + (4 + 2 * kStages) * 8 + 1023) / 1024 * 1024;
+  static constexpr int kBytes = kPipes * kPipe + 1024;
+  static_assert(kTileMaskBox <= kTable && 4 * kStatsBox <= kDsum &&
+                    kDsum + 4 * kDsumBox <= kTable && kTable + 16 * kTileRows <= kExtraStride,
+                "extra bytes");
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
+};
+
+// A pipeline's barriers: slot i's full and empty, stage s's full and empty.
+template <int D>
+struct PassBars {
+  uint32_t bars;
+  __device__ uint32_t held_full(int i) const { return bars + 8 * i; }
+  __device__ uint32_t held_empty(int i) const { return bars + 16 + 8 * i; }
+  __device__ uint32_t ring_full(int s) const { return bars + 32 + 8 * s; }
+  __device__ uint32_t ring_empty(int s) const { return bars + 32 + 8 * (PassSmem<D>::kStages + s); }
+};
+
+__device__ __forceinline__ void advance(int& i, int& phase, int n) {
+  if (++i == n) {
+    i = 0;
+    phase ^= 1;
+  }
+}
+
+// Every pipeline's barriers: a slot or stage is full once its producer's
+// expect_tx and bytes have arrived; a slot is empty once its consumer's
+// stores have read it, a stage once each of the consumer's warps is done.
+template <int D>
+__device__ __forceinline__ void init_pass_bars(uint32_t base0) {
+  using L = PassSmem<D>;
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < kPipes; ++p) {
+      const PassBars<D> bar{base0 + p * L::kPipe + L::kBars};
+      for (int i = 0; i < 2; ++i) {
+        bar_init(bar.held_full(i), 1);
+        bar_init(bar.held_empty(i), 1);
+      }
+      for (int s = 0; s < L::kStages; ++s) {
+        bar_init(bar.ring_full(s), 1);
+        bar_init(bar.ring_empty(s), 4);
+      }
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The consumer's 64-row result tile a (D/2 sums a lane: rows r, r + 8 of the
+// layout in hopper_common.cuh), times mul, rounded into a swizzled tile.
+template <int D>
+__device__ __forceinline__ void round_into(uint32_t tile, const float (&a)[D / 2], float mul, int r,
+                                           int c) {
+  constexpr int W = 2 * D;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) {
+    st_shared(tile + swizzled<W>(r, u) + 4 * c, pack_bf16x2(a[4 * u] * mul, a[4 * u + 1] * mul));
+    st_shared(tile + swizzled<W>(r + 8, u) + 4 * c,
+              pack_bf16x2(a[4 * u + 2] * mul, a[4 * u + 3] * mul));
   }
 }
 
-// C (16 × 64) = A (16 × D) · Bᵀ for a row-major staged tile B (64 × D).
+// The slot whose results an item stored goes back to the producer once the
+// store has read it. The consumer asks after the next item's first products
+// are issued, so that the wait runs under them (the producer needs the slot
+// only for the item after that); `stored` is then none.
 template <int D>
-__device__ __forceinline__ void product_rows(float (&acc)[kNTiles][4],
-                                             const uint32_t (&a)[D / 16][4],
-                                             const __nv_bfloat16* tile, int g, int c) {
+__device__ __forceinline__ void release_stored(int& stored, const PassBars<D>& bar) {
+  if (stored >= 0 && threadIdx.x % 128 == 0) {
+    bulk_wait<true>();
+    bar_arrive(bar.held_empty(stored));
+  }
+  stored = -1;
+}
+
+// S += A·Bᵀ for the 64 rows of tile a and the 64 of tile b (both K-major,
+// rows of 2·D bytes), D/16 k-steps.
+template <int D>
+__device__ __forceinline__ void product_ab(float (&s)[kTileRows / 2], uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int nt = 0; nt < kNTiles; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const __nv_bfloat16* p = &tile[(nt * 8 + g) * (D + kPad) + ks * 16 + 2 * c];
-      mma_16x8x16(acc[nt], a[ks], load_u32(p), load_u32(p + 8));
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma<kTileRows, 0, 0>(s, k_major<2 * D>(a, ks), k_major<2 * D>(b, ks));
+}
+
+// Pass 1: dQ, and D = rowsum(dP ⊙ P) for pass 2. Maps: q, k, v, dO, dq in
+// boxes of 64 rows; the mask in boxes of kTileMaskBox bytes.
+template <int D>
+__global__ void __launch_bounds__(kPassThreads, 1)
+bwd_dq_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+            const __grid_constant__ CUtensorMap map_dq,
+            const __grid_constant__ CUtensorMap map_mask, const float* __restrict__ stats,
+            float* __restrict__ dsum, int H, int seq, float scale, int blocks, int items) {
+  using L = PassSmem<D>;
+  constexpr int W = 2 * D, S = L::kStages, N = kTileRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base0 = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint8_t* const smem0 = smem_raw + (base0 - smem_addr(smem_raw));  // generic view of base0
+  const int n_tiles = (seq + N - 1) / N;
+  init_pass_bars<D>(base0);
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 32 != 0 || threadIdx.x / 32 >= kPipes) return;
+    // lane 0 of warp p feeds pipeline p: each item's Q and dO, then its key
+    // tiles twice (K, V and the mask bytes from the 16-byte boundary
+    // at or before the tile's first key, which may run past T: the consumer
+    // looks at the key index first)
+    const int p = threadIdx.x / 32;
+    const uint32_t base = base0 + p * L::kPipe;
+    const PassBars<D> bar{base + L::kBars};
+    int slot = 0, slot_phase = 0, st = 0, phase = 0;
+    for (int t = kPipes * blockIdx.x + p; t < items; t += kPipes * gridDim.x) {
+      const int qb = t % blocks, h = (t / blocks) % H, b = t / blocks / H;
+      bar_wait(bar.held_empty(slot), slot_phase ^ 1);  // the first pass finds both free
+      const uint32_t held = base + L::kHeld + slot * 2 * L::kTile;
+      bar_expect_tx(bar.held_full(slot), 2 * L::kTile);
+      tma_load_4d(held, &map_q, bar.held_full(slot), 0, qb * N, h, b);
+      tma_load_4d(held + L::kTile, &map_do, bar.held_full(slot), 0, qb * N, h, b);
+      advance(slot, slot_phase, 2);
+      for (int sweep = 0; sweep < 2; ++sweep) {
+        for (int j = 0; j < n_tiles; ++j) {
+          bar_wait(bar.ring_empty(st), phase ^ 1);
+          const uint32_t tiles = base + L::kRing + st * 2 * L::kTile;
+          bar_expect_tx(bar.ring_full(st), 2 * L::kTile + kTileMaskBox);
+          tma_load_4d(tiles, &map_k, bar.ring_full(st), 0, j * N, h, b);
+          tma_load_4d(tiles + L::kTile, &map_v, bar.ring_full(st), 0, j * N, h, b);
+          tma_load_1d(base + L::kExtra + st * L::kExtraStride, &map_mask, bar.ring_full(st),
+                      (b * seq + j * N) & ~15);
+          advance(st, phase, S);
+        }
+      }
     }
+    return;
   }
-}
 
-// C (16 × D) += A (16 × 64) · B for a tile B (64 × D) staged transposed.
-template <int D>
-__device__ __forceinline__ void product_cols(float (&acc)[D / 8][4],
-                                             const uint32_t (&a)[kBlock / 16][4],
-                                             const __nv_bfloat16* tile_t, int g, int c) {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int p = threadIdx.x / 128 - 1;
+  const uint32_t base = base0 + p * L::kPipe;
+  const uint8_t* const extra = smem0 + p * L::kPipe + L::kExtra;
+  const PassBars<D> bar{base + L::kBars};
+  const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, c = lane % 4;
+  const int r = 16 * warp + g;  // this lane's rows r and r + 8 of the item's 64
+  const float scale2 = scale * kLog2e;
+  const int first = kPipes * blockIdx.x + p, stride = kPipes * gridDim.x;
+  const int steps = 2 * n_tiles;  // the key tiles, once for D and once for dS
+  // the (m, l) of rows r and r + 8 of item t, loaded one item ahead
+  const float2* const stats2 = reinterpret_cast<const float2*>(stats);
+  float2 st_next[2];
+  auto load_stats = [&](int t) {
 #pragma unroll
-  for (int j = 0; j < kBlock / 16; ++j) {
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const __nv_bfloat16* p = &tile_t[(dt * 8 + g) * (kBlock + kPad) + j * 16 + 2 * c];
-      mma_16x8x16(acc[dt], a[j], load_u32(p), load_u32(p + 8));
+    for (int e = 0; e < 2; ++e) {
+      const int row = (t % blocks) * N + r + 8 * e;
+      st_next[e] = t < items && row < seq ? stats2[(size_t)(t / blocks) * seq + row]
+                                          : make_float2(0.f, 1.f);
     }
-  }
-}
-
-// C tiles 2j and 2j+1 of a 16 × 64 f32 product, rounded to bf16, are the A
-// fragment of columns 16j .. 16j+15 for the next product.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[kBlock / 16][4], int nt, const float (&x)[4]) {
-  a[nt / 2][(nt & 1) * 2 + 0] = pack_bf16x2(x[0], x[1]);
-  a[nt / 2][(nt & 1) * 2 + 1] = pack_bf16x2(x[2], x[3]);
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int ld, const float (&acc)[D / 8][4],
-                                           int row0, bool in0, bool in1, float mul, int c) {
+  };
+  load_stats(first);
+  int slot = 0, slot_phase = 0, st = 0, phase = 0;
+  int stored = -1;  // the slot whose result tile a TMA store may still be reading
+  for (int t = first; t < items; t += stride) {
+    const int qb = t % blocks, bh = t / blocks, h = bh % H, b = bh / H;
+    const int q0 = qb * N;
+    // in the log2 domain, as the forward: a fully masked row's max is the
+    // sentinel itself, so that its masked keys get 2^0; a row past T gets
+    // m = +inf and 1/l = 0, so that its P is 0
+    float m2[2], inv_l[2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * c;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + col) =
-          pack_bf16x2(acc[dt][0] * mul, acc[dt][1] * mul);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)(row0 + 8) * ld + col) =
-          pack_bf16x2(acc[dt][2] * mul, acc[dt][3] * mul);
-  }
-}
-
-// Pass 1: dQ, and D = rowsum(dP ⊙ P) for pass 2.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-            const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
-            float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq, int H, int seq,
-            float scale, HeadStrides in, HeadStrides out) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBlock * (D + kPad)];
-  __shared__ __align__(16) __nv_bfloat16 Kt[D * (kBlock + kPad)];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBlock * (D + kPad)];
-  __shared__ uint8_t Ms[kBlock];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int row0 = blockIdx.x * kBlock + (tid >> 5) * 16 + g;  // and row0 + 8
-  const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = in.at(blockIdx.z, blockIdx.y), ohead = out.at(blockIdx.z, blockIdx.y);
-  const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  const bool row_in[2] = {row0 < seq, row0 + 8 < seq};
-
-  uint32_t qa[D / 16][4], da[D / 16][4];  // the warp's rows of Q and dO
-  load_a_rows<D>(qa, q + head, in.row, row0, row_in[0], row_in[1], c);
-  load_a_rows<D>(da, dout + ohead, out.row, row0, row_in[0], row_in[1], c);
-  float m[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row_in[i]) {
-      const float2 st = *reinterpret_cast<const float2*>(stats + 2 * (rows + row0 + 8 * i));
-      m[i] = st.x;
-      inv_l[i] = 1.f / st.y;
+    for (int e = 0; e < 2; ++e) {
+      const bool in = q0 + r + 8 * e < seq;
+      m2[e] = !in ? INFINITY : st_next[e].x == -FLT_MAX ? -FLT_MAX : st_next[e].x * kLog2e;
+      inv_l[e] = in ? 1.f / st_next[e].y : 0.f;
     }
-  }
+    load_stats(t + stride);
+    const uint32_t q_t = base + L::kHeld + slot * 2 * L::kTile, do_t = q_t + L::kTile;
+    bar_wait(bar.held_full(slot), slot_phase);
 
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  float part[2] = {0.f, 0.f};  // this lane's share of rowsum(dP ⊙ P)
-  float Drow[2] = {0.f, 0.f};  // set after the first sweep
-  float acc[D / 8][4];
+    float dq[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * kBlock;
-      __syncthreads();  // the previous tile is consumed
-      stage<D>(k + head, in.row, k0, seq, Ks, sweep == 1 ? Kt : nullptr);
-      stage<D>(v + head, in.row, k0, seq, Vs, nullptr);
-      for (int i = tid; i < kBlock; i += kMmaThreads) Ms[i] = k0 + i < seq ? mrow[k0 + i] : 0;
-      __syncthreads();
-
-      float s[kNTiles][4], dp[kNTiles][4];
-      product_rows<D>(s, qa, Ks, g, c);
-      product_rows<D>(dp, da, Vs, g, c);
-      uint32_t dsa[kBlock / 16][4];
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    uint32_t dsa[N / 16][4];  // dS_lo of a tile, the A operand of dS·K
+    float s[N / 2], dp[N / 2];
+    float part[2] = {0.f, 0.f}, drow[2] = {0.f, 0.f};  // this lane's share of D, then D
+    // S = Q Kᵀ and dP = dO Vᵀ of the item's rows and the keys at stage st
+    auto issue_s = [&] {
+      const uint32_t k_t = base + L::kRing + st * 2 * L::kTile;
+      for (int i = 0; i < N / 2; ++i) s[i] = dp[i] = 0.f;
+      keep(s);
+      keep(dp);
+      wgmma_fence();
+      product_ab<D>(s, q_t, k_t);
+      product_ab<D>(dp, do_t, k_t + L::kTile);
+      wgmma_commit();
+    };
+    bar_wait(bar.ring_full(st), phase);
+    issue_s();
+    release_stored(stored, bar);
+    // Step n: the key tile of sweep n / n_tiles at stage st, its S and dP
+    // in flight, and after them the dS·K product of step n − 1 in sweep 1.
+    // Waits for both (the tile's stage before is then free), makes the
+    // tile's P and D's share (sweep 0) or dS and dQ += dS_lo·K (sweep 1),
+    // then issues the next step's S and dP. Nothing stays in flight across
+    // a step's start: issuing the next S and dP before this tile's P (two
+    // tiles' scores in registers, which the 168 registers a thread of a
+    // 384-thread block gets do not hold without spilling) measured slower
+    // at d = 32 and no faster at d = 64. The block's two pipelines overlap
+    // each other's products and exponentials instead.
+    for (int n = 0; n < steps; ++n) {
+      const int sweep = n >= n_tiles, k0 = (n - sweep * n_tiles) * N, cur = st;
+      wgmma_wait<0>();
+      keep(s);
+      keep(dp);
+      keep(dq);
+      keep(dsa);
+      if (sweep == 1 && k0 > 0 && lane == 0)  // the dS·K product of the tile before
+        bar_arrive(bar.ring_empty(cur == 0 ? S - 1 : cur - 1));
+      // the tile's keys' additive terms (key_bias), one a thread
+      const uint8_t* const ex = extra + cur * L::kExtraStride;
+      float* const table = reinterpret_cast<float*>(const_cast<uint8_t*>(ex) + L::kTable);
+      if (tid < N) table[tid] = key_bias(k0 + tid, seq, ex[((b * seq + k0) & 15) + tid]);
+      named_sync(1 + p, 128);
+      // P = 2^(s·scale2 + bias − m2)/l: key 8·(i/4) + 2c + (i & 1) of the
+      // tile holds s[i] of rows r ((i >> 1) & 1 = 0) and r + 8
 #pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        float ds[4];
+      for (int i = 0; i < N / 2; i += 4) {
+        const float2 bias = *reinterpret_cast<const float2*>(table + 8 * (i / 4) + 2 * c);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * c + (e & 1), i = e >> 1;
-          const float x = Ms[col] ? -FLT_MAX : s[nt][e] * scale;
-          const float p = row_in[i] && k0 + col < seq ? expf(x - m[i]) * inv_l[i] : 0.f;
-          if (sweep == 0) part[i] += p * dp[nt][e];
-          ds[e] = sweep == 0 ? 0.f : p * (dp[nt][e] - Drow[i]);
+          const int row = e >> 1;
+          const float x = fmaf(s[i + e], scale2, e & 1 ? bias.y : bias.x);
+          const float pv = exp2_fast(x - m2[row]) * inv_l[row];
+          if (sweep == 0)
+            part[row] += pv * dp[i + e];
+          else
+            dp[i + e] = pv * (dp[i + e] - drow[row]);
         }
-        pack_a(dsa, nt, ds);
       }
-      if (sweep == 1) product_cols<D>(acc, dsa, Kt, g, c);
-    }
-    if (sweep == 0) {
-      Drow[0] = quad_sum(part[0]);
-      Drow[1] = quad_sum(part[1]);
-      if (c == 0) {
-        if (row_in[0]) dsum[rows + row0] = Drow[0];
-        if (row_in[1]) dsum[rows + row0 + 8] = Drow[1];
+      if (sweep == 0) {
+        __syncwarp();  // the warp is done with the stage's mask bytes and table
+        if (lane == 0) bar_arrive(bar.ring_empty(cur));
+        if (k0 + N >= seq) {  // the last tile: D of rows r, r + 8
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            drow[e] = quad_sum(part[e]);
+            if (c == 0 && q0 + r + 8 * e < seq) dsum[(size_t)bh * seq + q0 + r + 8 * e] = drow[e];
+          }
+        }
+      } else {
+        // dQ += dS_lo K (K MN-major) over the 16-key steps that hold a key < T
+        pack_a<N>(dsa, dp);
+        keep(dq);
+        wgmma_fence();
+        const uint32_t k_t = base + L::kRing + cur * 2 * L::kTile;
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+          if (k0 + 16 * kk < seq) wgmma_rs<D, 1>(dq, dsa[kk], mn_major<W>(k_t, kk));
+        wgmma_commit();
+      }
+      advance(st, phase, S);
+      if (n + 1 < steps) {
+        bar_wait(bar.ring_full(st), phase);
+        issue_s();
       }
     }
+    wgmma_wait<0>();
+    keep(dq);
+    keep(dsa);
+    if (lane == 0) bar_arrive(bar.ring_empty(st == 0 ? S - 1 : st - 1));
+
+    // dq rounded into the slot's Q tile, read for the last time, and stored
+    // by TMA; the slot goes back to the producer once the store has read it
+    round_into<D>(q_t, dq, scale, r, c);
+    fence_async_shared();
+    named_sync(1 + p, 128);
+    if (tid == 0) {
+      tma_store_4d(&map_dq, q_t, 0, q0, h, b);
+      bulk_commit();
+    }
+    stored = slot;
+    advance(slot, slot_phase, 2);
   }
-  store_rows<D>(dq + head, in.row, acc, row0, row_in[0], row_in[1], scale, c);
+  release_stored(stored, bar);
+  if (tid == 0) bulk_wait<false>();
 }
 
-// Pass 2: dK and dV. Each warp owns 16 keys and walks the query tiles; the
-// products run transposed (keys as rows), so Sᵀ = K Qᵀ and dPᵀ = V dOᵀ.
+// Pass 2: dK and dV, with pass 1's D. The products run transposed (keys as
+// rows): Sᵀ = K Qᵀ, dPᵀ = V dOᵀ. Maps: q, k, v, dO, dk, dv in boxes of 64
+// rows; the row statistics (B·H·T·2 floats) and D (B·H·T) in boxes of
+// kStatsBox and kDsumBox floats.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
-              const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
-              __nv_bfloat16* __restrict__ dv, int H, int seq, float scale, HeadStrides in,
-              HeadStrides out) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBlock * (D + kPad)];
-  __shared__ __align__(16) __nv_bfloat16 Qt[D * (kBlock + kPad)];
-  __shared__ __align__(16) __nv_bfloat16 Os[kBlock * (D + kPad)];  // dO rows
-  __shared__ __align__(16) __nv_bfloat16 Ot[D * (kBlock + kPad)];  // dO transposed
-  __shared__ float Mq[kBlock], Lq[kBlock], Dq[kBlock];  // m, 1/l, D of the query rows
+__global__ void __launch_bounds__(kPassThreads, 1)
+bwd_dkdv_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+              const __grid_constant__ CUtensorMap map_dk,
+              const __grid_constant__ CUtensorMap map_dv,
+              const __grid_constant__ CUtensorMap map_stats,
+              const __grid_constant__ CUtensorMap map_dsum, const uint8_t* __restrict__ mask,
+              int H, int seq, float scale, int blocks, int items) {
+  using L = PassSmem<D>;
+  constexpr int W = 2 * D, S = L::kStages, N = kTileRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base0 = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint8_t* const smem0 = smem_raw + (base0 - smem_addr(smem_raw));
+  const int n_tiles = (seq + N - 1) / N;
+  init_pass_bars<D>(base0);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int key0 = blockIdx.x * kBlock + (tid >> 5) * 16 + g;  // and key0 + 8
-  const size_t rows = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)seq;
-  const size_t head = in.at(blockIdx.z, blockIdx.y), ohead = out.at(blockIdx.z, blockIdx.y);
-  const uint8_t* mrow = mask + (size_t)blockIdx.z * seq;
-  const bool kin[2] = {key0 < seq, key0 + 8 < seq};
-  const bool masked[2] = {kin[0] && mrow[key0] != 0, kin[1] && mrow[key0 + 8] != 0};
-
-  uint32_t ka[D / 16][4], va[D / 16][4];  // the warp's keys of K and V
-  load_a_rows<D>(ka, k + head, in.row, key0, kin[0], kin[1], c);
-  load_a_rows<D>(va, v + head, in.row, key0, kin[0], kin[1], c);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kBlock;
-    __syncthreads();  // the previous tile is consumed
-    stage<D>(q + head, in.row, q0, seq, Qs, Qt);
-    stage<D>(dout + ohead, out.row, q0, seq, Os, Ot);
-    for (int i = tid; i < kBlock; i += kMmaThreads) {
-      const bool valid = q0 + i < seq;
-      const float2 st = valid ? *reinterpret_cast<const float2*>(stats + 2 * (rows + q0 + i))
-                              : make_float2(0.f, 1.f);
-      Mq[i] = st.x;
-      Lq[i] = valid ? 1.f / st.y : 0.f;
-      Dq[i] = valid ? dsum[rows + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kNTiles][4], dp[kNTiles][4];
-    product_rows<D>(s, ka, Qs, g, c);   // Sᵀ: 16 keys × 64 queries
-    product_rows<D>(dp, va, Os, g, c);  // dPᵀ
-    uint32_t pa[kBlock / 16][4], dsa[kBlock / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * c + (e & 1), i = e >> 1;
-        const float x = masked[i] ? -FLT_MAX : s[nt][e] * scale;
-        p[e] = kin[i] && q0 + col < seq ? expf(x - Mq[col]) * Lq[col] : 0.f;
-        ds[e] = p[e] * (dp[nt][e] - Dq[col]);
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 32 != 0 || threadIdx.x / 32 >= kPipes) return;
+    // lane 0 of warp p feeds pipeline p: each item's K and V, then its
+    // query tiles (Q, dO, and the rows' (m, l) and D from the 16-byte
+    // boundary at or before the tile's first row)
+    const int p = threadIdx.x / 32;
+    const uint32_t base = base0 + p * L::kPipe;
+    const PassBars<D> bar{base + L::kBars};
+    int slot = 0, slot_phase = 0, st = 0, phase = 0;
+    for (int t = kPipes * blockIdx.x + p; t < items; t += kPipes * gridDim.x) {
+      const int kb = t % blocks, h = (t / blocks) % H, b = t / blocks / H;
+      bar_wait(bar.held_empty(slot), slot_phase ^ 1);
+      const uint32_t held = base + L::kHeld + slot * 2 * L::kTile;
+      bar_expect_tx(bar.held_full(slot), 2 * L::kTile);
+      tma_load_4d(held, &map_k, bar.held_full(slot), 0, kb * N, h, b);
+      tma_load_4d(held + L::kTile, &map_v, bar.held_full(slot), 0, kb * N, h, b);
+      advance(slot, slot_phase, 2);
+      const long long rows = (long long)(t / blocks) * seq;  // row 0 of (b, h)
+      for (int j = 0; j < n_tiles; ++j) {
+        bar_wait(bar.ring_empty(st), phase ^ 1);
+        const uint32_t tiles = base + L::kRing + st * 2 * L::kTile;
+        const uint32_t ex = base + L::kExtra + st * L::kExtraStride;
+        const long long row0 = rows + j * N;
+        bar_expect_tx(bar.ring_full(st), 2 * L::kTile + 4 * (kStatsBox + kDsumBox));
+        tma_load_4d(tiles, &map_q, bar.ring_full(st), 0, j * N, h, b);
+        tma_load_4d(tiles + L::kTile, &map_do, bar.ring_full(st), 0, j * N, h, b);
+        tma_load_1d(ex, &map_stats, bar.ring_full(st), (int)((2 * row0) & ~3ll));
+        tma_load_1d(ex + L::kDsum, &map_dsum, bar.ring_full(st), (int)(row0 & ~3ll));
+        advance(st, phase, S);
       }
-      pack_a(pa, nt, p);
-      pack_a(dsa, nt, ds);
     }
-    product_cols<D>(dv_acc, pa, Ot, g, c);
-    product_cols<D>(dk_acc, dsa, Qt, g, c);
+    return;
   }
-  store_rows<D>(dk + head, in.row, dk_acc, key0, kin[0], kin[1], scale, c);
-  store_rows<D>(dv + head, in.row, dv_acc, key0, kin[0], kin[1], 1.f, c);
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int p = threadIdx.x / 128 - 1;
+  const uint32_t base = base0 + p * L::kPipe;
+  const uint8_t* const extra = smem0 + p * L::kPipe + L::kExtra;
+  const PassBars<D> bar{base + L::kBars};
+  const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, c = lane % 4;
+  const int r = 16 * warp + g;  // this lane's keys r and r + 8 of the item's 64
+  const float scale2 = scale * kLog2e;
+  int slot = 0, slot_phase = 0, st = 0, phase = 0;
+  int stored = -1;  // the slot whose result tiles a TMA store may still be reading
+  for (int t = kPipes * blockIdx.x + p; t < items; t += kPipes * gridDim.x) {
+    const int kb = t % blocks, bh = t / blocks, h = bh % H, b = bh / H;
+    const int k0 = kb * N;
+    const long long rows = (long long)bh * seq;
+    // the additive term of keys k0 + r and k0 + r + 8 (key_bias)
+    float bias[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + r + 8 * e;
+      bias[e] = key_bias(key, seq, key < seq ? mask[(size_t)b * seq + key] : 0);
+    }
+    const uint32_t k_t = base + L::kHeld + slot * 2 * L::kTile, v_t = k_t + L::kTile;
+    bar_wait(bar.held_full(slot), slot_phase);
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    uint32_t pa[N / 16][4], dsa[N / 16][4];  // Pᵀ_lo and dSᵀ_lo, the A operands
+    float s[N / 2], dp[N / 2];
+    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ of the item's keys and the rows at stage st
+    auto issue_s = [&] {
+      const uint32_t q_t = base + L::kRing + st * 2 * L::kTile;
+      for (int i = 0; i < N / 2; ++i) s[i] = dp[i] = 0.f;
+      keep(s);
+      keep(dp);
+      wgmma_fence();
+      product_ab<D>(s, k_t, q_t);
+      product_ab<D>(dp, v_t, q_t + L::kTile);
+      wgmma_commit();
+    };
+    bar_wait(bar.ring_full(st), phase);
+    issue_s();
+    release_stored(stored, bar);
+    // Step j: the query tile j at stage st, its Sᵀ and dPᵀ in flight, and
+    // after them the products of step j − 1. Waits for both (the stage
+    // before is then free), makes the tile's Pᵀ and dSᵀ, issues dV +=
+    // Pᵀ_lo·dO and dK += dSᵀ_lo·Q, then the next step's Sᵀ and dPᵀ, as pass
+    // 1 orders its steps.
+    for (int j = 0; j < n_tiles; ++j) {
+      const int q0 = j * N, cur = st;
+      wgmma_wait<0>();
+      keep(s);
+      keep(dp);
+      keep(dk);
+      keep(dv);
+      keep(pa);
+      keep(dsa);
+      if (j > 0 && lane == 0) bar_arrive(bar.ring_empty(cur == 0 ? S - 1 : cur - 1));
+      // the tile's rows' (m·log2(e), 1/l, D), one a thread; a row past T
+      // (whose slots may hold another head's) gets m = +inf, 1/l = 0, D = 0
+      // so that its P and dS are 0
+      const uint8_t* const ex = extra + cur * L::kExtraStride;
+      float4* const table = reinterpret_cast<float4*>(const_cast<uint8_t*>(ex) + L::kTable);
+      if (tid < N) {
+        const float* sts = reinterpret_cast<const float*>(ex) + ((2 * (rows + q0)) & 3);
+        const float* dss = reinterpret_cast<const float*>(ex + L::kDsum) + ((rows + q0) & 3);
+        const bool valid = q0 + tid < seq;
+        const float m = sts[2 * tid];
+        table[tid] = make_float4(!valid ? INFINITY : m == -FLT_MAX ? -FLT_MAX : m * kLog2e,
+                                 valid ? 1.f / sts[2 * tid + 1] : 0.f, valid ? dss[tid] : 0.f,
+                                 0.f);
+      }
+      named_sync(1 + p, 128);
+      // query 8·(i/4) + 2c + (i & 1) of the tile holds s[i] of keys r and
+      // r + 8 ((i >> 1) & 1)
+#pragma unroll
+      for (int i = 0; i < N / 2; i += 4) {
+        const float4 row[2] = {table[8 * (i / 4) + 2 * c], table[8 * (i / 4) + 2 * c + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4& q = row[e & 1];
+          const float pv = exp2_fast(fmaf(s[i + e], scale2, bias[e >> 1]) - q.x) * q.y;
+          s[i + e] = pv;
+          dp[i + e] = pv * (dp[i + e] - q.z);
+        }
+      }
+      // dV += Pᵀ_lo dO and dK += dSᵀ_lo Q (dO and Q MN-major) over the
+      // 16-row steps that hold a query row < T
+      pack_a<N>(pa, s);
+      pack_a<N>(dsa, dp);
+      keep(dk);
+      keep(dv);
+      wgmma_fence();
+      const uint32_t q_t = base + L::kRing + cur * 2 * L::kTile, do_t = q_t + L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        if (q0 + 16 * kk < seq) wgmma_rs<D, 1>(dv, pa[kk], mn_major<W>(do_t, kk));
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        if (q0 + 16 * kk < seq) wgmma_rs<D, 1>(dk, dsa[kk], mn_major<W>(q_t, kk));
+      wgmma_commit();
+      advance(st, phase, S);
+      if (j + 1 < n_tiles) {
+        bar_wait(bar.ring_full(st), phase);
+        issue_s();
+      }
+    }
+    wgmma_wait<0>();
+    keep(dk);
+    keep(dv);
+    keep(pa);
+    keep(dsa);
+    if (lane == 0) bar_arrive(bar.ring_empty(st == 0 ? S - 1 : st - 1));
+
+    // dk, dv rounded into the slot's K and V tiles, read for the last time,
+    // and stored by TMA
+    round_into<D>(k_t, dk, scale, r, c);
+    round_into<D>(v_t, dv, 1.f, r, c);
+    fence_async_shared();
+    named_sync(1 + p, 128);
+    if (tid == 0) {
+      tma_store_4d(&map_dk, k_t, 0, k0, h, b);
+      tma_store_4d(&map_dv, v_t, 0, k0, h, b);
+      bulk_commit();
+    }
+    stored = slot;
+    advance(slot, slot_phase, 2);
+  }
+  release_stored(stored, bar);
+  if (tid == 0) bulk_wait<false>();
 }
 
 // ------------------------------------------------------------ f32, CUDA cores
@@ -843,20 +1131,43 @@ cudaError_t launch_single_pass(const Args& a) {
   return cudaGetLastError();
 }
 
+// Both passes on the caller's stream, pass 2 reading pass 1's D from dsum.
+// Items of 64 rows, two a block at a time on min(⌈items/2⌉, SMs) blocks.
 template <int D>
 cudaError_t launch_two_pass(const Args& a) {
-  using bf = __nv_bfloat16;
-  dim3 grid((a.seq + kBlock - 1) / kBlock, a.H, a.B);
-  bwd_dq_bf16<D><<<grid, kMmaThreads, 0, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
-      a.mask, static_cast<const bf*>(a.dout), a.stats, a.dsum, static_cast<bf*>(a.dq), a.H,
-      a.seq, a.scale, a.in, a.out);
-  cudaError_t err = cudaGetLastError();
+  CUtensorMap mq, mk, mv, mdo, mdq, mdk, mdv, mm, mst, mds;
+  const HeadStrides& i = a.in;
+  const HeadStrides& o = a.out;
+  const long long rows = (long long)a.B * a.H * a.seq;
+  if (!make_head_map(&mq, a.q, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileRows) ||
+      !make_head_map(&mk, a.k, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileRows) ||
+      !make_head_map(&mv, a.v, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileRows) ||
+      !make_head_map(&mdo, a.dout, D, a.seq, a.H, a.B, o.row, o.head, o.batch, kTileRows) ||
+      !make_head_map(&mdq, a.dq, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileRows) ||
+      !make_head_map(&mdk, a.dk, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileRows) ||
+      !make_head_map(&mdv, a.dv, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileRows) ||
+      !make_byte_map(&mm, a.mask, (long long)a.B * a.seq, kTileMaskBox) ||
+      !make_f32_map(&mst, a.stats, 2 * rows, kStatsBox) ||
+      !make_f32_map(&mds, a.dsum, rows, kDsumBox))
+    return cudaErrorInvalidValue;
+  const int blocks = (a.seq + kTileRows - 1) / kTileRows;
+  const long long items = (long long)a.B * a.H * blocks;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  constexpr int smem = PassSmem<D>::kBytes;
+  auto dq_kernel = bwd_dq_bf16<D>;
+  auto dkdv_kernel = bwd_dkdv_bf16<D>;
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_bf16<D><<<grid, kMmaThreads, 0, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
-      a.mask, static_cast<const bf*>(a.dout), a.stats, a.dsum, static_cast<bf*>(a.dk),
-      static_cast<bf*>(a.dv), a.H, a.seq, a.scale, a.in, a.out);
+  err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long pipes = (items + kPipes - 1) / kPipes;
+  const int grid = pipes < sm_count() ? (int)pipes : sm_count();
+  dq_kernel<<<grid, kPassThreads, smem, a.stream>>>(mq, mk, mv, mdo, mdq, mm, a.stats, a.dsum,
+                                                          a.H, a.seq, a.scale, blocks, (int)items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<<<grid, kPassThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, mdk, mdv, mst, mds, a.mask, a.H, a.seq, a.scale, blocks, (int)items);
   return cudaGetLastError();
 }
 
@@ -888,7 +1199,9 @@ cudaError_t launch_f32(const Args& a) {
 }  // namespace flash_bwd
 
 // Which kernel takes a backward: the one place that chooses, for the flash
-// path and the fused block alike.
+// path and the fused block alike. f32 on CUDA cores at any T; bf16 in one
+// block per (batch, head) while a head's S and dP fit a block (T ≤ 128),
+// else in the two TMA + wgmma passes over 64-row items, at any T.
 enum FlashBwdRoute { kBwdFma = 0, kBwdSinglePass = 1, kBwdTwoPass = 2, kBwdNone = -1 };
 inline int flash_bwd_route(int seq, int head_dim, int dtype) {
   if (seq <= 0 || (head_dim != 32 && head_dim != 64)) return kBwdNone;
@@ -901,8 +1214,9 @@ inline int flash_bwd_route(int seq, int head_dim, int dtype) {
 // (0 = launched); cudaErrorInvalidValue for a shape or type it does not take.
 // q, k, v, dq, dk, dv at `in` and dout at `out` (see HeadStrides; rows
 // 16-byte aligned); mask contiguous (B, T) bytes; stats the forward's
-// (B, H, T, 2) f32 row (m, l); dsum (B, H, T) f32 scratch that the two-pass
-// route's first pass fills and its second reads (unused at T ≤ 128 in bf16).
+// (B, H, T, 2) f32 row (m, l), 16-byte aligned; dsum (B, H, T) f32 scratch,
+// 16-byte aligned, that the two-pass routes' first pass fills with D and
+// their second reads (unused at T ≤ 128 in bf16).
 inline cudaError_t flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const uint8_t* mask, const void* dout, const float* stats,
                                        float* dsum, void* dq, void* dk, void* dv, int B, int H,

@@ -5,7 +5,8 @@
 //     phase;
 //   * TMA (cp.async.bulk.tensor) loads into shared memory counted on an
 //     mbarrier, and stores from shared memory in the block's bulk group, for
-//     2-D maps (row-major matrices) and rank-4 maps (per-head tensors);
+//     2-D maps (row-major matrices), rank-4 maps (per-head tensors) and
+//     flat 1-D maps (mask bytes, row statistics);
 //   * wgmma: shared-memory descriptors for 128- and 64-byte swizzled tiles,
 //     fence, commit and wait, the products with both operands in shared
 //     memory (SS, either one K- or MN-major through the transpose bits) and
@@ -415,20 +416,27 @@ inline bool make_head_map(CUtensorMap* map, const void* p, int d, int seq, int H
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A flat byte array (the mask) of n bytes cut in boxes of `box` bytes (a
-// multiple of 16), zeros past its end. A box must start on a 16-byte
-// boundary of the array.
-inline bool make_byte_map(CUtensorMap* map, const void* p, long long n, int box) {
+// A flat array of n elements of `type` (the mask's bytes, or f32 row
+// statistics) cut in boxes of `box` elements (box · element size a multiple
+// of 16 bytes), zeros past its end. A box must start on a 16-byte boundary
+// of the array.
+inline bool make_flat_map(CUtensorMap* map, const void* p, long long n, int box,
+                          CUtensorMapDataType type) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(p) % 16 || n <= 0 || n >= (1ll << 32)) return false;
   const cuuint64_t dims[1] = {(cuuint64_t)n};
   const cuuint64_t strides[1] = {0};  // none for rank 1
   const cuuint32_t boxes[1] = {(cuuint32_t)box};
   const cuuint32_t elem[1] = {1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
-            const_cast<void*>(p), dims, strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, type, 1, const_cast<void*>(p), dims, strides, boxes, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+inline bool make_byte_map(CUtensorMap* map, const void* p, long long n, int box) {
+  return make_flat_map(map, p, n, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+}
+inline bool make_f32_map(CUtensorMap* map, const void* p, long long n, int box) {
+  return make_flat_map(map, p, n, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 }  // namespace hopper

@@ -16,7 +16,8 @@ zero it. A CUDA tensor always goes to the kernels (bf16 or f32,
 d ∈ {32, 64}; anything else raises); a CPU tensor goes to the plain
 versions. The bf16 backward has two routes, chosen by the library
 (``flash_attention_bwd_route``): one block per (batch, head) at T ≤ 128,
-two passes above.
+two passes of 64-row items above (dQ and each row's D, then dK and dV),
+both on TMA and wgmma.
 """
 
 from __future__ import annotations
@@ -182,8 +183,9 @@ BWD_ROUTES = {0: "fma", 1: "single_pass", 2: "two_pass"}
 def flash_attention_bwd_route(t: int, head_dim: int, dtype: torch.dtype) -> str:
     """Which kernel ``flash_attention_bwd`` (and the fused block's backward)
     runs at sequence length t: "fma" (f32), "single_pass" (bf16, T ≤ 128,
-    one block per (batch, head)) or "two_pass" (bf16 above). The library
-    decides; this asks it, so it needs the card's build."""
+    one block per (batch, head)) or "two_pass" (bf16 above: 64-row items,
+    dQ and D, then dK and dV). The library decides; this asks it, so it
+    needs the card's build."""
     code = _route_fn()(t, head_dim, _DTYPE_CODES.get(dtype, -1))
     if code not in BWD_ROUTES:
         raise ValueError(f"no backward kernel for T={t}, head_dim={head_dim}, {dtype}")

@@ -29,7 +29,10 @@ import torch
 
 from wavjepa_tpu_torch.ops import _build
 
-SHAPES = [(1024, 12, 128, 32), (256, 12, 200, 64), (256, 12, 88, 64), (40, 12, 200, 64)]
+SHAPES = [(1024, 12, 128, 32), (256, 12, 200, 64), (256, 12, 88, 64), (40, 12, 200, 64),
+          # the backward's two-pass route (T > 128): WavJEPA-Nat's decoder and
+          # encoder microbatches, the denoiser's student, and one row past 128
+          (64, 12, 256, 32), (32, 12, 200, 64), (16, 12, 176, 64), (16, 12, 129, 64)]
 ORDER = ("other", "this", "this", "other", "other", "this")
 REL = 1e-2  # bf16 outputs: about one bf16 ulp of the largest value
 
