@@ -147,7 +147,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             and one Nat step, against one process at the same seed: f32
             losses and gradient norms within phase 6's limits, weights and
             teacher bit for bit equal on both ranks, the bf16 and Nat loss
-            differences printed.
+            differences printed;
+14. tensor parallel  (a) ``train_jepa`` on configs/large.yaml as resolved
+            (24 × 1024 encoder, 12 × 384 predictor, 8 clips × 8 crops in
+            bf16, one pass) at world size 1: its step p50, clips/s, MFU,
+            peak memory, exactly 60 flash forward and 36 backward launches
+            a step, and a HEAR request served from its checkpoint; (b)
+            ``trainer.model_parallel=2`` as two gloo ranks on the one card
+            (``--tp-worker``) at the large widths, depth cut to 4 + 2
+            layers, against one process at the same seed: 3 f32 steps
+            within phase 6's limits and step-1 gradients leaf by leaf at
+            rtol 1e-5, atol 1e-6, replicated leaves and whole weights bit
+            for bit equal on both ranks, 3 bf16 steps and one fused-block
+            step with their differences, the flash kernels at 8 and 6 local
+            heads and the fused ones at A = 512 and 192. Phase 2 also holds
+            the fused kernels at those rank shapes (``FUSED_TP_SHAPES``).
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -166,6 +180,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -196,7 +211,9 @@ STEP_GRAD_NORM_REL = 1e-3
 STEP_PARAM_ATOL_LR = 0.1  # × lr
 STEP_TEACHER_ATOL = 1e-6
 STEP_BF16_LOSS_REL = 5e-2  # bf16 step vs f32 step on the card, loss
-TRAIN_STEPS, TRAIN_WARMUP = 6, 2  # train phase: steps, and those left out of the p50
+# train phase: steps (cut from 6 for the script's time), and those left out
+# of the p50
+TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 TRAIN_STEPS_ONE_PASS = 3
 # the fused block against its plain version, relative to max(1, max |plain|):
 # bf16 two roundings (qkv, then o) ahead of the last product, each of which
@@ -254,18 +271,20 @@ EVAL_DIR = os.path.join("build", "chip_smoke_eval")
 HEAR_DIR = os.path.join("build", "chip_smoke_hear")
 W2V2_STEP_MS, W2V2_STEP_REL = 20.0, 0.01
 # grid points of predictions --grid faster a task: all 8 for the scene task;
-# 2 for the event task, whose 36 train clips of 120 s are ~430k probe rows
-# (~420 steps an epoch)
-HEAR_GRID_POINTS = {"scene": 8, "event": 2}
+# 1 for the event task, whose 36 train clips of 120 s are ~430k probe rows
+# (~420 steps an epoch; cut from 2 for the script's time)
+HEAR_GRID_POINTS = {"scene": 8, "event": 1}
 # phase 12 (ARCH and X-ARES): ESC-50 at its size under build/ (~880 MB of
 # 44.1-kHz PCM16, deleted at the end); the probes' epochs a mode, cut for time
 # from the CLI's 100; the in-memory X-ARES clips (train, test) a task
 ARCH_DIR = os.path.join("build", "chip_smoke_arch")
-ARCH_EPOCHS = {"linear": 20, "non-linear": 20, "attention-pooling": 5}
+ARCH_EPOCHS = {"linear": 10, "non-linear": 10, "attention-pooling": 3}
 XARES_CLIPS = {"esc50": (300, 100), "fsd50k": (160, 80)}
 XARES_REQUEST = (4, 10.0)  # the encoder request timed: 4 clips of 10 s
 # a run still going after this many seconds prints every thread's stack and
-# exits non-zero, inside the 1200 s a run may take
+# exits non-zero, inside the 1200 s a run may take (the imports before it
+# take a few seconds); host speed moves the host-bound phases by up to 40%
+# between NVIDIA H100 80GB HBM3 machines at 700 W (PERF.md, section 4)
 WATCHDOG_S = 1100
 
 # (name, B, H, T): the windowed batch of 8 clips of 10 s (40 windows of 200
@@ -299,6 +318,16 @@ FUSED_BWD_SHAPES = [
     ("odd_rows", 3, 99, 384, 12),
     # the unpacked 200-token encoder: its core takes the two-pass route
     ("unpacked_encoder_t200", 16, 200, 768, 12),
+]
+# (name, B, T, D, heads, head_dim) of a tensor-parallel rank's block at
+# trainer.model_parallel=2 on the large configuration: a subset of the heads,
+# attention width A = heads·head_dim below D, and no output bias (the
+# transformer adds it after the ranks' sum). The packed student encoder's
+# microbatch (8 of 16 heads of 64, A = 512) and the packed decoder's (6 of
+# 12 heads of 32, A = 192: dWo is 384 × 192, not a whole number of 128-wide
+# tiles); forward and backward
+FUSED_TP_SHAPES = [
+    ("tp2_large_encoder_mb", 16, 88, 1024, 8, 64), ("tp2_decoder_mb", 64, 128, 384, 6, 32),
 ]
 # the training path's attention, AudioSet configuration (256 crops): the
 # packed student encoder, the packed decoder (4 groups a crop) and the
@@ -526,34 +555,40 @@ def phase_train_kernels() -> tuple[list[dict], list[dict]]:
     return fwd_rows, bwd_rows
 
 
-def fused_bound(b: int, t: int, d: int, elem: int, backward: bool) -> tuple[float, str]:
-    """Least time for the fused block. Forward: x read and out written once,
-    the weights (4·D²) and the mask read once, against 8·B·T·D² operations
-    for the projections and 4·B·T²·D for attention. Backward: x and g read,
-    dx written, the weights read and their f32 gradients written, against
-    22·B·T·D² (the recomputed QKV, dO, dx, dWqkv, dWo) and 12·B·T²·D (the
+def fused_bound(b: int, t: int, d: int, elem: int, backward: bool,
+                a: int = None) -> tuple[float, str]:
+    """Least time for the fused block at model width D and attention width
+    A (D by default). Forward: x read and out written once, the weights
+    (4·D·A) and the mask read once, against 8·B·T·D·A operations for the
+    projections and 4·B·T²·A for attention. Backward: x and g read, dx
+    written, the weights read and their f32 gradients written, against
+    22·B·T·D·A (the recomputed QKV, dO, dx, dWqkv, dWo) and 12·B·T²·A (the
     recomputed Q·Kᵀ and P·V, then dP, dV, dQ, dK)."""
+    a = d if a is None else a
     if backward:
-        bytes_moved = 3 * b * t * d * elem + 4 * d * d * (elem + 4) + b * t
+        bytes_moved = 3 * b * t * d * elem + 4 * d * a * (elem + 4) + b * t
     else:
-        bytes_moved = 2 * b * t * d * elem + 4 * d * d * elem + b * t
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, fused_ops(b, t, d, backward) / BF16_FLOPS_PER_S
+        bytes_moved = 2 * b * t * d * elem + 4 * d * a * elem + b * t
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = fused_ops(b, t, d, backward, a) / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def fused_ops(b: int, t: int, d: int, backward: bool) -> int:
+def fused_ops(b: int, t: int, d: int, backward: bool, a: int = None) -> int:
     """Operations of the fused block: the products and attention."""
+    a = d if a is None else a
     if backward:
-        return 22 * b * t * d * d + 12 * b * t * t * d
-    return 8 * b * t * d * d + 4 * b * t * t * d
+        return 22 * b * t * d * a + 12 * b * t * t * a
+    return 8 * b * t * d * a + 4 * b * t * t * a
 
 
-def fused_inputs(b, t, d, heads, seed):
+def fused_inputs(b, t, d, heads, seed, hd=None):
     """x, the kernel-layout weights (scaled so that activations stay near
-    unit size), a mask with a fully masked first row and a clean last row,
-    and an upstream gradient g, drawn on the card in f32."""
+    unit size) of ``heads`` heads of ``hd`` (D/heads by default), a mask
+    with a fully masked first row and a clean last row, and an upstream
+    gradient g, drawn on the card in f32."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    hd = d // heads
+    hd = d // heads if hd is None else hd
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
     x, grad = rnd(b, t, d), rnd(b, t, d)
     weights = [rnd(heads, d, 3 * hd) / d ** 0.5, 0.1 * rnd(heads, 1, 3 * hd),
@@ -575,15 +610,18 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
 
     def torch_layout(wqkv, bqkv, wo, bo):
         """The block's weights as the torch module holds them, which is how
-        the kernels and F.linear take them."""
-        return [w.contiguous() for w in (*fab.unpack_weights(wqkv, bqkv, wo), bo.reshape(-1))]
+        the kernels and F.linear take them (no output bias: None)."""
+        return [None if w is None else w.contiguous()
+                for w in (*fab.unpack_weights(wqkv, bqkv, wo),
+                          None if bo is None else bo.reshape(-1))]
 
     def library_chain(x, w_in, b_in, w_out, bo, keep, heads):
-        b, t, d = x.shape
-        qkv = F.linear(x, w_in, b_in).view(b, t, 3, heads, d // heads)
+        b, t, _ = x.shape
+        a = w_in.shape[0] // 3
+        qkv = F.linear(x, w_in, b_in).view(b, t, 3, heads, a // heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
-        return F.linear(o.transpose(1, 2).reshape(b, t, d), w_out, bo)
+        return F.linear(o.transpose(1, 2).reshape(b, t, a), w_out, bo)
 
     def check(name, key, outs, refs, rel, row):
         """Records max |kernel − plain| over the outputs, and its largest
@@ -599,12 +637,16 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
         row[f"max_abs_err_{key}"], row[f"scaled_err_{key}"] = max(errs), max(ratios)
 
     fwd_rows = []
-    for i, (name, b, t, d, heads) in enumerate(FUSED_FWD_SHAPES):
-        x, weights, mask, _ = fused_inputs(b, t, d, heads, seed=300 + i)
-        row = {"shape": name, "B": b, "T": t, "D": d, "H": heads, "hd": d // heads}
+    for i, (name, b, t, d, heads, *tp) in enumerate(FUSED_FWD_SHAPES + FUSED_TP_SHAPES):
+        hd = tp[0] if tp else d // heads
+        a = heads * hd  # < D: a tensor-parallel rank's heads, no output bias
+        x, weights, mask, _ = fused_inputs(b, t, d, heads, seed=300 + i, hd=hd)
+        row = {"shape": name, "B": b, "T": t, "D": d, "H": heads, "hd": hd, "A": a}
         for dtype, rel, key in ((torch.float32, FUSED_F32_REL, "f32"),
                                 (torch.bfloat16, FUSED_BF16_REL, "bf16")):
             xx, (w1, b1, w2, b2) = x.to(dtype), [w.to(dtype) for w in weights]
+            if a < d:
+                b2 = None
             params = torch_layout(w1, b1, w2, b2)
             out = fab.fused_attention_block_fwd(xx, *params, mask, heads)
             ref = fab.fused_attention_block_reference(xx, w1, b1, w2, b2, mask)
@@ -615,9 +657,10 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
             xx, w1, b1, w2, b2, mask))
         row["library_ms"] = cuda_ms(lambda: library_chain(xx, *params, ~mask[:, None, None, :],
                                                           heads))
-        row["bound_ms"], row["bound_by"] = fused_bound(b, t, d, 2, backward=False)
-        row["tflops"] = fused_ops(b, t, d, backward=False) / row["ms"] / 1e9
-        print(f"[kernels] fused_attention_block_fwd {name} (B={b}, T={t}, D={d}, H={heads}): "
+        row["bound_ms"], row["bound_by"] = fused_bound(b, t, d, 2, backward=False, a=a)
+        row["tflops"] = fused_ops(b, t, d, backward=False, a=a) / row["ms"] / 1e9
+        print(f"[kernels] fused_attention_block_fwd {name} (B={b}, T={t}, D={d}, H={heads}, "
+              f"A={a}): "
               f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g} (scaled "
               f"{row['scaled_err_f32']:.3g} / {row['scaled_err_bf16']:.3g}); "
               f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -626,10 +669,12 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
         fwd_rows.append(row)
 
     bwd_rows = []
-    for i, (name, b, t, d, heads) in enumerate(FUSED_BWD_SHAPES):
-        x, weights, mask, grad = fused_inputs(b, t, d, heads, seed=400 + i)
-        row = {"shape": name, "B": b, "T": t, "D": d, "H": heads, "hd": d // heads,
-               "core_bwd_route_bf16": flash_attention_bwd_route(t, d // heads, torch.bfloat16)}
+    for i, (name, b, t, d, heads, *tp) in enumerate(FUSED_BWD_SHAPES + FUSED_TP_SHAPES):
+        hd = tp[0] if tp else d // heads
+        a = heads * hd
+        x, weights, mask, grad = fused_inputs(b, t, d, heads, seed=400 + i, hd=hd)
+        row = {"shape": name, "B": b, "T": t, "D": d, "H": heads, "hd": hd, "A": a,
+               "core_bwd_route_bf16": flash_attention_bwd_route(t, hd, torch.bfloat16)}
         for dtype, rel, key in ((torch.float32, FUSED_F32_REL, "f32"),
                                 (torch.bfloat16, FUSED_BF16_REL, "bf16")):
             xx, gg = x.to(dtype), grad.to(dtype)
@@ -664,9 +709,10 @@ def phase_fused_kernels() -> tuple[list[dict], list[dict]]:
                                                       leaves, gg))
         row["library_ms"] = both_ms - fwd_ms
         row["library_fwd_bwd_ms"], row["library_fwd_ms"] = both_ms, fwd_ms
-        row["bound_ms"], row["bound_by"] = fused_bound(b, t, d, 2, backward=True)
-        row["tflops"] = fused_ops(b, t, d, backward=True) / row["ms"] / 1e9
-        print(f"[kernels] fused_attention_block_bwd {name} (B={b}, T={t}, D={d}, H={heads}): "
+        row["bound_ms"], row["bound_by"] = fused_bound(b, t, d, 2, backward=True, a=a)
+        row["tflops"] = fused_ops(b, t, d, backward=True, a=a) / row["ms"] / 1e9
+        print(f"[kernels] fused_attention_block_bwd {name} (B={b}, T={t}, D={d}, H={heads}, "
+              f"A={a}): "
               f"err f32 {row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g} (scaled "
               f"{row['scaled_err_f32']:.3g} / {row['scaled_err_bf16']:.3g}, masked row dx "
               f"{row['masked_row_dx_err_bf16']:.3g}), bitwise repeatable; bf16 "
@@ -2743,11 +2789,12 @@ def worker_torchrun_cli(out: str, train_dir: str, denoise_dir: str) -> int:
     return 0
 
 
-def weights_digest(module) -> str:
+def weights_digest(tensors: dict) -> str:
+    """sha256 of a state dict's names and bytes."""
     import hashlib
 
     h = hashlib.sha256()
-    for k, v in module.state_dict().items():
+    for k, v in tensors.items():
         h.update(k.encode())
         h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
@@ -2782,8 +2829,9 @@ def parallel_leg(items: list, steps: int) -> dict:
             norms.append(float(m["grad_norm"]))
     finally:
         batches.close()
-    record = {"losses": losses, "grad_norms": norms, "weights": weights_digest(state.model),
-              "teacher": weights_digest(state.teacher_encoder)}
+    record = {"losses": losses, "grad_norms": norms,
+              "weights": weights_digest(state.model.state_dict()),
+              "teacher": weights_digest(state.teacher_encoder.state_dict())}
     del state, step_fn
     torch.cuda.empty_cache()
     return record
@@ -2813,11 +2861,11 @@ def worker_gloo(out: str, port: int, rank: int) -> int:
     return 0
 
 
-def run_workers(cmds: dict, timeout: float) -> None:
-    """Run each command (its output to ``PARALLEL_DIR/<name>.log``) and wait
-    for all; one that fails, or the time limit, ends the rest. Raises with
+def run_workers(cmds: dict, timeout: float, log_dir: str = PARALLEL_DIR) -> None:
+    """Run each command (its output to ``log_dir/<name>.log``) and wait for
+    all; one that fails, or the time limit, ends the rest. Raises with
     their output unless every one exited 0."""
-    logs = {k: os.path.join(PARALLEL_DIR, f"{k.replace(' ', '_')}.log") for k in cmds}
+    logs = {k: os.path.join(log_dir, f"{k.replace(' ', '_')}.log") for k in cmds}
     procs = {}
     for k, cmd in cmds.items():
         with open(logs[k], "w") as log:
@@ -2990,6 +3038,295 @@ def phase_parallel(counters: dict, train: dict) -> dict:
     return record
 
 
+# phase 14 (tensor parallel): configs/large.yaml as overrides (the card's
+# machine has no PyYAML): the 24 × 1024 encoder (16 heads) and the 12 × 384
+# predictor, 8 clips × 8 crops a step in bf16, one pass by the resolved rule
+LARGE_OVERRIDES = ("data.name=AudioSet", "trainer.size=large", "trainer.batch_size=8",
+                   "trainer.precision=bf16")
+LARGE_STEPS = 5  # (a): the first TRAIN_WARMUP left out of the p50
+TP_DIR = os.path.join("build", "chip_smoke_tp")
+TP = 2  # (b): trainer.model_parallel, two gloo ranks on the one card
+TP_STEPS = 3
+# (b)'s one cut: the large widths at 4 encoder and 2 predictor layers (24
+# and 12 as configured), which every rank's all-reduces of activations
+# through the host (gloo) would otherwise stretch past the phase's time
+TP_ENCODER_LAYERS, TP_DECODER_LAYERS = 4, 2
+# step-1 gradients, two ranks against one process, leaf by leaf:
+# MULTICHIP_r05.json's gate (f32, the row-split products summed in another
+# order); the bf16 step's loss within phase 6's bf16 limit of the f32 one's
+TP_GRAD_RTOL, TP_GRAD_ATOL = 1e-5, 1e-6
+
+
+def tp_leg(items: list, stops: tuple, save_dir: str, grads_to: str = "") -> dict:
+    """``train_jepa`` on configs/large.yaml (synthetic clips, depth cut by
+    ``run_tp_legs``) with ``items``, run from ``save_dir`` to each step of
+    ``stops`` in turn: every run after the first resumes from the checkpoint
+    that the one before it ended with (rank 0's file of the state that every
+    rank gathered, cut again on restore). The digests of the whole weights
+    and of the replicated leaves this rank holds; ``grads_to`` keeps the
+    whole step-1 gradients (after the clip) there. Rank 0's metrics stay in
+    ``save_dir``."""
+    from wavjepa_tpu_torch.parallel.mesh import gather_params, tp_rule
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.loop import train_jepa
+
+    cfg = apply_overrides(Config(), [*LARGE_OVERRIDES, "data.synthetic=true",
+                                     "optimizer.warmup_steps=2", "trainer.log_every=1",
+                                     "trainer.keep_ckpts=1", f"trainer.save_dir={save_dir}",
+                                     *items])
+    for i, stop in enumerate(stops):
+        state = train_jepa(cfg, max_steps=stop, device="cuda")
+        if i == 0 and grads_to:
+            grads = gather_params({k: p.grad for k, p in state.model.named_parameters()})
+            torch.save({k: v.detach().cpu() for k, v in grads.items()}, grads_to)
+    replicated = {k: v for k, v in state.model.named_parameters() if tp_rule(k) is None}
+    record = {"weights": weights_digest(state.weights()),
+              "replicated": weights_digest(replicated)}
+    del state
+    torch.cuda.empty_cache()
+    return record
+
+
+# (b)'s legs: (overrides, the steps each run of the leg stops at, keep the
+# step-1 gradients)
+TP_LEGS = {"f32": (["trainer.precision=f32"], (1, TP_STEPS), True),
+           "bf16": ([], (TP_STEPS,), False),
+           "fused": (["trainer.attn_impl=fused_block"], (1,), False)}
+
+
+def run_tp_legs(mp: int, run: str, grads: str) -> dict:
+    """Every leg of TP_LEGS at ``trainer.model_parallel`` ``mp`` under
+    ``TP_DIR/run`` (the f32 leg's step-1 gradients to ``grads``), at the model depth of
+    TP_ENCODER_LAYERS and TP_DECODER_LAYERS (the configuration's model
+    cut where ``build_run`` asks for it), with the local head counts that
+    the transformer hands the flash kernels and the attention widths it
+    hands the fused ones (read where it calls them; the counted wrappers
+    stay as they are)."""
+    from wavjepa_tpu_torch.ops import transformer
+    from wavjepa_tpu_torch.train.config import Config
+
+    seen = {"flash_heads": set(), "fused_widths": set()}
+    flash, fused = transformer.flash_attention, transformer.fused_self_attention
+    whole = Config.build_model_config
+
+    def flash_spy(q, *args, **kw):
+        seen["flash_heads"].add(q.shape[1])
+        return flash(q, *args, **kw)
+
+    def fused_spy(x, w_in, *args, **kw):
+        seen["fused_widths"].add(w_in.shape[0] // 3)
+        return fused(x, w_in, *args, **kw)
+
+    def cut(self):
+        return dataclasses.replace(
+            whole(self), size="base", encoder_layers=TP_ENCODER_LAYERS,
+            decoder_layers=TP_DECODER_LAYERS, average_top_k_layers=TP_ENCODER_LAYERS)
+
+    transformer.flash_attention, transformer.fused_self_attention = flash_spy, fused_spy
+    Config.build_model_config = cut
+    try:
+        record = {name: tp_leg([*items, f"trainer.model_parallel={mp}"], stops,
+                               os.path.join(TP_DIR, run, name), grads if keep else "")
+                  for name, (items, stops, keep) in TP_LEGS.items()}
+    finally:
+        transformer.flash_attention, transformer.fused_self_attention = flash, fused
+        Config.build_model_config = whole
+    record.update({k: sorted(v) for k, v in seen.items()})
+    return record
+
+
+def worker_tp(out: str, port: int, rank: int) -> int:
+    """Phase 14(b), one of two ranks on the one card in a gloo group made
+    here, at trainer.model_parallel=2: every leg of TP_LEGS, their launches
+    counted."""
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=TP,
+                            rank=rank)
+    counters = launch_counters()
+    record = {}
+    record["launches"] = counted_run(counters, lambda: record.update(
+        run_tp_legs(TP, "tp2", os.path.join(TP_DIR, f"grads_rank{rank}.pt"))))
+    with open(out, "w") as f:
+        json.dump(record, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def logged(save_dir: str) -> dict:
+    """The steps, losses and gradient norms in a run's metrics (rank 0's)."""
+    files = sorted(Path(save_dir).rglob("metrics.jsonl"))
+    if len(files) != 1:
+        raise AssertionError(f"{save_dir}: metrics files {files}")
+    lines = [json.loads(x) for x in files[0].read_text().splitlines()]
+    return {k: [x[key] for x in lines] for k, key in
+            (("steps", "step"), ("losses", "loss"), ("grad_norms", "grad_norm"))}
+
+
+def phase_tensor_parallel(counters: dict) -> dict:
+    """Phase 14: (a) the first train step at large width on the card:
+    train_jepa on configs/large.yaml as resolved at world size 1, bf16 on
+    synthetic clips: step p50, clips/s, MFU, peak memory, exactly 60
+    forward and 36 backward flash launches a step (24 + 24 + 12 layers
+    forward, 24 + 12 backward), the teacher moving less than the student,
+    a HEAR request served from its checkpoint; (b) trainer.model_parallel=2
+    as two gloo ranks on the one card, each through ``train_jepa`` (its
+    ``build_run``, the loop's broadcast of a group's batch, its checkpoints)
+    at the large widths (depth cut, see TP_ENCODER_LAYERS), against one
+    process at the same seed: the f32 run stopped after step 1 and resumed
+    from its checkpoint, its losses and gradient norms within phase 6's
+    limits, step-1 gradients leaf by leaf at MULTICHIP_r05.json's gate, the
+    replicated leaves and the whole weights bit for bit equal on both
+    ranks, the last checkpoint served beside the one process's; the bf16
+    steps' differences held to phase 6's bf16 limit; the flash kernels at 8
+    and 6 local heads and, with attn_impl=fused_block, the fused kernels at
+    A = 512 and 192."""
+    import shutil
+    import socket
+
+    from wavjepa_tpu_torch.api.runtime import load_model
+
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    torch.cuda.empty_cache()
+    record = {"card": card_line()}
+    # (a)
+    large = phase_train(counters, [("large", list(LARGE_OVERRIDES), LARGE_STEPS,
+                                    dict(zip(counters, (60, 36, 0, 0))), True)])["large"]
+    if large["accum_steps"] != 1:
+        raise AssertionError(f"large: {large['accum_steps']} microbatches, expected one pass")
+    large["launches_per_step"] = {k: n // LARGE_STEPS for k, n in large["launches"].items()}
+    record["large"] = large
+    print(f"[tensor parallel] (a) large, world size 1: step p50 {large['step_p50_ms']:.1f} ms, "
+          f"{large['clips_per_s']:.2f} clips/s, MFU {large['mfu']:.4f}, peak memory "
+          f"{large['max_memory_allocated_bytes'] / 2**30:.2f} GiB, launches a step "
+          f"{large['launches_per_step']}; {record['card']}", flush=True)
+    torch.cuda.empty_cache()
+    # (b)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    me = os.path.abspath(__file__)
+    outs = [os.path.join(TP_DIR, f"rank{r}.json") for r in range(TP)]
+    cmds = {f"tp rank {r}": [sys.executable, me, "--tp-worker", outs[r], str(port), str(r)]
+            for r in range(TP)}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # the ranks beside one process
+        waiter = pool.submit(run_workers, cmds, 400, TP_DIR)
+        alone = run_tp_legs(1, "alone", os.path.join(TP_DIR, "grads_alone.pt"))
+        waiter.result()
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    b = {"alone": alone, "ranks": ranks, "seconds": time.perf_counter() - t0,
+         "cut": {"encoder_layers": [24, TP_ENCODER_LAYERS],
+                 "decoder_layers": [12, TP_DECODER_LAYERS]}}
+    enc, dec = TP_ENCODER_LAYERS, TP_DECODER_LAYERS
+    auto_steps = sum(stops[-1] for name, (_, stops, _) in TP_LEGS.items() if name != "fused")
+    fused_steps = TP_LEGS["fused"][1][-1]
+    per_rank = dict(zip(counters, ((2 * enc + dec) * auto_steps, (enc + dec) * auto_steps,
+                                   (2 * enc + dec) * fused_steps, (enc + dec) * fused_steps)))
+    for r, seen in enumerate(ranks):
+        if seen["launches"] != per_rank:
+            raise AssertionError(f"tp rank {r}: launches {seen['launches']}, expected {per_rank}")
+        if seen["flash_heads"] != [6, 8] or seen["fused_widths"] != [192, 512]:
+            raise AssertionError(f"tp rank {r}: flash at {seen['flash_heads']} local heads, "
+                                 f"fused at widths {seen['fused_widths']}")
+        for name in TP_LEGS:
+            for part in ("weights", "replicated"):
+                if seen[name][part] != ranks[0][name][part]:
+                    raise AssertionError(f"tp {name}: rank {r}'s {part} differ from rank 0's")
+    if alone["flash_heads"] != [12, 16] or alone["fused_widths"] != [384, 1024]:
+        raise AssertionError(f"tp one process: heads {alone['flash_heads']}, widths "
+                             f"{alone['fused_widths']}")
+    # the metrics rank 0 and the one process logged: a step each, the f32
+    # runs' steps 2 and 3 after the resume from step 1
+    logs = {run: {name: logged(os.path.join(TP_DIR, run, name)) for name in TP_LEGS}
+            for run in ("tp2", "alone")}
+    for run, legs in logs.items():
+        for name, seen in legs.items():
+            if (seen["steps"] != list(range(1, TP_LEGS[name][1][-1] + 1))
+                    or not all(np.isfinite(seen["losses"]))):
+                raise AssertionError(f"tp {run} {name}: logged {seen}")
+    b["logged"] = logs
+
+    def rel(leg, key):
+        return max(abs(x - y) / abs(y) for x, y in zip(logs["tp2"][leg][key],
+                                                       logs["alone"][leg][key]))
+
+    b["f32_loss_rel"], b["f32_grad_norm_rel"] = rel("f32", "losses"), rel("f32", "grad_norms")
+    if not (b["f32_loss_rel"] <= STEP_LOSS_REL and b["f32_grad_norm_rel"] <= STEP_GRAD_NORM_REL):
+        raise AssertionError(f"tp f32, two ranks vs one process: loss rel {b['f32_loss_rel']} "
+                             f"(limit {STEP_LOSS_REL}), grad_norm rel {b['f32_grad_norm_rel']} "
+                             f"(limit {STEP_GRAD_NORM_REL})")
+    want = torch.load(os.path.join(TP_DIR, "grads_alone.pt"))
+    worst, worst_leaf = 0.0, ""
+    for r in range(TP):
+        got = torch.load(os.path.join(TP_DIR, f"grads_rank{r}.pt"))
+        if got.keys() != want.keys():
+            raise AssertionError(f"tp rank {r}: gradient leaves differ from one process's")
+        for k, w in want.items():
+            g = got[k].double()
+            excess = ((g - w.double()).abs() / (TP_GRAD_ATOL + TP_GRAD_RTOL * w.double().abs())
+                      ).max().item()
+            if excess > worst:
+                worst, worst_leaf = excess, f"rank {r} {k}"
+    b["step1_grad_worst_over_limit"], b["step1_grad_worst_leaf"] = worst, worst_leaf
+    b["step1_grad_leaves"] = len(want)
+    if worst > 1.0:
+        raise AssertionError(f"tp f32 step-1 gradients: {worst_leaf} at {worst:.3g}× the limit "
+                             f"(rtol {TP_GRAD_RTOL}, atol {TP_GRAD_ATOL})")
+    b["bf16_loss_rel"], b["bf16_grad_norm_rel"] = rel("bf16", "losses"), rel("bf16", "grad_norms")
+    b["fused_loss_rel"] = rel("fused", "losses")
+    if not max(b["bf16_loss_rel"], b["fused_loss_rel"]) <= STEP_BF16_LOSS_REL:
+        raise AssertionError(f"tp bf16, two ranks vs one process: loss rel {b['bf16_loss_rel']}, "
+                             f"fused {b['fused_loss_rel']} (limit {STEP_BF16_LOSS_REL})")
+    # the f32 runs' last checkpoints (each the whole model, one file), served
+    served, ckpts, t1 = {}, {}, time.perf_counter()
+    for run in ("tp2", "alone"):
+        found = [str(p) for p in Path(TP_DIR, run, "f32").rglob("*.ckpt")]
+        if len(found) != 1 or not found[0].endswith(f"step_{TP_STEPS:08d}.ckpt"):
+            raise AssertionError(f"tp {run} f32: checkpoints {found}")
+        ckpts[run] = found[0]
+        rt = load_model(found[0])
+        served[run] = rt.get_scene_embeddings(make_clips([10.0, 4.0], 43)).float()
+        del rt
+    tp2, one = (torch.load(ckpts[run], map_location="cpu", weights_only=False)["state_dict"]
+                for run in ("tp2", "alone"))
+    ckpt_diff = max((tp2[k] - v).abs().max().item() for k, v in one.items())
+    del tp2, one
+    b["checkpoints_s"] = time.perf_counter() - t1
+    serve_rel = (torch.linalg.norm(served["tp2"] - served["alone"])
+                 / torch.linalg.norm(served["alone"])).item()
+    b["checkpoint_weights_max_abs_diff"], b["served_rel_fro"] = ckpt_diff, serve_rel
+    if not (torch.isfinite(served["tp2"]).all() and serve_rel <= BF16_REL_FRO):
+        raise AssertionError(f"tp f32 checkpoint served: relative Frobenius {serve_rel} to the "
+                             f"one process's (limit {BF16_REL_FRO})")
+    b["launches"] = {k: sum(seen["launches"][k] for seen in ranks) for k in counters}
+    record["gloo"] = b
+    print(f"[tensor parallel] (b) model_parallel=2, two gloo ranks on one card through "
+          f"train_jepa, large widths at {enc} + {dec} layers (cut from 24 + 12): f32 run to "
+          f"step 1, resumed from its checkpoint to {TP_STEPS}: losses "
+          f"{', '.join(f'{x:.6f}' for x in logs['tp2']['f32']['losses'])} vs one process "
+          f"{', '.join(f'{x:.6f}' for x in logs['alone']['f32']['losses'])} (max rel "
+          f"{b['f32_loss_rel']:.3g}, limit {STEP_LOSS_REL}), grad_norm max rel "
+          f"{b['f32_grad_norm_rel']:.3g} (limit {STEP_GRAD_NORM_REL}); step-1 gradients of "
+          f"{len(want)} leaves within rtol {TP_GRAD_RTOL} atol {TP_GRAD_ATOL} (worst "
+          f"{worst:.3g} of the limit, {worst_leaf}); replicated leaves and whole weights bit "
+          f"for bit equal on both ranks; step-{TP_STEPS} checkpoint weights max abs "
+          f"{ckpt_diff:.3g} from one process's, served (2 clips) at relative Frobenius "
+          f"{serve_rel:.3g} (limit {BF16_REL_FRO}) in {b['checkpoints_s']:.1f} s; bf16 loss max "
+          f"rel {b['bf16_loss_rel']:.3g}, grad_norm {b['bf16_grad_norm_rel']:.3g}, fused_block "
+          f"loss {b['fused_loss_rel']:.3g} (limit {STEP_BF16_LOSS_REL}); flash at "
+          f"{ranks[0]['flash_heads']} local heads, fused at A = {ranks[0]['fused_widths']}; "
+          f"launches {b['launches']}; {b['seconds']:.1f} s", flush=True)
+    shutil.rmtree(TP_DIR)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
@@ -3109,6 +3446,8 @@ def main() -> int:
     done("eval arch/xares")
     parallel = phase_parallel(counters, train)
     done("parallel")
+    tensor_parallel = phase_tensor_parallel(counters)
+    done("tensor parallel")
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -3135,6 +3474,8 @@ def main() -> int:
         paths.update({f"parallel torchrun {name}": n[kernel]
                       for name, n in parallel["torchrun"]["launches"].items()})
         paths["parallel gloo 2 ranks"] = parallel["gloo"]["launches"][kernel]
+        paths["tensor parallel large"] = tensor_parallel["large"]["launches"][kernel]
+        paths["tensor parallel gloo 2 ranks"] = tensor_parallel["gloo"]["launches"][kernel]
         return paths
 
     fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39", 0,
@@ -3173,7 +3514,7 @@ def main() -> int:
                    "train_parity_fused": train_parity_fused, "data": data,
                    "train_shards": train_shards, "trace": trace, "nat": nat,
                    "denoise": denoise, "eval": evaluation, "eval_arch_xares": arch_xares,
-                   "parallel": parallel,
+                   "parallel": parallel, "tensor_parallel": tensor_parallel,
                    "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)
@@ -3190,4 +3531,7 @@ if __name__ == "__main__":
     if sys.argv[1:3] == ["--parallel-worker", "gloo"]:  # one of phase 13(b)'s ranks
         out, port, rank = sys.argv[3:]
         sys.exit(worker_gloo(out, int(port), int(rank)))
+    if sys.argv[1:2] == ["--tp-worker"]:  # one of phase 14(b)'s ranks
+        out, port, rank = sys.argv[2:]
+        sys.exit(worker_tp(out, int(port), int(rank)))
     sys.exit(main())

@@ -71,8 +71,8 @@ def test_denoise_model_config_refuses_multi_device_settings():
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=2"):
         cfg.build_denoise_model_config()  # no process group of two
     cfg = tcfg.apply_overrides(tcfg.Config(), ["trainer.model_parallel=2"])
-    with pytest.raises(NotImplementedError, match="trainer.model_parallel"):
-        cfg.build_denoise_model_config()
+    with pytest.raises(ValueError, match="trainer.model_parallel=2 does not divide the 1 rank"):
+        cfg.build_denoise_model_config()  # no tensor-parallel group of two
 
 
 def _jax_cli_config(argv, monkeypatch):
@@ -229,7 +229,7 @@ def test_denoise_entry_points_raise_without_cuda_or_on_several_devices(tmp_path,
         return tcfg.apply_overrides(tcfg.Config(), [*TINY_RUN, f"trainer.save_dir={tmp_path}",
                                                     *extra])
 
-    with pytest.raises(NotImplementedError, match="trainer.model_parallel"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         train_denoiser(cfg("trainer.model_parallel=2"), device="cpu")
     assert not any(tmp_path.iterdir())  # refused before any run directory
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

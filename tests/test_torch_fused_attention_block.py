@@ -171,21 +171,21 @@ def test_weight_gradient_splits_stop_growing_at_a_large_batch(d):
 ])
 def test_kernel_checks_refuse_what_the_kernels_do_not_take(shape, heads, dtype, error):
     with pytest.raises(error):
-        fab._check_kernel_inputs(torch.empty(shape, dtype=dtype), heads)
+        fab._check_kernel_inputs(torch.empty(shape, dtype=dtype), heads, shape[-1])
 
 
 def test_kernel_checks_refuse_rows_past_the_tma_coordinates():
     # 2^31 elements of qkv; expand makes the shape without the memory
     x = torch.empty(1, 1, 768, dtype=torch.bfloat16).expand(1 << 10, 1 << 10, 768)
     with pytest.raises(ValueError, match="2\\^31"):
-        fab._check_kernel_inputs(x, 12)
+        fab._check_kernel_inputs(x, 12, 768)
 
 
 def test_kernel_checks_pass_the_model_widths_before_the_device():
     # base encoder, predictor and the large model's width reach the device check
     for d, heads in ((768, 12), (384, 12), (1024, 16)):
         with pytest.raises(ValueError, match="cuda"):
-            fab._check_kernel_inputs(torch.empty(2, 8, d, dtype=torch.bfloat16), heads)
+            fab._check_kernel_inputs(torch.empty(2, 8, d, dtype=torch.bfloat16), heads, d)
 
 
 def test_scratch_layout_is_token_major():

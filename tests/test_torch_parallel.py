@@ -566,6 +566,32 @@ def test_both_clis_take_two_steps_under_torchrun(runs, cli, prefix):
     assert len(list(save_dir.rglob("metrics.jsonl"))) == 1, where
 
 
+def test_the_final_save_is_decided_from_what_every_rank_knows(tmp_path, monkeypatch):
+    """The end of a run saves the last step unless it was saved already:
+    decided from the steps every rank took, not from the checkpoint
+    directory, where rank 0 may have written the final file before a slower
+    rank looks (that rank then skipped the save's gather and barrier, and
+    the run's other ranks failed in theirs). Here the file is there, as
+    such a rank would find it, and the save must still be made."""
+    from wavjepa_tpu_torch.train import loop
+
+    cfg = _config([*TINY_RUN, f"trainer.save_dir={tmp_path}"])  # no save before the end
+    final = tmp_path / cfg.run_identity() / "ckpt" / "step_00000002.ckpt"
+    real_step = loop.run_step
+
+    def run_step(step_fn, state, *args):
+        state, metrics = real_step(step_fn, state, *args)
+        if state.step == 2:
+            final.write_bytes(b"")  # rank 0's file, as a late rank finds the directory
+        return state, metrics
+
+    monkeypatch.setattr(loop, "run_step", run_step)
+    state = loop.train_jepa(cfg, max_steps=2, device="cpu")
+    blob = torch.load(final, weights_only=False)
+    assert blob["step"] == state.step == 2
+    assert all(torch.equal(blob["state_dict"][k], v) for k, v in state.weights().items())
+
+
 def test_without_a_group_nothing_is_joined_and_two_devices_raise(tmp_path):
     from wavjepa_tpu_torch.data.pipeline import rank_batch_size
     from wavjepa_tpu_torch.parallel.mesh import initialize_multihost

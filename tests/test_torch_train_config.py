@@ -83,11 +83,11 @@ def test_bad_overrides_raise_like_the_jax_package():
         tcfg.apply_overrides(tcfg.Config(), ["trainer.pack_tokens=yes"]).packing_bounds(200)
     # the denoiser's configuration resolves since the denoiser has a port; a
     # setting this process cannot honour still raises: two data-parallel
-    # ranks with no process group of two, tensor parallelism
+    # ranks, or two tensor-parallel ones, with no process group of two
     assert tcfg.Config().build_denoise_model_config().pack_encoder is None
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=2"):
         tcfg.apply_overrides(tcfg.Config(), ["trainer.num_devices=2"]).build_denoise_model_config()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="trainer.model_parallel=2 does not divide the 1 rank"):
         tcfg.apply_overrides(tcfg.Config(),
                              ["trainer.model_parallel=2"]).build_denoise_model_config()
 

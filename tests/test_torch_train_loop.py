@@ -222,9 +222,13 @@ def test_the_shard_source_stops_when_the_loop_returns_or_raises(tmp_path, monkey
     assert len(built) == 2 and built[1].source.alive() == 0
 
 
-# tensor parallelism has no port; two data-parallel ranks need a process
-# group of two, which a process not launched by torchrun does not join
-REFUSED = {"trainer.model_parallel=2": (NotImplementedError, "trainer.model_parallel=2"),
+# two tensor-parallel ranks (or three) and two data-parallel ranks need a
+# process group of as many, which a process not launched by torchrun does
+# not join
+REFUSED = {"trainer.model_parallel=2": (
+               ValueError, "trainer.model_parallel=2 does not divide the 1 rank.s. of this run: "
+                           "launch it with torchrun --nproc_per_node=2"),
+           "trainer.model_parallel=3": (ValueError, "torchrun --nproc_per_node=3"),
            "trainer.num_devices=2": (RuntimeError, "torchrun --nproc_per_node=2")}
 
 

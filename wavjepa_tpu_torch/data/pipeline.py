@@ -23,7 +23,6 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import queue
-import sys
 import threading
 import time
 import traceback
@@ -34,6 +33,7 @@ import numpy as np
 from wavjepa_tpu_torch.data.decode import decode_audio
 from wavjepa_tpu_torch.data.resample import resample_np
 from wavjepa_tpu_torch.data.shards import expand_shard_pattern, iter_shard_samples, split_shards
+from wavjepa_tpu_torch.parallel.layout import data_group, process_group  # noqa: F401
 
 
 def preprocess_clip(wav: np.ndarray, target_sr: int, target_seconds: float = 10.0,
@@ -288,17 +288,6 @@ class ShardBatches:
         self.source.stop()
 
 
-def process_group() -> tuple[int, int]:
-    """(rank, world size) of the initialised torch.distributed process
-    group, else (0, 1). Such a group exists only where torch was imported,
-    so this module looks for it without importing torch."""
-    torch = sys.modules.get("torch")
-    dist = getattr(torch, "distributed", None)
-    if dist is not None and dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def rank_batch_size(batch_size: int, world: int) -> int:
     """A rank's share of the global batch of ``batch_size`` clips; raises
     where ``world`` ranks do not divide it."""
@@ -314,8 +303,11 @@ def audio_shard_batches(cfg) -> ShardBatches:
     processes, or from one thread of this process at ``num_workers=0`` (as
     torch's DataLoader loads in-process at 0). Shards are striped over the
     ranks of the torch.distributed process group when one is initialised,
-    and each rank batches its share of ``trainer.batch_size``."""
-    host_id, num_hosts = process_group()
+    and each rank batches its share of ``trainer.batch_size``; under
+    tensor parallelism the shards and the share are a data-parallel rank's
+    (``parallel/layout.data_group``), the same for every rank of one
+    tensor-parallel group."""
+    host_id, num_hosts = data_group()
     batch = rank_batch_size(cfg.trainer.batch_size, num_hosts)
     source = ShardAudioSource(
         cfg.data.data_dirs,

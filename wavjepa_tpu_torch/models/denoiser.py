@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from wavjepa_tpu_torch.models.jepa import ENCODER_SIDE, JEPA, EncoderPath, JEPAConfig
+from wavjepa_tpu_torch.parallel.mesh import shard_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,14 +50,15 @@ class DenoiserStudent(EncoderPath):
         return self.represent(audio, padding_mask)
 
 
-def student_from_jepa(teacher: JEPA) -> DenoiserStudent:
+def student_from_jepa(teacher: JEPA, model_parallel: int = 1) -> DenoiserStudent:
     """A student warm-started from ``teacher``'s encoder path, on its
-    device. ``load_state_dict`` copies, so no tensor of the student shares
-    storage with the teacher's, and the student's updates leave the teacher
-    as it was."""
-    student = DenoiserStudent(teacher.config)
-    student.load_state_dict({k: v for k, v in teacher.state_dict().items()
-                             if k.startswith(ENCODER_SIDE)})
+    device; at ``model_parallel`` > 1 this rank's shard of it (the teacher
+    stays whole: it takes no gradient). ``load_state_dict`` copies, so no
+    tensor of the student shares storage with the teacher's, and the
+    student's updates leave the teacher as it was."""
+    student = DenoiserStudent(teacher.config, model_parallel)
+    student.load_state_dict(shard_params({k: v for k, v in teacher.state_dict().items()
+                                          if k.startswith(ENCODER_SIDE)}))
     return student.to(teacher.pos_encoding_encoder.device)
 
 

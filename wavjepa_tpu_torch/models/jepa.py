@@ -17,7 +17,13 @@ holds, under the reference's module names:
     and the masked MSE in both layouts.
 
 ``EncoderPath`` is the serving path alone, which ``JEPA`` extends and the
-denoiser's student is. The EMA teacher is a second encoder module,
+denoiser's student is. Both take ``model_parallel`` (tensor parallelism,
+``parallel/mesh.py``): their transformer stacks then hold a rank's shard
+(H/mp heads and mlp_dim/mp hidden units a block; a block refuses a head
+count or an ``mlp_dim`` that mp does not divide, naming it). Such a model is not
+initialised itself: the whole model is, from the seed, and each rank takes
+its shard of it (``parallel/mesh.sharded``), so that every mp starts from
+the same weights. The EMA teacher is a second encoder module,
 ``build_teacher_encoder()``, owned by the train state (``train/state.py``),
 as the JAX package keeps a second parameter tree for the same encoder
 definition.
@@ -168,9 +174,10 @@ class EncoderPath(nn.Module):
     encoder's fixed position table. ``JEPA`` adds the training side; the
     denoiser's student (``models/denoiser.py``) is this path alone."""
 
-    def __init__(self, config: JEPAConfig):
+    def __init__(self, config: JEPAConfig, model_parallel: int = 1):
         super().__init__()
         cfg = config
+        self.model_parallel = model_parallel
         if cfg.extractor not in ("conv", "conv_channel"):
             raise ValueError(f"unknown extractor {cfg.extractor!r}")
         check_attn_impl(cfg.attn_impl)
@@ -193,7 +200,7 @@ class EncoderPath(nn.Module):
         self.encoder = TransformerEncoder(
             cfg.encoder_layers, cfg.encoder_dim, cfg.encoder_heads,
             int(cfg.encoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
-            cfg.attn_impl,
+            cfg.attn_impl, model_parallel,
         )
         # a fixed table, not a parameter: derived from the config, not stored
         self.register_buffer("pos_encoding_encoder",
@@ -228,8 +235,8 @@ class EncoderPath(nn.Module):
 class JEPA(EncoderPath):
     """The WavJEPA student under the reference's module names."""
 
-    def __init__(self, config: JEPAConfig):
-        super().__init__(config)
+    def __init__(self, config: JEPAConfig, model_parallel: int = 1):
+        super().__init__(config, model_parallel)
         cfg = config
         if cfg.attn_impl_decoder is not None:
             check_attn_impl(cfg.attn_impl_decoder)
@@ -237,6 +244,7 @@ class JEPA(EncoderPath):
             cfg.decoder_layers, cfg.decoder_dim, cfg.decoder_heads,
             int(cfg.decoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
             cfg.attn_impl if cfg.attn_impl_decoder is None else cfg.attn_impl_decoder,
+            model_parallel,
         )
         self.encoder_to_decoder_mapper = Linear(cfg.encoder_dim, cfg.decoder_dim, dtype=cfg.dtype)
         self.decoder_to_encoder_mapper = Linear(cfg.decoder_dim, cfg.encoder_dim, dtype=cfg.dtype)

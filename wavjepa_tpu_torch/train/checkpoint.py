@@ -4,7 +4,7 @@ sidecar.
 Counterpart of ``wavjepa_tpu/train/checkpoint.py``. A checkpoint is one file
 ``<dir>/step_<N>.ckpt`` holding
 
-  * ``state_dict``: the state's ``weights()`` under the reference's names
+  * ``state_dict``: the state's whole weights under the reference's names
     (a JEPA run's student and ``teacher_encoder.*``; a denoise run's
     student, the encoder side alone), so the HEAR runtimes of both packages
     (and the reference's loaders) read it as a reference-format checkpoint;
@@ -12,7 +12,12 @@ Counterpart of ``wavjepa_tpu/train/checkpoint.py``. A checkpoint is one file
   * ``step``.
 
 A state is a ``TrainState`` or a ``DenoiseTrainState``: anything with
-``weights()``, ``load_weights()``, ``optimizer`` and ``step``.
+``full_state()``, ``load_full_state()`` and ``step``. Under tensor
+parallelism the first gathers the whole tensors over the tensor-parallel
+group and the second cuts a rank's shard from them, so a file always holds
+the whole model, in one format at any ``trainer.model_parallel``: a run
+resumes from it at another, and the serving runtimes read it as they read
+any other.
 
 ``write_model_config``/``read_model_config`` keep the JEPAConfig beside the
 run in the JAX package's JSON format, so a loader rebuilds the architecture
@@ -30,7 +35,7 @@ from typing import Optional
 import torch
 
 from wavjepa_tpu_torch.models.jepa import JEPAConfig, jepa_config_from_dict, jepa_config_to_dict
-from wavjepa_tpu_torch.parallel.mesh import barrier, process_group
+from wavjepa_tpu_torch.parallel.mesh import barrier, from_rank_zero, process_group
 
 MODEL_CONFIG_NAME = "model_config.json"
 _CKPT = re.compile(r"step_(\d+)\.ckpt$")
@@ -39,8 +44,13 @@ _CKPT = re.compile(r"step_(\d+)\.ckpt$")
 class CheckpointManager:
     """Saves every ``every`` steps (or when forced) and keeps the newest
     ``keep`` files (0 = all). In a torch.distributed process group rank 0
-    alone writes, and every rank waits at each save until the file is
-    there, so that all of them read the same directory."""
+    alone writes, every rank takes part in gathering what it writes, and
+    every rank waits at each save until the file is there, so that all of
+    them read the same directory. Whether a save or a restore is due is
+    decided from what every rank knows alike (the steps, ``saved``, rank
+    0's listing), never from a rank's own look at the directory, which
+    rank 0 may be writing: a rank that decided otherwise would skip a
+    collective the others wait in."""
 
     def __init__(self, directory: "str | Path", keep: int = 0, every: int = 1):
         self.directory = Path(directory).absolute()
@@ -49,6 +59,7 @@ class CheckpointManager:
             self.directory.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.every = max(1, every)
+        self.saved: Optional[int] = None  # the step last saved or restored, on every rank
 
     def steps(self) -> list[int]:
         if not self.directory.is_dir():
@@ -66,9 +77,10 @@ class CheckpointManager:
     def save(self, step: int, state, force: bool = False) -> bool:
         if not force and step % self.every:
             return False
+        weights, opt_state = state.full_state()  # every rank takes part in the gather
         if self.writer:
-            blob = {"state_dict": {k: v.detach().cpu() for k, v in state.weights().items()},
-                    "optimizer": state.optimizer.state_dict(), "step": state.step}
+            blob = {"state_dict": {k: v.detach().cpu() for k, v in weights.items()},
+                    "optimizer": opt_state, "step": state.step}
             tmp = self.path(step).with_suffix(".tmp")
             torch.save(blob, tmp)
             os.replace(tmp, self.path(step))  # a reader never sees half a file
@@ -76,18 +88,20 @@ class CheckpointManager:
                 for old in self.steps()[:-self.keep]:
                     self.path(old).unlink()
         barrier()
+        self.saved = step
         return True
 
     def restore(self, state, step: Optional[int] = None):
-        """Load a checkpoint (the newest by default) into ``state`` in
-        place. The file is this program's own: it is unpickled in full."""
-        step = self.latest_step() if step is None else step
+        """Load a checkpoint (the newest by default, as rank 0 lists the
+        directory) into ``state`` in place, each rank its shard. The file
+        is this program's own: it is unpickled in full."""
+        step = from_rank_zero(self.latest_step()) if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         blob = torch.load(self.path(step), map_location="cpu", weights_only=False)
-        state.load_weights(blob["state_dict"])
-        state.optimizer.load_state_dict(blob["optimizer"])
+        state.load_full_state(blob["state_dict"], blob["optimizer"])
         state.step = int(blob["step"])
+        self.saved = step
         return state
 
 

@@ -31,6 +31,7 @@ from wavjepa_tpu_torch.masking import (
 )
 from wavjepa_tpu_torch.models.jepa import JEPAConfig
 from wavjepa_tpu_torch.ops.conv_frontend import WAV2VEC2_CONV_SPEC, WAVJEPA_CONV_SPEC
+from wavjepa_tpu_torch.parallel.layout import data_world
 from wavjepa_tpu_torch.train.step import EMAConfig, OptimizerConfig
 
 
@@ -121,9 +122,11 @@ class TrainerConfig:
     precision: str = "bf16"  # "bf16" | "f32"
     size: str = "base"  # "base" | "large"
     average_top_k_layers: int = 8
-    # data-parallel ranks: 0 = as many as the launch started (torchrun), or
-    # exactly that many (check_devices); tensor parallelism raises
+    # ranks: 0 = as many as the launch started (torchrun), or exactly that
+    # many (check_devices)
     num_devices: int = 0
+    # ranks to a tensor-parallel group (parallel/mesh.init_layout); the
+    # others are data-parallel
     model_parallel: int = 1
     # recomputation flags, kept so that configurations round-trip; the port
     # keeps every activation (no recomputation yet)
@@ -239,26 +242,23 @@ class Config:
         return 1
 
     def check_devices(self, accum_steps: int) -> None:
-        """Raise on device settings this process cannot honour. The
-        data-parallel world size is that of the torch.distributed process
-        group this process belongs to (1 without one):
-        ``trainer.num_devices`` is 0 (whatever the launch gave) or must equal
-        it, so that a run that asked for several cards never trains on one
-        unawares; tensor parallelism raises, having no port yet.
-        ``trainer.batch_size`` is the global batch: over several ranks it
-        must split into equal shares, each of whose crops split into
-        ``accum_steps`` microbatches."""
+        """Raise on device settings this process cannot honour. The world
+        size is that of the torch.distributed process group this process
+        belongs to (1 without one): ``trainer.num_devices`` is 0 (whatever
+        the launch gave) or must equal it, so that a run that asked for
+        several cards never trains on one unawares.
+        ``trainer.model_parallel`` (mp) must divide it: a run at mp 2 needs
+        a group of two ranks or more. The world / mp data-parallel ranks
+        split ``trainer.batch_size``, the global batch, into equal shares,
+        each of whose crops split into ``accum_steps`` microbatches."""
         tr = self.trainer
-        if tr.model_parallel != 1:
-            raise NotImplementedError(
-                f"trainer.model_parallel={tr.model_parallel}: tensor parallelism has no port "
-                f"yet (set trainer.model_parallel=1)")
         _, world = process_group()
         if tr.num_devices not in (0, world):
             raise RuntimeError(
                 f"trainer.num_devices={tr.num_devices}, but this process is one of {world} "
-                f"data-parallel rank(s): launch the run with torchrun "
+                f"rank(s): launch the run with torchrun "
                 f"--nproc_per_node={tr.num_devices}, or set trainer.num_devices=0")
+        world = data_world(world, tr.model_parallel)
         if world > 1:
             crops = rank_batch_size(tr.batch_size, world) * self.data.samples_per_audio
             if crops % accum_steps:

@@ -20,7 +20,10 @@ the run's ``data.target_seconds`` (10 s) and 2-s RIRs.
 Under torchrun both runs are data-parallel as ``train/loop.py`` says: every
 rank loads the teacher, the student starts from rank 0's, and each rank is
 given its rows of the global synthetic batch or batches its share from its
-own shards, with a scene bank of its own.
+own shards, with a scene bank of its own. Under tensor parallelism
+(``trainer.model_parallel``) the student is a rank's shard, the frozen
+teacher stays whole on every rank, and the ranks of one tensor-parallel
+group are one data-parallel replica: the same rows, shards and bank.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from wavjepa_tpu_torch.api.convert import load_torch_checkpoint, unwrap_state_dict
 from wavjepa_tpu_torch.api.runtime import DeviceLike, resolve_device
-from wavjepa_tpu_torch.data.pipeline import ShardBatches, process_group, rank_batch_size
+from wavjepa_tpu_torch.data.pipeline import ShardBatches, data_group, rank_batch_size
 from wavjepa_tpu_torch.models.denoiser import DenoiserConfig, student_from_jepa
 from wavjepa_tpu_torch.models.jepa import ENCODER_SIDE, JEPA, JEPAConfig
 from wavjepa_tpu_torch.train.config import Config
@@ -43,7 +46,7 @@ from wavjepa_tpu_torch.train.denoise_step import (
     make_denoise_optimizer,
     make_denoise_train_step,
 )
-from wavjepa_tpu_torch.parallel.mesh import replicated, shard_batch
+from wavjepa_tpu_torch.parallel.mesh import init_layout, replicated, shard_batch
 from wavjepa_tpu_torch.train.loop import join_run, open_run, run_loop
 from wavjepa_tpu_torch.train.state import TEACHER_PREFIX
 from wavjepa_tpu_torch.train.step import NatSceneConfig
@@ -120,7 +123,7 @@ def build_denoise_data_iterator(cfg: Config) -> Iterator[dict[str, np.ndarray]]:
         ))
     from wavjepa_tpu_torch.data.denoise_pipeline import DenoiseSampleSource, denoise_batches
 
-    host_id, num_hosts = process_group()
+    host_id, num_hosts = data_group()
     batch = rank_batch_size(cfg.trainer.batch_size, num_hosts)
     source = DenoiseSampleSource(
         cfg.data.data_dirs,
@@ -194,11 +197,13 @@ def build_denoise_run(cfg: Config, device: DeviceLike = None):
     of a denoise run, as ``train_denoiser`` builds them before it restores a
     checkpoint. The step function is ``step_fn(state, batch, generator,
     rir_bank)``, the run's teacher (``load_teacher``) bound in. In a
-    process group the teacher, and so the student, are rank 0's."""
+    process group the teacher, and so the student, are rank 0's; under
+    tensor parallelism the student is this rank's shard of it."""
     dev = join_run(cfg, device)
     model_cfg = cfg.build_denoise_model_config()  # raises on settings the port lacks
+    init_layout(cfg.trainer.model_parallel)
     teacher = replicated(load_teacher(cfg.teacher_ckpt, model_cfg, cfg.trainer.seed, dev))
-    student = student_from_jepa(teacher)
+    student = student_from_jepa(teacher, cfg.trainer.model_parallel)
     opt_cfg = denoise_optimizer_config(cfg)
     state = DenoiseTrainState(student, make_denoise_optimizer(opt_cfg, student))
     dcfg = DenoiserConfig(jepa=model_cfg, alpha=cfg.alpha,

@@ -27,6 +27,12 @@ global scene batch, draws the crop starts for the global batch and takes
 its rows (as ``train/step.py``), and sums its gradients and loss terms with
 the other ranks' once a step; divided by the world size they are the mean
 of the ranks' equal microbatch means, the JAX package's global mean.
+
+Under tensor parallelism the student is a rank's shard, its gradients are
+summed over the data-parallel group alone and their norm is the whole
+model's (as ``train/step.py``). The frozen teacher stays whole on every
+rank: it takes no gradient, so its copy costs only memory and a forward
+that every rank of the group repeats.
 """
 
 from __future__ import annotations
@@ -43,14 +49,24 @@ from wavjepa_tpu_torch.models.denoiser import (
 from wavjepa_tpu_torch.models.jepa import JEPA
 from wavjepa_tpu_torch.ops.audio import crops_at, instance_normalize, random_starts, wire_to_f32
 from wavjepa_tpu_torch.ops.resample import resample_torch
-from wavjepa_tpu_torch.parallel.mesh import all_reduce_gradients, process_group, shard_batch
+from wavjepa_tpu_torch.parallel.mesh import (
+    all_reduce_gradients,
+    data_group,
+    data_process_group,
+    gather_params,
+    gather_train_state,
+    shard_batch,
+    shard_train_state,
+)
 from wavjepa_tpu_torch.train.schedule import warmup_cosine_schedule
 from wavjepa_tpu_torch.train.step import (
     NatSceneConfig,
     build_scenes,
     make_optimizer,
     optimizer_update,
+    split_leaves,
 )
+from wavjepa_tpu_torch.train.state import param_names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,11 +93,20 @@ class DenoiseTrainState:
     step: int = 0
 
     def weights(self) -> dict[str, torch.Tensor]:
-        """The student's state_dict: the encoder side of a JEPA checkpoint."""
-        return dict(self.student.state_dict())
+        """The student's state_dict, whole: the encoder side of a JEPA
+        checkpoint."""
+        return gather_params(dict(self.student.state_dict()))
 
-    def load_weights(self, sd: dict) -> None:
-        self.student.load_state_dict(sd)
+    def full_state(self) -> tuple[dict, dict]:
+        """(``weights()``, the optimizer's ``state_dict`` with whole AdamW
+        moments), as ``TrainState.full_state``."""
+        return gather_train_state(dict(self.student.state_dict()), self.optimizer.state_dict(),
+                                  param_names(self.student))
+
+    def load_full_state(self, weights: dict, opt_state: dict) -> None:
+        weights, opt_state = shard_train_state(weights, opt_state, param_names(self.student))
+        self.student.load_state_dict(weights)
+        self.optimizer.load_state_dict(opt_state)
 
 
 def make_denoise_optimizer(cfg: DenoiseOptimizerConfig,
@@ -122,7 +147,7 @@ class DenoiseTrainStep:
         clean = wire_to_f32(batch["audio"])[:, None, :]
         if self.cfg.original_sr != jcfg.sample_rate:
             clean = resample_torch(clean, self.cfg.original_sr, jcfg.sample_rate)
-        _, world = process_group()
+        _, world = data_group()
         starts = shard_batch(random_starts(generator, noisy, jcfg.target_length,
                                            self.cfg.nr_samples_per_audio,
                                            n_clips=noisy.shape[0] * world))
@@ -171,9 +196,10 @@ class DenoiseTrainStep:
             l_mb.backward()
             loss = loss + l_mb.detach()
             parts = {k: parts.get(k, 0.0) + v.detach() for k, v in p_mb.items()}
-        n_means, world = a, process_group()[1]
+        n_means, world = a, data_group()[1]
         if world > 1:  # every rank's microbatch means
-            loss, *sums = all_reduce_gradients(params, loss, *parts.values())
+            loss, *sums = all_reduce_gradients(params, loss, *parts.values(),
+                                               group=data_process_group())
             parts = dict(zip(parts, sums))
             n_means *= world
         if n_means > 1:  # the mean of equal microbatch means, as the JAX package
@@ -184,7 +210,8 @@ class DenoiseTrainStep:
             loss = loss * inv
             parts = {k: v * inv for k, v in parts.items()}
         lr = self.lr_schedule(state.step)
-        g_norm = optimizer_update(params, state.optimizer, lr, self.grad_clip)
+        g_norm = optimizer_update(params, state.optimizer, lr, self.grad_clip,
+                                  split_leaves(student))
         state.step += 1
         return state, {"loss": loss, "lr": lr, "grad_norm": g_norm, **parts}
 

@@ -15,7 +15,13 @@ on ``cuda:LOCAL_RANK`` (gloo ranks on the CPU with ``--device cpu``):
 rows (the synthetic source's) or batches its share (a shard pipeline, its
 shards striped over the ranks); the initial weights are rank 0's; rank 0
 alone writes ``model_config.json``, the metrics and the checkpoints, and
-every rank waits for each checkpoint and restores from the same file. The shard source (``data.data_dirs``) is a shuffled
+every rank waits for each checkpoint and restores from the same file.
+With ``trainer.model_parallel`` = mp the ranks are laid out as (data,
+model) (``parallel/mesh.init_layout``): each group of mp ranks holds one
+replica of the model, a rank its shard of the blocks (the whole model is
+seeded, broadcast from rank 0, then cut), the data-parallel rank chooses
+the rows and shards, and every batch (and a scene source's bank) is made
+the same on the ranks of a group by a broadcast from its first rank. The shard source (``data.data_dirs``) is a shuffled
 stream with no position: a resumed run starts it afresh and does not skip
 the batches it has already taken, as in the JAX package.
 
@@ -48,10 +54,14 @@ from wavjepa_tpu_torch.data.synthetic import synthetic_audio_batches
 from wavjepa_tpu_torch.models.jepa import JEPA
 from wavjepa_tpu_torch.ops.scenes import update_rir_bank
 from wavjepa_tpu_torch.parallel.mesh import (
+    from_rank_zero,
+    init_layout,
     initialize_multihost,
     process_group,
     replicated,
+    same_over_model_group,
     shard_batch,
+    sharded,
 )
 from wavjepa_tpu_torch.train.checkpoint import CheckpointManager, write_model_config
 from wavjepa_tpu_torch.train.config import Config
@@ -200,12 +210,17 @@ def build_run(cfg: Config, device: DeviceLike = None):
     """(device, model configuration, fresh TrainState, step function) of a
     run, as ``train_jepa`` builds them before it restores a checkpoint: the
     initial weights are the seeded ones, broadcast from rank 0 in a process
-    group."""
+    group, and under tensor parallelism this rank's shard of them, so that
+    every ``trainer.model_parallel`` starts from the same weights."""
     dev = join_run(cfg, device)
     model_cfg = cfg.build_model_config()  # raises on settings the port lacks
+    mp = cfg.trainer.model_parallel
+    init_layout(mp)
     model = JEPA(model_cfg)
     model.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
     replicated(model.to(dev))
+    if mp > 1:
+        model = sharded(model, JEPA(model_cfg, mp).to(dev))
     state = TrainState.create(model, make_optimizer(cfg.optimizer, model))
     masker, masker_cfg = cfg.masker.build()
     step_fn = make_jepa_train_step(
@@ -256,8 +271,9 @@ def open_run(run_dir: Path, model_cfg, state, cfg: Config, every: int) -> Checkp
     if main:
         write_model_config(run_dir, model_cfg)
     ckpt = CheckpointManager(run_dir / "ckpt", keep=cfg.trainer.keep_ckpts, every=every)
-    if ckpt.latest_step() is not None:
-        ckpt.restore(state)
+    latest = from_rank_zero(ckpt.latest_step())
+    if latest is not None:
+        ckpt.restore(state, latest)
         if main:
             print(f"resumed from step {state.step}", flush=True)
     return ckpt
@@ -279,14 +295,14 @@ def run_loop(cfg: Config, state, step_fn, data_iter: Iterator, owned, run_dir: P
     logger = MetricLogger(str(run_dir / "logs")) if rank == 0 else None
     throughput = Throughput(cfg.trainer.batch_size,
                             cfg.trainer.batch_size * cfg.data.samples_per_audio, world)
-    rir_bank = device_scene_bank(data_iter, dev)
+    rir_bank = same_over_model_group(device_scene_bank(data_iter, dev))
     generator = torch.Generator(device=dev)
     batches = prefetch_to_device(data_iter, dev)
     wait_s, waited_steps = 0.0, 0
     try:
         while state.step < total:
             t0 = time.perf_counter()
-            batch = next(batches)
+            batch = same_over_model_group(next(batches))  # one replica, one batch
             wait_s += time.perf_counter() - t0
             waited_steps += 1
             generator.manual_seed(step_seed(cfg.trainer.seed, state.step))
@@ -307,6 +323,6 @@ def run_loop(cfg: Config, state, step_fn, data_iter: Iterator, owned, run_dir: P
         batches.close()
         if logger:
             logger.close()
-    if ckpt.latest_step() != state.step:
+    if ckpt.saved != state.step:  # the same on every rank, unlike the directory
         ckpt.save(state.step, state, force=True)
     return state

@@ -24,6 +24,16 @@ the gradients and their norm are the global ones and every rank takes the
 same update. At world size 1, in a group or not, the step issues no
 collective and is the one-process step.
 
+Tensor parallelism (``trainer.model_parallel``, ``parallel/mesh.py``): the
+ranks of one tensor-parallel group are one data-parallel replica. They take
+the same rows, draw the same crops and masks, and hold shards of one model,
+whose blocks sum their partial outputs over the group; the gradients are
+summed over the data-parallel group alone, the replicated leaves' averaged
+over the tensor-parallel group (equal but for the card's atomics), and the
+global norm counts each split leaf's squared norm summed over the
+tensor-parallel group once and each replicated leaf once
+(``global_grad_norm``).
+
 ``JEPATrainStep.step_on`` runs the step from given crops and masks: torch
 cannot reproduce ``jax.random``, so the tests feed both packages the same
 crops and masks through it.
@@ -42,7 +52,15 @@ from wavjepa_tpu_torch.models.jepa import JEPA, masked_prediction_loss
 from wavjepa_tpu_torch.ops.audio import crops_at, instance_normalize, random_starts, wire_to_f32
 from wavjepa_tpu_torch.ops.scenes import gather_scene_rirs, generate_scene, place_noise_from_bank
 from wavjepa_tpu_torch.ops.transformer import TransformerEncoder
-from wavjepa_tpu_torch.parallel.mesh import all_reduce_gradients, process_group, shard_batch
+from wavjepa_tpu_torch.parallel.mesh import (
+    all_reduce_gradients,
+    data_group,
+    data_process_group,
+    global_grad_norm,
+    mean_over_model_group,
+    shard_batch,
+    tp_rule,
+)
 from wavjepa_tpu_torch.train.schedule import ema_decay_schedule, warmup_cosine_schedule
 from wavjepa_tpu_torch.train.state import TrainState, ema_update
 
@@ -108,18 +126,29 @@ def build_scenes(sc: NatSceneConfig, sample_rate: int, batch: dict,
     return scene
 
 
+def split_leaves(module: torch.nn.Module) -> list[bool]:
+    """For each parameter of ``module``, in order, whether tensor
+    parallelism splits it (``parallel/mesh.tp_rule``)."""
+    return [tp_rule(name) is not None for name, _ in module.named_parameters()]
+
+
 def optimizer_update(params: list, optimizer: torch.optim.Optimizer, lr: float,
-                     grad_clip: float) -> torch.Tensor:
+                     grad_clip: float, split: list) -> torch.Tensor:
     """The update after the gradients: a zero gradient for each parameter
     without one (optax decays every parameter, with or without a gradient),
     clipping by global norm as optax does (t / ‖g‖ · max only when ‖g‖ ≥
-    max), then one optimizer step at ``lr``. Returns the norm before
-    clipping."""
+    max), then one optimizer step at ``lr``. ``split`` (``split_leaves``
+    of the module that holds ``params``) says which parameters tensor
+    parallelism cuts into shards: the others' gradients are made equal
+    over the tensor-parallel group first (``mean_over_model_group``), so
+    that every rank keeps the same replicated weights, and the norm is the
+    whole gradient's. Returns the norm before clipping."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    mean_over_model_group([g for g, s in zip(grads, split) if not s])
+    g_norm = global_grad_norm(grads, split)
     keep = g_norm < grad_clip
     torch._foreach_div_(grads, torch.where(keep, torch.ones_like(g_norm), g_norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, grad_clip).to(g_norm))
@@ -228,11 +257,11 @@ class JEPATrainStep:
         """(B, C, L) or (B, L) clips, this rank's rows of the global batch →
         crops (B·n, C, crop) in ``cfg.dtype`` and their masks. The starts and
         masks are drawn from ``generator`` for the global batch (W·B clips at
-        world size W), and this rank's rows taken."""
+        data-parallel world size W), and this rank's rows taken."""
         audio = wire_to_f32(audio)
         if audio.dim() == 2:
             audio = audio[:, None, :]
-        _, world = process_group()
+        _, world = data_group()
         starts = random_starts(generator, audio, cfg.target_length, self.n_crops,
                                n_clips=audio.shape[0] * world)
         crops = crops_at(audio, shard_batch(starts), cfg.target_length)
@@ -253,7 +282,7 @@ class JEPATrainStep:
         for p in params:
             p.grad = None
         n_rows = crops.shape[0]
-        world = process_group()[1]
+        world = data_group()[1]
         if self.accum_steps > 1 or world > 1:
             if n_rows % self.accum_steps:
                 raise ValueError(f"crop batch {n_rows} not divisible by "
@@ -269,7 +298,8 @@ class JEPATrainStep:
                 num_sum = num_sum + num.detach()
                 den_sum = den_sum + den
             if world > 1:  # global numerator, target count and gradients
-                num_sum, den_sum = all_reduce_gradients(params, num_sum, den_sum)
+                num_sum, den_sum = all_reduce_gradients(params, num_sum, den_sum,
+                                                        group=data_process_group())
             inv = 1.0 / (den_sum + 1e-8)
             for p in params:
                 if p.grad is not None:
@@ -284,7 +314,8 @@ class JEPATrainStep:
         decay = self.ema_schedule(state.step)
         ema_update(state.teacher_encoder, model.encoder, decay)
         lr = self.lr_schedule(state.step)
-        g_norm = optimizer_update(params, state.optimizer, lr, self.grad_clip)
+        g_norm = optimizer_update(params, state.optimizer, lr, self.grad_clip,
+                                  split_leaves(model))
         state.step += 1
         return state, {"loss": loss, "ema_decay": decay, "lr": lr, "grad_norm": g_norm}
 

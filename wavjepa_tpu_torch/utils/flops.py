@@ -100,6 +100,10 @@ def denoise_step_flops(cfg, n_crops: int, alpha: float | None = None,
 
 def mfu(flops_per_step: int, step_seconds: float, peak: float = H100_BF16_PEAK_FLOPS,
         n_cards: int = 1) -> float:
-    """Model FLOPs utilization a card: the step's useful FLOPs (over all
-    ``n_cards`` data-parallel ranks) a second over ``n_cards`` peaks."""
+    """Model FLOPs utilization a card: the step's useful FLOPs (of the whole
+    global batch, over all ``n_cards`` ranks) a second over ``n_cards``
+    peaks. Under tensor parallelism ``n_cards`` is every rank, data- and
+    tensor-parallel (the world): the mp ranks of a replica share its FLOPs,
+    and a block's all-reduces and the frozen denoise teacher's repeated
+    forward count as no useful work."""
     return flops_per_step / (step_seconds * n_cards * peak)

@@ -39,8 +39,8 @@ def trace(log_dir: str, name: str = "trace") -> Iterator["torch.profiler.profile
     activity; on exit, waits for the card and writes
     ``<log_dir>/<name>.json.gz``. Yields the profiler, whose
     ``key_averages()`` and ``events()`` can be read after the block. In a
-    data-parallel run rank 0 alone traces: the others run the block
-    unprofiled and are given None."""
+    process group (data- or tensor-parallel) global rank 0 alone traces:
+    the others run the block unprofiled and are given None."""
     if process_group()[0] != 0:
         yield None
         return
