@@ -48,7 +48,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             24·a backward kernel launches a step (a microbatches), the
             checkpoint and its model_config.json, and a HEAR request served
             from that checkpoint (bf16, unpacked); then a few steps in one
-            pass (accum 1);
+            pass (accum 1), where the predictor is replayed in the backward
+            as the JAX package resolves recomputation: 48 forward launches;
 5b. train fused  the same with ``trainer.attn_impl_decoder=fused_block``:
             12·a fused forward and backward launches a step, 24·a flash
             forward and 12·a flash backward, and the override kept in the
@@ -61,12 +62,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 7. data     write WebDataset shards of 10-s WAV clips (44.1 kHz stereo and
             16 kHz mono) under ``build/chip_smoke_shards/``; hold the native
             resampler against scipy's at 44.1k and 48k → 16k; time one
-            worker's work a clip and the loader alone at 16 worker processes,
-            beside the clips a second the card consumes in phase 5; then
-            ``train_jepa`` from the shards at accum 16 and accum 1 with
-            phase 5's checks, the time each step waited for its batch, and
-            the CLI (``python -m wavjepa_tpu_torch.train data.data_dirs=...``)
-            in a process of its own;
+            worker's work a clip; then ``train_jepa`` from the shards at
+            accum 16 and accum 1 with phase 5's checks and the time each
+            step waited for its batch; the loader at 16 worker processes as
+            it primed for the first of them (its first batch, the clips a
+            second it produced) beside the clips a second the card consumes
+            in phase 5; and the CLI (``python -m wavjepa_tpu_torch.train
+            data.data_dirs=...``, its ``main`` in this process);
 8. trace    one accum-16 and one accum-1 step under ``torch.profiler``
             (``build/chip_smoke_trace/*.json.gz``): wall time, the card's idle
             share, kernels launched, the top kernels and host operators;
@@ -108,21 +110,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             against CPU and bf16 against f32; then the HEAR harness: two
             synthetic 16-kHz tasks under ``build/chip_smoke_hear/`` at the
             size of public HEAR tasks (ESC-50: 2000 tones of 5 s, 50
-            classes, 5 folds; DCASE 2016 task 2: 72 clips of 120 s with 30
-            tone events each, 11 labels), the embeddings runner with
-            ``api/hear_wavjepa`` in-process, ``predictions --grid faster``
-            with the probes on the card, the on-disk contract, clips/s,
-            audio-s/s, peak memory and probe ms an epoch, and both CLIs in
-            processes of their own on a small task. Each path: 12 flash
-            forwards an encoder forward, no other kernel;
+            classes, 5 folds; DCASE 2016 task 2's clips of 120 s with 30
+            tone events each, 11 labels, 24 of its 72), the embeddings runner
+            with ``api/hear_wavjepa`` in-process, ``predictions --grid
+            faster`` with the probes on the card, the on-disk contract,
+            clips/s, audio-s/s, peak memory and probe ms an epoch, and both
+            CLIs (their ``main`` in this process) on a small task. Each
+            path: 12 flash forwards an encoder forward, no other kernel;
 12. arch/xares  the ARCH recipe on ESC-50 written at its size under
             ``build/chip_smoke_arch/`` (2000 clips of 5 s, 44.1 kHz mono
             PCM16, 50 classes, 5 folds): ``ESC50(path).evaluate`` of a
             ``WavJEPAModel`` (seeded weights) in the linear, non-linear and
             attention-pooling modes over all folds (each clip decoded and
             resampled to 16 kHz on the host, embedded in batches of 32, the
-            probes on the card; epochs cut to 20, 20 and 5), the ARCH CLI in
-            a process of its own on a 48-clip layout; then X-ARES:
+            probes on the card; epochs cut to 10, 10 and 3), the ARCH CLI
+            (its ``main`` in this process) on a 48-clip layout; then X-ARES:
             ``check_audio_encoder`` on the default and a ``fused_block``
             runtime, the encoder's request at (4, 10 s), ``run_stub_task``,
             ``run_task_protocol`` of ``config_esc50`` on 400 in-memory 5-s
@@ -132,7 +134,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             gated: random weights); 12 flash forwards an encoder forward, the
             fused forward on the fused check, no other kernel;
 13. parallel  data parallelism: (a) the train CLI on the AudioSet
-            configuration (phase 5's steps) and the denoise CLI at its
+            configuration (3 steps) and the denoise CLI at its
             defaults (2 steps) under ``torch.distributed.run --standalone
             --nproc_per_node=1`` over NCCL, as this file's worker rank
             (``--parallel-worker torchrun_cli``) that calls each CLI's
@@ -143,16 +145,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             (0.44 GB of f32) timed alone on that NCCL group; (b) two ranks on the
             one card in a gloo group made here (``--parallel-worker gloo``;
             NCCL takes one rank a card), 8 clips a step at accum 2 (phase 5's
-            accum-16 microbatch shapes a rank), 3 f32 steps, 3 bf16 steps
+            accum-16 microbatch shapes a rank), 2 f32 steps, 2 bf16 steps
             and one Nat step, against one process at the same seed: f32
             losses and gradient norms within phase 6's limits, weights and
             teacher bit for bit equal on both ranks, the bf16 and Nat loss
             differences printed;
 14. tensor parallel  (a) ``train_jepa`` on configs/large.yaml as resolved
             (24 × 1024 encoder, 12 × 384 predictor, 8 clips × 8 crops in
-            bf16, one pass) at world size 1: its step p50, clips/s, MFU,
-            peak memory, exactly 60 flash forward and 36 backward launches
-            a step, and a HEAR request served from its checkpoint; (b)
+            bf16, one pass, the predictor replayed) at world size 1: its
+            step p50, clips/s, MFU, peak memory, exactly 72 flash forward
+            and 36 backward launches a step, and a HEAR request served from
+            its checkpoint; (b)
             ``trainer.model_parallel=2`` as two gloo ranks on the one card
             (``--tp-worker``) at the large widths, depth cut to 4 + 2
             layers, against one process at the same seed: 3 f32 steps
@@ -160,8 +163,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             rtol 1e-5, atol 1e-6, replicated leaves and whole weights bit
             for bit equal on both ranks, 3 bf16 steps and one fused-block
             step with their differences, the flash kernels at 8 and 6 local
-            heads and the fused ones at A = 512 and 192. Phase 2 also holds
-            the fused kernels at those rank shapes (``FUSED_TP_SHAPES``).
+            heads and the fused ones at A = 512 and 192, and on the ranks
+            alone one f32 step with every stack replayed (phase 15(d)).
+            Phase 2 also holds the fused kernels at those rank shapes
+            (``FUSED_TP_SHAPES``);
+15. recomputation  ``trainer.remat*`` beside phase 5's accum-1 run (the JAX
+            package's resolution, the predictor replayed): (a) the AudioSet
+            configuration at accum 1 with ``trainer.remat=false``, with
+            every stack replayed, and with that and
+            ``trainer.remat_save_probs=true`` (the attention core kept):
+            step p50, clips/s, crops/s, MFU, peak memory and exactly 36, 60
+            and 36 flash forward launches a step (24 backward); (b) one f32
+            step at base width with every stack replayed beside one without,
+            from the same state and batch, on the default path and with
+            ``attn_impl=fused_block``: the loss bit for bit equal, the
+            updated weights and the gradient norm within phase 6's limits,
+            the kernels' launches counted; (c) configs/large.yaml at 32 × 8
+            crops in one pass with every stack replayed through
+            ``train_jepa``: step p50, MFU, peak memory below the card's,
+            beside the peak that one 64-crop step without recomputation
+            implies for 256 crops; (d) phase 14(b)'s two gloo ranks at
+            ``model_parallel=2``: the replayed f32 step's step-1 gradients
+            against the one process's at 14(b)'s rtol and atol.
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -215,6 +238,14 @@ STEP_BF16_LOSS_REL = 5e-2  # bf16 step vs f32 step on the card, loss
 # of the p50
 TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 TRAIN_STEPS_ONE_PASS = 3
+# the counted wrappers (launch_counters), and the launches a step of the
+# base model in one pass with its predictor replayed in the backward, as the
+# JAX package resolves recomputation at accum 1: 12 layers each of the
+# student encoder, the teacher and the predictor forward, the predictor's
+# again, the student encoder and the predictor backward
+COUNTER_NAMES = ("flash_attention_fwd", "flash_attention_bwd", "fused_attention_block_fwd",
+                 "fused_attention_block_bwd")
+DECODER_REPLAYED = dict(zip(COUNTER_NAMES, (48, 24, 0, 0)))
 # the fused block against its plain version, relative to max(1, max |plain|):
 # bf16 two roundings (qkv, then o) ahead of the last product, each of which
 # the plain version may round the other way, then the output's own rounding;
@@ -230,10 +261,13 @@ FUSED_PATH_LOSS_REL = 1e-4  # f32 step, fused path vs the default path, loss
 # reads again and again to fill the default 1000-clip shuffle buffer
 DATA_SHARDS, DATA_CLIPS_PER_SHARD = 16, 4
 DATA_DIR = os.path.join("build", "chip_smoke_shards")
-LOADER_BATCHES = 20  # the loader alone, timed after its first batch
 LOADER_PRIME_S = 60.0  # at most, to fill the loader's queue before a shard-fed run
 RESAMPLE_ATOL = 2e-6  # native resampler vs scipy's resample_poly, audio in [-1, 1]
 CLI_STEPS = 2
+# the train CLI's shuffle buffer in phase 7, cut from the default 1000 clips
+# for the script's time (its fill, ~5 s of the run, is timed by the
+# shard-fed runs before it)
+CLI_SHUFFLE_BUFFER = 256
 # configs/nat_binaural.yaml as overrides of the defaults (the card's machine
 # may lack PyYAML; tests/test_torch_nat_step.py holds the two equal)
 NAT_OVERRIDES = ("data.nat_scenes=true", "data.in_channels=2", "extractor.channel_wise=true",
@@ -274,6 +308,9 @@ W2V2_STEP_MS, W2V2_STEP_REL = 20.0, 0.01
 # 1 for the event task, whose 36 train clips of 120 s are ~430k probe rows
 # (~420 steps an epoch; cut from 2 for the script's time)
 HEAR_GRID_POINTS = {"scene": 8, "event": 1}
+# DCASE 2016 task 2's layout at a third of its clips (24 of 72 clips of 120
+# s, split 12/6/6; ~143k probe rows of its 429876), cut for the script's time
+HEAR_EVENT_SPLITS = (("train", 12), ("valid", 6), ("test", 6))
 # phase 12 (ARCH and X-ARES): ESC-50 at its size under build/ (~880 MB of
 # 44.1-kHz PCM16, deleted at the end); the probes' epochs a mode, cut for time
 # from the CLI's 100; the in-memory X-ARES clips (train, test) a task
@@ -977,11 +1014,19 @@ def primed_shard_batches(cfg, build) -> tuple:
     first = next(batches)
     source = getattr(batches.source, "audio", batches.source)  # the clean clips
     primed["buffer_s"] = time.perf_counter() - t0
+    if isinstance(first, np.ndarray):  # a clip batch, as the loader hands it over
+        primed["first"] = {"shape": list(first.shape), "dtype": str(first.dtype),
+                           "peak": int(np.abs(first).max())}
+    q0, t1 = source.queue.qsize(), time.perf_counter()
     while (source.queue.qsize() < source.queue_size - cfg.trainer.batch_size
            and time.perf_counter() - t0 < LOADER_PRIME_S):
         time.sleep(0.1)
     primed["queue_s"] = time.perf_counter() - t0
     primed["queue"] = source.queue.qsize()
+    # clips the workers produced a second while the queue filled, nothing
+    # taken from it: the loader's rate without the card
+    primed["produced_clips_per_s"] = (primed["queue"] - q0) / max(time.perf_counter() - t1,
+                                                                  1e-9)
 
     def timed_batches():
         yield first
@@ -1116,19 +1161,16 @@ def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None)
     return record
 
 
-def phase_train_parity(overrides: tuple = (), tag: str = "train parity") -> dict:
-    """One injected step at base width: f32 on the card against the CPU,
-    then bf16 on the card against that f32 step."""
-    from wavjepa_tpu_torch.models.jepa import JEPA
+def parity_case(overrides: tuple = ()) -> tuple:
+    """Phase 6's injected step: the run configuration (base width, f32, 1
+    clip × 2 crops, packed, one pass) with ``overrides``, its model
+    configuration, and the crops and masks from seeded numpy."""
     from wavjepa_tpu_torch.ops.audio import instance_normalize
     from wavjepa_tpu_torch.train.config import Config, apply_overrides
-    from wavjepa_tpu_torch.train.state import TrainState
-    from wavjepa_tpu_torch.train.step import OptimizerConfig, make_jepa_train_step, make_optimizer
 
     cfg = apply_overrides(Config(), ["trainer.precision=f32", "trainer.batch_size=1",
                                      "data.samples_per_audio=2", *overrides])
-    f32_cfg = cfg.build_model_config()  # base width, packed, one pass
-    opt_cfg = OptimizerConfig(warmup_steps=1)  # step 1: lr = the peak, 4e-4
+    f32_cfg = cfg.build_model_config()
     masker, masker_cfg = cfg.masker.build()
     rng = np.random.default_rng(11)
     crops = instance_normalize(torch.from_numpy(rng.standard_normal(
@@ -1136,20 +1178,39 @@ def phase_train_parity(overrides: tuple = (), tag: str = "train parity") -> dict
     masks = masker(torch.Generator().manual_seed(11), batch_size=2,
                    n_times=f32_cfg.total_patches, in_channels=f32_cfg.in_channels,
                    cfg=masker_cfg)
+    return cfg, f32_cfg, crops, masks
+
+
+def injected_step(cfg, model_cfg, device, crops, masks) -> tuple:
+    """One ``step_on`` of a seeded ``model_cfg`` model on ``device`` from
+    ``parity_case``'s crops and masks at the peak learning rate: (loss,
+    gradient norm, lr, weights, teacher), on the host."""
+    from wavjepa_tpu_torch.models.jepa import JEPA
+    from wavjepa_tpu_torch.train.state import TrainState
+    from wavjepa_tpu_torch.train.step import OptimizerConfig, make_jepa_train_step, make_optimizer
+
+    opt_cfg = OptimizerConfig(warmup_steps=1)  # step 1: lr = the peak, 4e-4
+    model = JEPA(model_cfg)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    model.to(device)
+    state = TrainState.create(model, make_optimizer(opt_cfg, model))
+    state.step = 1
+    step = make_jepa_train_step(opt_cfg, nr_samples_per_audio=2,
+                                masker_cfg=cfg.masker.build()[1], ema_cfg=cfg.ema)
+    state, m = step.step_on(state, crops.to(device, model_cfg.dtype),
+                            *(x.to(device) for x in masks))
+    weights = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+    teacher = {k: v.detach().float().cpu() for k, v in state.teacher_encoder.state_dict().items()}
+    return float(m["loss"]), float(m["grad_norm"]), m["lr"], weights, teacher
+
+
+def phase_train_parity(overrides: tuple = (), tag: str = "train parity") -> dict:
+    """One injected step at base width: f32 on the card against the CPU,
+    then bf16 on the card against that f32 step."""
+    cfg, f32_cfg, crops, masks = parity_case(overrides)
 
     def one_step(model_cfg, device):
-        model = JEPA(model_cfg)
-        model.init_parameters(torch.Generator().manual_seed(0))
-        model.to(device)
-        state = TrainState.create(model, make_optimizer(opt_cfg, model))
-        state.step = 1
-        step = make_jepa_train_step(opt_cfg, nr_samples_per_audio=2, masker_cfg=masker_cfg,
-                                    ema_cfg=cfg.ema)
-        state, m = step.step_on(state, crops.to(device, model_cfg.dtype),
-                                *(x.to(device) for x in masks))
-        weights = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
-        teacher = {k: v.detach().float().cpu() for k, v in state.teacher_encoder.state_dict().items()}
-        return float(m["loss"]), float(m["grad_norm"]), m["lr"], weights, teacher
+        return injected_step(cfg, model_cfg, device, crops, masks)
 
     card = one_step(f32_cfg, "cuda")
     cpu = one_step(f32_cfg, "cpu")
@@ -1203,6 +1264,25 @@ def write_shards(root: str, seed: int = 0) -> str:
                     info.size = len(data)
                     tar.addfile(info, io.BytesIO(data))
     return os.path.join(root, f"shard-{{0000..{DATA_SHARDS - 1:04d}}}.tar")
+
+
+def cli_in_process(module: str, argv: list) -> tuple[int, str, float]:
+    """``python -m module *argv`` as its ``main`` in this process, standard
+    output captured: the CLI's path without a new interpreter's start-up and
+    its first touch of the card. Returns (exit code, output, seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(f"{module}.__main__").main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = main(list(argv)) or 0
+        except SystemExit as e:
+            rc = e.code or 0
+    return rc, out.getvalue(), time.perf_counter() - t0
 
 
 def median_ms(fn, reps: int) -> float:
@@ -1274,43 +1354,31 @@ def phase_data(counters: dict, synthetic_runs: dict) -> tuple[dict, dict]:
           f"{record['worker_ms']['wav16k_mono']:.2f} ms; the shards' mix {mix:.2f} ms, "
           f"{1e3 / mix:.1f} clips/s a worker", flush=True)
 
-    # the loader alone: clips delivered, and produced (delivered + the queue's growth)
-    cfg = apply_overrides(Config(), [f"data.data_dirs={pattern}"])
-    b, workers = cfg.trainer.batch_size, cfg.data.num_workers
-    t0 = time.perf_counter()
-    batches = pipeline.audio_shard_batches(cfg)
-    try:
-        first = next(batches)
-        first_s = time.perf_counter() - t0
-        q0, t1 = batches.source.queue.qsize(), time.perf_counter()
-        for _ in range(LOADER_BATCHES):
-            batch = next(batches)
-        elapsed = time.perf_counter() - t1
-        q1 = batches.source.queue.qsize()
-    finally:
-        batches.stop()
-    for x in (first, batch):
-        if x.shape != (b, 1, 160000) or x.dtype != np.int16 or not np.abs(x).max() == 32767:
-            raise AssertionError(f"loader batch {x.shape} {x.dtype}, peak {np.abs(x).max()}")
-    delivered = LOADER_BATCHES * b / elapsed
-    produced = (LOADER_BATCHES * b + q1 - q0) / elapsed
-    card = {name: synthetic_runs[name]["clips_per_s"] for name in ("accum_auto", "accum_1")}
-    record["loader"] = {"workers": workers, "batch": b, "batches": LOADER_BATCHES,
-                        "first_batch_s": first_s, "delivered_clips_per_s": delivered,
-                        "produced_clips_per_s": produced, "queue_before": q0, "queue_after": q1,
-                        "card_clips_per_s_phase5": card}
-    print(f"[data] loader alone, {workers} worker processes (spawn) on a host of "
-          f"{os.cpu_count()} CPUs: {delivered:.1f} clips/s delivered, {produced:.1f} clips/s "
-          f"produced over {LOADER_BATCHES} batches of {b} (queue {q0} -> {q1}); first batch "
-          f"after {first_s:.2f} s (spawn, {cfg.data.shuffle_buffer}-clip shuffle buffer); the "
-          f"card consumes {card['accum_auto']:.1f} clips/s at accum 16 and "
-          f"{card['accum_1']:.1f} at accum 1 (phase 5, this run)", flush=True)
-
     default_path = dict(zip(counters, (36, 24, 0, 0)))
     train = phase_train(counters, [
         ("shards_accum_auto", [], TRAIN_STEPS, default_path, False),
-        ("shards_accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS, default_path, False),
+        ("shards_accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS_ONE_PASS, DECODER_REPLAYED,
+         False),
     ], shards=pattern)
+    # the loader, measured while it primed for the first shard-fed run: its
+    # first batch (the workers' spawn and the shuffle buffer), as the loop
+    # takes it, and the clips it produced a second into its queue
+    cfg = apply_overrides(Config(), [f"data.data_dirs={pattern}"])
+    b, workers = cfg.trainer.batch_size, cfg.data.num_workers
+    primed = train["shards_accum_auto"]["primed"]
+    if primed["first"] != {"shape": [b, 1, 160000], "dtype": "int16", "peak": 32767}:
+        raise AssertionError(f"loader's first batch {primed['first']}")
+    card = {name: synthetic_runs[name]["clips_per_s"] for name in ("accum_auto", "accum_1")}
+    record["loader"] = {"workers": workers, "batch": b,
+                        "first_batch_s": primed["buffer_s"],
+                        "produced_clips_per_s": primed["produced_clips_per_s"],
+                        "card_clips_per_s_phase5": card}
+    print(f"[data] loader, {workers} worker processes (spawn) on a host of {os.cpu_count()} "
+          f"CPUs, primed before shards_accum_auto: first batch of {b} after "
+          f"{primed['buffer_s']:.2f} s (spawn, {cfg.data.shuffle_buffer}-clip shuffle buffer), "
+          f"then {primed['produced_clips_per_s']:.1f} clips/s produced into its queue (to "
+          f"{primed['queue']} clips); the card consumes {card['accum_auto']:.1f} clips/s at "
+          f"accum 16 and {card['accum_1']:.1f} at accum 1 (phase 5, this run)", flush=True)
     for name, synthetic in (("shards_accum_auto", "accum_auto"), ("shards_accum_1", "accum_1")):
         r, base = train[name], synthetic_runs[synthetic]
         print(f"[data] {name} beside phase 5's synthetic clips: step p50 "
@@ -1326,30 +1394,28 @@ def phase_data(counters: dict, synthetic_runs: dict) -> tuple[dict, dict]:
               f"and its queue to {r['primed']['queue']} clips in {r['primed']['queue_s']:.2f} s",
               flush=True)
 
-    # the CLI as users run it, in a process of its own, with the memory this
-    # process's allocator keeps cached handed back to the card
+    # the CLI as users run it (its main, in this process), with the memory
+    # this process's allocator keeps cached handed back to the card
     torch.cuda.empty_cache()
     cli_dir = os.path.join("build", "chip_smoke_train", "cli")
     shutil.rmtree(cli_dir, ignore_errors=True)
-    cmd = [sys.executable, "-m", "wavjepa_tpu_torch.train", f"data.data_dirs={pattern}",
-           f"trainer.steps={CLI_STEPS}", "trainer.log_every=1", "optimizer.warmup_steps=2",
-           f"trainer.save_dir={cli_dir}"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
+    argv = [f"data.data_dirs={pattern}", f"trainer.steps={CLI_STEPS}", "trainer.log_every=1",
+            "optimizer.warmup_steps=2", f"trainer.save_dir={cli_dir}",
+            f"data.shuffle_buffer={CLI_SHUFFLE_BUFFER}"]
+    rc, stdout, cli_s = cli_in_process("wavjepa_tpu_torch.train", argv)
     ckpts = [os.path.join(d, f) for d, _, fs in os.walk(cli_dir) for f in fs
              if f == f"step_{CLI_STEPS:08d}.ckpt"]
-    if proc.returncode != 0 or f"[step {CLI_STEPS}] loss=" not in proc.stdout or not ckpts:
-        raise AssertionError(f"CLI from shards: exit {proc.returncode}, checkpoints {ckpts}\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    losses = [float(line.split("loss=")[1].split()[0]) for line in proc.stdout.splitlines()
+    if rc != 0 or f"[step {CLI_STEPS}] loss=" not in stdout or not ckpts:
+        raise AssertionError(f"CLI from shards: exit {rc}, checkpoints {ckpts}\n"
+                             f"{stdout[-3000:]}")
+    losses = [float(line.split("loss=")[1].split()[0]) for line in stdout.splitlines()
               if line.startswith("[step ")]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"CLI from shards: losses {losses}")
-    record["cli"] = {"cmd": cmd, "seconds": cli_s, "losses": losses}
-    print(f"[data] CLI from shards: {CLI_STEPS} steps, losses "
-          f"{', '.join(f'{x:.5f}' for x in losses)}, checkpoint written; {cli_s:.1f} s "
-          f"with start-up", flush=True)
+    record["cli"] = {"argv": argv, "seconds": cli_s, "losses": losses}
+    print(f"[data] CLI from shards (its main in this process): {CLI_STEPS} steps, losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}, checkpoint written; {cli_s:.1f} s",
+          flush=True)
     shutil.rmtree(cli_dir)  # ~1.7 GB of checkpoint
     shutil.rmtree(DATA_DIR)
     return record, train
@@ -2247,13 +2313,14 @@ def phase_eval_w2v2(counters: dict) -> dict:
 def phase_eval_harness(counters: dict) -> dict:
     """The HEAR harness on the card, at the size of two public HEAR tasks
     (synthetic audio, ``eval/synthetic.py``): ESC-50's 2000 clips of 5 s in
-    5 folds and DCASE 2016 task 2's 72 clips of 120 s. The port's embeddings
+    5 folds and DCASE 2016 task 2's clips of 120 s, a third of its 72
+    (``HEAR_EVENT_SPLITS``). The port's embeddings
     runner in-process with ``api/hear_wavjepa`` at base width (seeded
     weights), then ``predictions --grid faster`` with the probes on the
     card; the on-disk contract, finite scores in range, the probes'
     parameters on ``cuda``; clips/s, audio-s/s, peak memory, probe ms an
-    epoch; then both CLIs in processes of their own, on the port's
-    test-size tones task (their times are start-up smoke). Accuracy is
+    epoch; then both CLIs (their ``main`` in this process) on the port's
+    test-size tones task. Accuracy is
     printed, not gated: the weights are random."""
     import math
     import pickle
@@ -2267,7 +2334,8 @@ def phase_eval_harness(counters: dict) -> dict:
     shutil.rmtree(HEAR_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     task_dirs = [synthetic.write_scene_task(HEAR_DIR, 16000, **synthetic.ESC50_LAYOUT),
-                 synthetic.write_event_task(HEAR_DIR, 16000, **synthetic.DCASE2016_TASK2_LAYOUT)]
+                 synthetic.write_event_task(HEAR_DIR, 16000, **dict(
+                     synthetic.DCASE2016_TASK2_LAYOUT, splits=HEAR_EVENT_SPLITS))]
     write_s = time.perf_counter() - t0
     files = {t.name: synthetic.split_files(t) for t in task_dirs}
     print(f"[eval tasks] {', '.join(f'{t}: {sum(n.values())} clips' for t, n in files.items())}"
@@ -2428,25 +2496,22 @@ def phase_eval_harness(counters: dict) -> dict:
               f"({math.ceil(rows / conf['batch_size'])} steps of 1024, hidden 128); {n} "
               f"epochs with the split's load {run_s[n] * 1e3:.1f} ms", flush=True)
 
-    # both CLIs, each in a process of its own, on the tests' small tones task
+    # both CLIs (their main, in this process) on the tests' small tones task
     cli_root = os.path.join(HEAR_DIR, "cli")
     synthetic.write_scene_task(cli_root, 16000)
-    cmds = [[sys.executable, "-m", "wavjepa_tpu_torch.eval", "embeddings", module,
-             "--tasks-dir", os.path.join(cli_root, "tasks"), "--embeddings-dir", cli_root],
-            [sys.executable, "-m", "wavjepa_tpu_torch.eval", "predictions",
-             os.path.join(cli_root, module, "tones"), "--grid", "faster",
-             "--grid-points", "2"]]
+    argvs = [["embeddings", module, "--tasks-dir", os.path.join(cli_root, "tasks"),
+              "--embeddings-dir", cli_root],
+             ["predictions", os.path.join(cli_root, module, "tones"), "--grid", "faster",
+              "--grid-points", "2"]]
     record["cli"] = []
-    for cmd in cmds:
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        cli_s = time.perf_counter() - t0
-        if proc.returncode != 0 or ("test_top1_acc" not in proc.stdout and cmd[3] != "embeddings"):
-            raise AssertionError(f"{' '.join(cmd[2:4])}: exit {proc.returncode}\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        record["cli"].append({"cmd": cmd[2:], "seconds": cli_s})
-        print(f"[eval cli] {' '.join(cmd[2:4])}: exit 0 in {cli_s:.1f} s with start-up; "
-              f"{proc.stdout.strip().splitlines()[-1][:200]}", flush=True)
+    for argv in argvs:
+        rc, stdout, cli_s = cli_in_process("wavjepa_tpu_torch.eval", argv)
+        if rc != 0 or ("test_top1_acc" not in stdout and argv[0] != "embeddings"):
+            raise AssertionError(f"wavjepa_tpu_torch.eval {argv[0]}: exit {rc}\n"
+                                 f"{stdout[-3000:]}")
+        record["cli"].append({"argv": argv, "seconds": cli_s})
+        print(f"[eval cli] wavjepa_tpu_torch.eval {argv[0]} (its main in this process): exit 0 "
+              f"in {cli_s:.1f} s; {stdout.strip().splitlines()[-1][:200]}", flush=True)
     if not os.path.isfile(os.path.join(cli_root, module, "tones", "test.predicted-scores.json")):
         raise AssertionError("the CLIs wrote no test.predicted-scores.json")
     shutil.rmtree(HEAR_DIR)
@@ -2469,7 +2534,8 @@ def phase_eval(counters: dict) -> dict:
 def phase_arch(counters: dict) -> dict:
     """The ARCH recipe on ESC-50 at its size: every mode over the 5 folds,
     each mode's launches counted from 0 just before its run and read just
-    after it; then the CLI in a process of its own on a 48-clip layout."""
+    after it; then the CLI (its ``main`` in this process) on a 48-clip
+    layout."""
     import math
     import shutil
 
@@ -2563,23 +2629,20 @@ def phase_arch(counters: dict) -> dict:
     del recipe, model
     torch.cuda.empty_cache()
 
-    # the CLI in a process of its own (start-up smoke): 12 classes x 4 clips
+    # the CLI (its main, in this process): 12 classes x 4 clips
     cli_root = os.path.join(ARCH_DIR, "cli")
     write_arch_esc50(os.path.join(cli_root, "esc50"), classes=12, clips_per_class=4, folds=2,
                      seconds=2.0)
     tsv = os.path.join(cli_root, "results.tsv")
-    cmd = [sys.executable, "-m", "wavjepa_tpu_torch.eval.arch", "--data-dir", cli_root,
-           "--datasets", "esc50", "--mode", "linear", "--max-epochs", "2", "--tsv", tsv]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    cli_s = time.perf_counter() - t0
+    argv = ["--data-dir", cli_root, "--datasets", "esc50", "--mode", "linear", "--max-epochs",
+            "2", "--tsv", tsv]
+    rc, stdout, cli_s = cli_in_process("wavjepa_tpu_torch.eval.arch", argv)
     rows = open(tsv).read().splitlines() if os.path.isfile(tsv) else []
-    if proc.returncode != 0 or len(rows) != 7 or not rows[1].startswith("esc50\tlinear\t"):
-        raise AssertionError(f"arch CLI: exit {proc.returncode}, {len(rows)} TSV rows\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    record["cli"] = {"cmd": cmd[2:], "seconds": cli_s, "tsv_rows": len(rows) - 1}
-    print(f"[arch cli] exit 0 in {cli_s:.1f} s with start-up; {len(rows) - 1} TSV rows",
-          flush=True)
+    if rc != 0 or len(rows) != 7 or not rows[1].startswith("esc50\tlinear\t"):
+        raise AssertionError(f"arch CLI: exit {rc}, {len(rows)} TSV rows\n{stdout[-3000:]}")
+    record["cli"] = {"argv": argv, "seconds": cli_s, "tsv_rows": len(rows) - 1}
+    print(f"[arch cli] its main in this process: exit 0 in {cli_s:.1f} s; {len(rows) - 1} TSV "
+          f"rows", flush=True)
     shutil.rmtree(ARCH_DIR)
     return record
 
@@ -2729,7 +2792,11 @@ def phase_arch_xares(counters: dict) -> dict:
 # card against CPU through 24 layers of reordered sums); their weights must
 # be equal bit for bit, every rank receiving the same sums.
 PARALLEL_DIR = os.path.join("build", "chip_smoke_parallel")
-PARALLEL_STEPS = 3  # (b)'s mono steps, f32 and bf16; and one Nat step
+# (a)'s train CLI steps (the first TRAIN_WARMUP left out of the p50), and
+# (b)'s mono steps, f32 and bf16, and one Nat step; both cut from 5 and 3 for
+# the script's time
+TORCHRUN_STEPS = 3
+PARALLEL_STEPS = 2
 PARALLEL_BATCH, PARALLEL_ACCUM = 8, 2  # 16 crops a rank's microbatch, phase 5's accum-16 shapes
 ALLREDUCE_REPS = 10
 
@@ -2738,10 +2805,9 @@ def launch_counters() -> dict:
     from wavjepa_tpu_torch.ops import fused_attention_block as fab
     from wavjepa_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
-    return {"flash_attention_fwd": flash_attention_fwd,
-            "flash_attention_bwd": flash_attention_bwd,
-            "fused_attention_block_fwd": fab.fused_attention_block_fwd,
-            "fused_attention_block_bwd": fab.fused_attention_block_bwd}
+    return dict(zip(COUNTER_NAMES, (flash_attention_fwd, flash_attention_bwd,
+                                    fab.fused_attention_block_fwd,
+                                    fab.fused_attention_block_bwd)))
 
 
 def counted_run(counters: dict, fn) -> dict:
@@ -2771,7 +2837,7 @@ def worker_torchrun_cli(out: str, train_dir: str, denoise_dir: str) -> int:
     record = {"launches": {}}
     common = ["data.synthetic=true", "trainer.log_every=1", "optimizer.warmup_steps=2"]
     record["launches"]["train"] = counted_run(counters, lambda: train_cli.main(
-        [*common, f"trainer.steps={TRAIN_STEPS}", f"trainer.save_dir={train_dir}"]))
+        [*common, f"trainer.steps={TORCHRUN_STEPS}", f"trainer.save_dir={train_dir}"]))
     record["launches"]["denoise"] = counted_run(counters, lambda: denoise_cli.main(
         [*common, f"trainer.steps={CLI_STEPS}", f"trainer.save_dir={denoise_dir}"]))
     record["backend"], record["world"] = dist.get_backend(), dist.get_world_size()
@@ -2928,14 +2994,15 @@ def phase_parallel(counters: dict, train: dict) -> dict:
     # student forward and the noisy one's backward (α = 0); 16 and 4
     # microbatches at the CLIs' defaults
     mono, accum = (2 * enc + dec, enc + dec), cfg.resolved_accum_steps()
-    expected = {"train": dict(zip(counters, (mono[0] * accum * TRAIN_STEPS,
-                                             mono[1] * accum * TRAIN_STEPS, 0, 0))),
+    expected = {"train": dict(zip(counters, (mono[0] * accum * TORCHRUN_STEPS,
+                                             mono[1] * accum * TORCHRUN_STEPS, 0, 0))),
                 "denoise": dict(zip(counters, (3 * enc * 4 * CLI_STEPS, enc * 4 * CLI_STEPS,
                                                0, 0)))}
     if a["launches"] != expected or a["backend"] != "nccl" or a["world"] != 1:
         raise AssertionError(f"torchrun CLIs: launches {a['launches']} (expected {expected}), "
                              f"backend {a['backend']}, world {a['world']}")
-    for name, d, steps in (("train", train_dir, TRAIN_STEPS), ("denoise", denoise_dir, CLI_STEPS)):
+    for name, d, steps in (("train", train_dir, TORCHRUN_STEPS),
+                           ("denoise", denoise_dir, CLI_STEPS)):
         files = run_files(d)
         metrics = [f for f in files if f.endswith("metrics.jsonl")]
         ckpts = [f for f in files if f.endswith(".ckpt")]
@@ -3092,11 +3159,15 @@ def tp_leg(items: list, stops: tuple, save_dir: str, grads_to: str = "") -> dict
 TP_LEGS = {"f32": (["trainer.precision=f32"], (1, TP_STEPS), True),
            "bf16": ([], (TP_STEPS,), False),
            "fused": (["trainer.attn_impl=fused_block"], (1,), False)}
+# phase 15(d), on the ranks alone: one f32 step with every stack replayed
+FULL_REMAT = ("trainer.remat_conv=true", "trainer.remat_encoder=true",
+              "trainer.remat_decoder=true")
+TP_REMAT_LEG = {"f32_remat": (["trainer.precision=f32", *FULL_REMAT], (1,), True)}
 
 
-def run_tp_legs(mp: int, run: str, grads: str) -> dict:
-    """Every leg of TP_LEGS at ``trainer.model_parallel`` ``mp`` under
-    ``TP_DIR/run`` (the f32 leg's step-1 gradients to ``grads``), at the model depth of
+def run_tp_legs(mp: int, run: str, grads: str, legs: dict = TP_LEGS) -> dict:
+    """Every leg of ``legs`` at ``trainer.model_parallel`` ``mp`` under
+    ``TP_DIR/run`` (a kept leg's step-1 gradients to ``<grads>_<leg>.pt``), at the model depth of
     TP_ENCODER_LAYERS and TP_DECODER_LAYERS (the configuration's model
     cut where ``build_run`` asks for it), with the local head counts that
     the transformer hands the flash kernels and the attention widths it
@@ -3126,8 +3197,9 @@ def run_tp_legs(mp: int, run: str, grads: str) -> dict:
     Config.build_model_config = cut
     try:
         record = {name: tp_leg([*items, f"trainer.model_parallel={mp}"], stops,
-                               os.path.join(TP_DIR, run, name), grads if keep else "")
-                  for name, (items, stops, keep) in TP_LEGS.items()}
+                               os.path.join(TP_DIR, run, name),
+                               f"{grads}_{name}.pt" if keep else "")
+                  for name, (items, stops, keep) in legs.items()}
     finally:
         transformer.flash_attention, transformer.fused_self_attention = flash, fused
         Config.build_model_config = whole
@@ -3137,8 +3209,8 @@ def run_tp_legs(mp: int, run: str, grads: str) -> dict:
 
 def worker_tp(out: str, port: int, rank: int) -> int:
     """Phase 14(b), one of two ranks on the one card in a gloo group made
-    here, at trainer.model_parallel=2: every leg of TP_LEGS, their launches
-    counted."""
+    here, at trainer.model_parallel=2: every leg of TP_LEGS and phase
+    15(d)'s TP_REMAT_LEG, their launches counted."""
     import torch.distributed as dist
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3148,7 +3220,8 @@ def worker_tp(out: str, port: int, rank: int) -> int:
     counters = launch_counters()
     record = {}
     record["launches"] = counted_run(counters, lambda: record.update(
-        run_tp_legs(TP, "tp2", os.path.join(TP_DIR, f"grads_rank{rank}.pt"))))
+        run_tp_legs(TP, "tp2", os.path.join(TP_DIR, f"grads_rank{rank}"),
+                    {**TP_LEGS, **TP_REMAT_LEG})))
     with open(out, "w") as f:
         json.dump(record, f)
     dist.destroy_process_group()
@@ -3168,9 +3241,11 @@ def logged(save_dir: str) -> dict:
 def phase_tensor_parallel(counters: dict) -> dict:
     """Phase 14: (a) the first train step at large width on the card:
     train_jepa on configs/large.yaml as resolved at world size 1, bf16 on
-    synthetic clips: step p50, clips/s, MFU, peak memory, exactly 60
+    synthetic clips: step p50, clips/s, MFU, peak memory, exactly 72
     forward and 36 backward flash launches a step (24 + 24 + 12 layers
-    forward, 24 + 12 backward), the teacher moving less than the student,
+    forward and the predictor's 12 again, replayed in the backward as the
+    JAX package resolves recomputation in one pass; 24 + 12 backward), the
+    teacher moving less than the student,
     a HEAR request served from its checkpoint; (b) trainer.model_parallel=2
     as two gloo ranks on the one card, each through ``train_jepa`` (its
     ``build_run``, the loop's broadcast of a group's batch, its checkpoints)
@@ -3182,7 +3257,9 @@ def phase_tensor_parallel(counters: dict) -> dict:
     ranks, the last checkpoint served beside the one process's; the bf16
     steps' differences held to phase 6's bf16 limit; the flash kernels at 8
     and 6 local heads and, with attn_impl=fused_block, the fused kernels at
-    A = 512 and 192."""
+    A = 512 and 192. On the ranks alone, phase 15(d): one f32 step with
+    every stack replayed, its step-1 gradients against the one process's
+    f32 ones at the same gate."""
     import shutil
     import socket
 
@@ -3194,7 +3271,7 @@ def phase_tensor_parallel(counters: dict) -> dict:
     record = {"card": card_line()}
     # (a)
     large = phase_train(counters, [("large", list(LARGE_OVERRIDES), LARGE_STEPS,
-                                    dict(zip(counters, (60, 36, 0, 0))), True)])["large"]
+                                    dict(zip(counters, (72, 36, 0, 0))), True)])["large"]
     if large["accum_steps"] != 1:
         raise AssertionError(f"large: {large['accum_steps']} microbatches, expected one pass")
     large["launches_per_step"] = {k: n // LARGE_STEPS for k, n in large["launches"].items()}
@@ -3215,7 +3292,7 @@ def phase_tensor_parallel(counters: dict) -> dict:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:  # the ranks beside one process
         waiter = pool.submit(run_workers, cmds, 400, TP_DIR)
-        alone = run_tp_legs(1, "alone", os.path.join(TP_DIR, "grads_alone.pt"))
+        alone = run_tp_legs(1, "alone", os.path.join(TP_DIR, "grads_alone"))
         waiter.result()
     ranks = []
     for path in outs:
@@ -3227,8 +3304,13 @@ def phase_tensor_parallel(counters: dict) -> dict:
     enc, dec = TP_ENCODER_LAYERS, TP_DECODER_LAYERS
     auto_steps = sum(stops[-1] for name, (_, stops, _) in TP_LEGS.items() if name != "fused")
     fused_steps = TP_LEGS["fused"][1][-1]
-    per_rank = dict(zip(counters, ((2 * enc + dec) * auto_steps, (enc + dec) * auto_steps,
-                                   (2 * enc + dec) * fused_steps, (enc + dec) * fused_steps)))
+    remat_steps = TP_REMAT_LEG["f32_remat"][1][-1]
+    # 64 crops, one pass: the predictor replayed as resolved; in the remat
+    # leg the student encoder too
+    per_rank = dict(zip(counters, (
+        2 * (enc + dec) * auto_steps + (3 * enc + 2 * dec) * remat_steps,
+        (enc + dec) * (auto_steps + remat_steps),
+        2 * (enc + dec) * fused_steps, (enc + dec) * fused_steps)))
     for r, seen in enumerate(ranks):
         if seen["launches"] != per_rank:
             raise AssertionError(f"tp rank {r}: launches {seen['launches']}, expected {per_rank}")
@@ -3262,23 +3344,47 @@ def phase_tensor_parallel(counters: dict) -> dict:
         raise AssertionError(f"tp f32, two ranks vs one process: loss rel {b['f32_loss_rel']} "
                              f"(limit {STEP_LOSS_REL}), grad_norm rel {b['f32_grad_norm_rel']} "
                              f"(limit {STEP_GRAD_NORM_REL})")
-    want = torch.load(os.path.join(TP_DIR, "grads_alone.pt"))
-    worst, worst_leaf = 0.0, ""
-    for r in range(TP):
-        got = torch.load(os.path.join(TP_DIR, f"grads_rank{r}.pt"))
-        if got.keys() != want.keys():
-            raise AssertionError(f"tp rank {r}: gradient leaves differ from one process's")
-        for k, w in want.items():
-            g = got[k].double()
-            excess = ((g - w.double()).abs() / (TP_GRAD_ATOL + TP_GRAD_RTOL * w.double().abs())
-                      ).max().item()
-            if excess > worst:
-                worst, worst_leaf = excess, f"rank {r} {k}"
+    want = torch.load(os.path.join(TP_DIR, "grads_alone_f32.pt"))
+
+    def worst_excess(leg: str) -> tuple[float, str]:
+        """The ranks' step-1 gradients of ``leg`` against the one process's
+        f32 ones: the largest |g - w| / (atol + rtol·|w|) and its leaf."""
+        worst, worst_leaf = 0.0, ""
+        for r in range(TP):
+            got = torch.load(os.path.join(TP_DIR, f"grads_rank{r}_{leg}.pt"))
+            if got.keys() != want.keys():
+                raise AssertionError(f"tp rank {r} {leg}: gradient leaves differ from one "
+                                     f"process's")
+            for k, w in want.items():
+                g = got[k].double()
+                excess = ((g - w.double()).abs() / (TP_GRAD_ATOL + TP_GRAD_RTOL
+                                                    * w.double().abs())).max().item()
+                if excess > worst:
+                    worst, worst_leaf = excess, f"rank {r} {k}"
+        if worst > 1.0:
+            raise AssertionError(f"tp {leg} step-1 gradients: {worst_leaf} at {worst:.3g}× the "
+                                 f"limit (rtol {TP_GRAD_RTOL}, atol {TP_GRAD_ATOL})")
+        return worst, worst_leaf
+
+    worst, worst_leaf = worst_excess("f32")
     b["step1_grad_worst_over_limit"], b["step1_grad_worst_leaf"] = worst, worst_leaf
     b["step1_grad_leaves"] = len(want)
-    if worst > 1.0:
-        raise AssertionError(f"tp f32 step-1 gradients: {worst_leaf} at {worst:.3g}× the limit "
-                             f"(rtol {TP_GRAD_RTOL}, atol {TP_GRAD_ATOL})")
+    # phase 15(d): the replayed step on the ranks, its loss beside their f32
+    # leg's first (the same forward), its gradients at the same gate
+    remat_log = logged(os.path.join(TP_DIR, "tp2", "f32_remat"))
+    if remat_log["steps"] != [1] or not np.isfinite(remat_log["losses"]).all():
+        raise AssertionError(f"tp f32_remat: logged {remat_log}")
+    remat_worst, remat_leaf = worst_excess("f32_remat")
+    b["remat"] = {"overrides": TP_REMAT_LEG["f32_remat"][0], "logged": remat_log,
+                  "loss_vs_f32_leg": remat_log["losses"][0] - logs["tp2"]["f32"]["losses"][0],
+                  "step1_grad_worst_over_limit": remat_worst,
+                  "step1_grad_worst_leaf": remat_leaf}
+    print(f"[recompute] (d) model_parallel=2, two gloo ranks, every stack replayed: f32 step-1 "
+          f"loss {remat_log['losses'][0]:.6f} (the ranks' f32 leg "
+          f"{logs['tp2']['f32']['losses'][0]:.6f}), step-1 gradients of {len(want)} leaves "
+          f"against the one process's f32 step within rtol {TP_GRAD_RTOL} atol {TP_GRAD_ATOL} "
+          f"(worst {remat_worst:.3g} of the limit, {remat_leaf}; without recomputation "
+          f"{worst:.3g})", flush=True)
     b["bf16_loss_rel"], b["bf16_grad_norm_rel"] = rel("bf16", "losses"), rel("bf16", "grad_norms")
     b["fused_loss_rel"] = rel("fused", "losses")
     if not max(b["bf16_loss_rel"], b["fused_loss_rel"]) <= STEP_BF16_LOSS_REL:
@@ -3324,6 +3430,144 @@ def phase_tensor_parallel(counters: dict) -> dict:
           f"{ranks[0]['flash_heads']} local heads, fused at A = {ranks[0]['fused_widths']}; "
           f"launches {b['launches']}; {b['seconds']:.1f} s", flush=True)
     shutil.rmtree(TP_DIR)
+    return record
+
+
+# phase 15 (recomputation): (a)'s settings beside phase 5's accum-1 run
+# (name, overrides, flash forward launches a step; 24 backward), (c)'s
+# steps and launches a step (24 + 24 + 12 layers forward, the student
+# encoder's 24 and the predictor's 12 again; 24 + 12 backward)
+REMAT_RUNS = (("remat_off", ["trainer.remat=false"], 36),
+              ("remat_full", list(FULL_REMAT), 60),
+              ("remat_full_save_probs", [*FULL_REMAT, "trainer.remat_save_probs=true"], 36))
+LARGE_REMAT_LAUNCHES = dict(zip(COUNTER_NAMES, (96, 36, 0, 0)))
+
+
+def phase_remat_parity(counters: dict, overrides: tuple = ()) -> dict:
+    """Phase 15(b): phase 6's f32 injected step on the card with every stack
+    replayed beside the same step with none, from the same seeded state and
+    the same crops and masks: the loss bit for bit equal (the forward does
+    not change), the updated weights, the teacher and the gradient norm
+    within phase 6's limits (the packing's backward is an atomic
+    scatter-add, so the gradients are not bit-equal between two runs); the
+    launches of each step counted."""
+    cfg, f32_cfg, crops, masks = parity_case(overrides)
+    settings = {"off": dict(remat=False, remat_conv=False, remat_encoder=False,
+                            remat_decoder=False),
+                "full": dict(remat=True, remat_conv=True, remat_encoder=True,
+                             remat_decoder=True)}
+    steps, launches = {}, {}
+    for name, flags in settings.items():
+        launches[name] = counted_run(counters, lambda: steps.__setitem__(name, injected_step(
+            cfg, dataclasses.replace(f32_cfg, **flags), "cuda", crops, masks)))
+    off, full = steps["off"], steps["full"]
+    lr = off[2]
+    gn_rel = abs(full[1] - off[1]) / abs(off[1])
+    w_err = max((full[3][k] - off[3][k]).abs().max().item() for k in off[3])
+    t_err = max((full[4][k] - off[4][k]).abs().max().item() for k in off[4])
+    layers = 2 * f32_cfg.encoder_layers + f32_cfg.decoder_layers
+    replay = f32_cfg.encoder_layers + f32_cfg.decoder_layers
+    fused = f32_cfg.attn_impl == "fused_block"
+    want = {name: dict(zip(counters, (0, 0, layers + n, replay) if fused
+                           else (layers + n, replay, 0, 0)))
+            for name, n in (("off", 0), ("full", replay))}
+    if launches != want:
+        raise AssertionError(f"remat parity {f32_cfg.attn_impl}: launches {launches}, "
+                             f"expected {want}")
+    if not (full[0] == off[0] and gn_rel <= STEP_GRAD_NORM_REL
+            and w_err <= STEP_PARAM_ATOL_LR * lr and t_err <= STEP_TEACHER_ATOL):
+        raise AssertionError(f"f32 step, every stack replayed vs none ({f32_cfg.attn_impl}): "
+                             f"loss {full[0]!r} vs {off[0]!r}, grad_norm rel {gn_rel}, weights "
+                             f"{w_err} (lr {lr}), teacher {t_err}")
+    print(f"[recompute] (b) f32 step on the card, attn_impl {f32_cfg.attn_impl}, every stack "
+          f"replayed vs none: loss {full[0]!r} vs {off[0]!r} (bit for bit), grad_norm rel "
+          f"{gn_rel:.3g} (limit {STEP_GRAD_NORM_REL}), weights max abs {w_err:.3g} (limit "
+          f"{STEP_PARAM_ATOL_LR * lr:.3g}), teacher {t_err:.3g} (limit {STEP_TEACHER_ATOL}); "
+          f"launches {launches}", flush=True)
+    return {"attn_impl": f32_cfg.attn_impl, "loss": [off[0], full[0]],
+            "grad_norm": [off[1], full[1]], "grad_norm_rel": gn_rel,
+            "weights_max_abs_err": w_err, "teacher_max_abs_err": t_err, "lr": lr,
+            "launches": launches}
+
+
+def large_unreplayed_peak() -> dict:
+    """Phase 15(c)'s yardstick: one step of configs/large.yaml at its 64
+    crops with no recomputation (``build_run``, no checkpoint): the memory
+    its state keeps after the step (weights, gradients, the teacher, the
+    AdamW moments), the step's peak, and the peak that implies for 256
+    crops in one pass, state + 4 × (peak − state)."""
+    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.loop import build_data_iterator, build_run
+
+    cfg = apply_overrides(Config(), [*LARGE_OVERRIDES, "data.synthetic=true",
+                                     "trainer.remat=false"])
+    torch.cuda.empty_cache()
+    dev, model_cfg, state, step_fn = build_run(cfg, "cuda")
+    batch = torch.from_numpy(next(build_data_iterator(cfg))).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step_fn(state, batch, torch.Generator(device=dev).manual_seed(0))
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    peak, kept = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    del state, step_fn, batch, m
+    torch.cuda.empty_cache()
+    crops = cfg.trainer.batch_size * cfg.data.samples_per_audio
+    return {"crops": crops, "loss": loss, "kept_bytes": kept, "peak_bytes": peak,
+            "implied_256_crops_bytes": kept + (256 // crops) * (peak - kept)}
+
+
+def phase_recompute(counters: dict, train: dict, tensor_parallel: dict) -> dict:
+    """Phase 15: recomputation (``trainer.remat*``) on the card. (a) the
+    AudioSet configuration at accum 1 with recomputation off, every stack
+    replayed, and every stack with the attention core kept
+    (``remat_save_probs``), each through ``train_jepa`` with phase 5's
+    checks and its launches, beside phase 5's accum-1 run (the JAX
+    package's resolution: the predictor replayed); (b) ``phase_remat_parity``
+    on the default path and with ``attn_impl=fused_block``; (c) the large
+    model at the AudioSet batch (32 × 8 crops) in one pass with every stack
+    replayed, beside the 256-crop peak that one 64-crop step without
+    recomputation implies; (d) read from phase 14(b), whose ranks ran it.
+    The MFU counts model FLOPs without the replays (``utils/flops.py``)."""
+    record = {"card": card_line()}
+    runs = phase_train(counters, [
+        (name, ["trainer.accum_steps=1", *extra], TRAIN_STEPS_ONE_PASS,
+         dict(zip(counters, (fwd, 24, 0, 0))), False) for name, extra, fwd in REMAT_RUNS])
+    record["train"] = {"jax_resolution": train["accum_1"], **runs}
+    print(f"[recompute] (a) AudioSet configuration, 32 clips × 8 crops in one pass, "
+          f"{record['card']}:", flush=True)
+    for name, r in record["train"].items():
+        per_step = {k: n // r["steps"] for k, n in r["launches"].items()}
+        print(f"[recompute] (a) {name}: step p50 {r['step_p50_ms']:.1f} ms, "
+              f"{r['clips_per_s']:.2f} clips/s, {r['crops_per_s']:.1f} crops/s, MFU "
+              f"{r['mfu']:.4f} (replays not counted), peak memory "
+              f"{r['max_memory_allocated_bytes'] / 2**30:.2f} GiB, flash launches a step "
+              f"{per_step['flash_attention_fwd']} forward / {per_step['flash_attention_bwd']} "
+              f"backward", flush=True)
+    torch.cuda.empty_cache()
+    record["parity"] = {"default": phase_remat_parity(counters),
+                        "fused_block": phase_remat_parity(
+                            counters, ("trainer.attn_impl=fused_block",))}
+    yardstick = large_unreplayed_peak()
+    large = phase_train(counters, [
+        ("large_remat_256", [*LARGE_OVERRIDES, "trainer.batch_size=32", "trainer.accum_steps=1",
+                             *FULL_REMAT], TRAIN_STEPS_ONE_PASS, LARGE_REMAT_LAUNCHES, False)]
+    )["large_remat_256"]
+    large["unreplayed_64"] = yardstick
+    peak, card_bytes = large["max_memory_allocated_bytes"], torch.cuda.mem_get_info()[1]
+    if large["accum_steps"] != 1 or not peak < card_bytes:
+        raise AssertionError(f"large at 256 crops: {large['accum_steps']} microbatches, peak "
+                             f"{peak / 2**30:.2f} GiB")
+    record["large"] = large
+    print(f"[recompute] (c) configs/large.yaml, 32 clips × 8 crops in one pass, every stack "
+          f"replayed: step p50 {large['step_p50_ms']:.1f} ms, {large['clips_per_s']:.2f} "
+          f"clips/s, MFU {large['mfu']:.4f} (replays not counted), peak memory "
+          f"{peak / 2**30:.2f} GiB of the card's {card_bytes / 2**30:.2f}; one 64-crop step "
+          f"without recomputation peaked at {yardstick['peak_bytes'] / 2**30:.2f} GiB over "
+          f"{yardstick['kept_bytes'] / 2**30:.2f} kept, which implies "
+          f"{yardstick['implied_256_crops_bytes'] / 2**30:.2f} GiB at 256 crops (not run); "
+          f"{record['card']}", flush=True)
+    record["tensor_parallel"] = tensor_parallel["gloo"]["remat"]
     return record
 
 
@@ -3397,7 +3641,7 @@ def main() -> int:
     fused_decoder = dict(zip(counters, (24, 12, 12, 12)))
     train = phase_train(counters, [
         ("accum_auto", [], TRAIN_STEPS, default_path, True),
-        ("accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS_ONE_PASS, default_path, False),
+        ("accum_1", ["trainer.accum_steps=1"], TRAIN_STEPS_ONE_PASS, DECODER_REPLAYED, False),
     ], keep={"accum_auto": EVAL_DIR})
     train_fused = phase_train(counters, [
         ("fused_decoder", ["trainer.attn_impl_decoder=fused_block"], TRAIN_STEPS,
@@ -3416,10 +3660,11 @@ def main() -> int:
         counter.launches = 0
     train_parity_fused = phase_train_parity(("trainer.attn_impl=fused_block",),
                                             "train parity fused")
-    # two steps on the card (f32, bf16), every stack fused: 36 forward and
-    # 24 backward launches a step, flash attention none
+    # two steps on the card (f32, bf16) of 2 crops in one pass, every stack
+    # fused: 48 forward (the predictor replayed) and 24 backward launches a
+    # step, flash attention none
     launches = {k: c.launches for k, c in counters.items()}
-    if launches != dict(zip(counters, (0, 0, 72, 48))):
+    if launches != dict(zip(counters, (0, 0, 96, 48))):
         raise AssertionError(f"fused train parity launched {launches}")
     train_parity_fused["launches"] = launches
     path_rel = abs(train_parity_fused["loss_card"] - train_parity["loss_card"]) / abs(
@@ -3448,6 +3693,8 @@ def main() -> int:
     done("parallel")
     tensor_parallel = phase_tensor_parallel(counters)
     done("tensor parallel")
+    recompute = phase_recompute(counters, train, tensor_parallel)
+    done("recomputation")
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -3476,6 +3723,11 @@ def main() -> int:
         paths["parallel gloo 2 ranks"] = parallel["gloo"]["launches"][kernel]
         paths["tensor parallel large"] = tensor_parallel["large"]["launches"][kernel]
         paths["tensor parallel gloo 2 ranks"] = tensor_parallel["gloo"]["launches"][kernel]
+        paths.update({f"recompute train {name}": r["launches"][kernel]
+                      for name, r in recompute["train"].items() if name != "jax_resolution"})
+        paths.update({f"recompute f32 step {impl}": sum(n[kernel] for n in r["launches"].values())
+                      for impl, r in recompute["parity"].items()})
+        paths["recompute large 256 crops"] = recompute["large"]["launches"][kernel]
         return paths
 
     fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39", 0,
@@ -3515,7 +3767,7 @@ def main() -> int:
                    "train_shards": train_shards, "trace": trace, "nat": nat,
                    "denoise": denoise, "eval": evaluation, "eval_arch_xares": arch_xares,
                    "parallel": parallel, "tensor_parallel": tensor_parallel,
-                   "phase_s": phase_s,
+                   "recompute": recompute, "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,9 @@ ranks against:
   leaves each rank holds bit for bit across its tensor-parallel group;
 * checkpoints: a model_parallel 2 run resumed at model_parallel 2 repeats
   the uninterrupted run bit for bit; at model_parallel 1 it resumes, and
-  ``load_model`` serves it.
+  ``load_model`` serves it;
+* recomputation: the pair's step with every stack replayed equals the same
+  layout's step without it, bit for bit.
 
 Without ranks: ``tp_rule`` against the JAX package's
 ``param_sharding_rules`` leaf by leaf (names mapped through
@@ -171,6 +173,30 @@ def leg_denoise(mp: int) -> dict:
                        cfg.trainer.seed, 1)
 
 
+# the pair's recomputation leg: every stack replayed, and none
+REMAT_LEGS = {"full": ["trainer.remat_conv=true", "trainer.remat_encoder=true",
+                       "trainer.remat_decoder=true"],
+              "none": ["trainer.remat=false"]}
+
+
+def leg_remat(mp: int) -> dict:
+    """One step of ``leg_seeded``'s run with every stack replayed, and one
+    with none, each with the flags its model was built with (conv,
+    encoder, decoder)."""
+    from wavjepa_tpu_torch.train.loop import build_data_iterator, build_run
+
+    out = {}
+    for name, flags in REMAT_LEGS.items():
+        cfg = _config([*TINY_RUN, *flags, f"trainer.model_parallel={mp}"])
+        _, _, state, step_fn = build_run(cfg, device="cpu")
+        model = state.model
+        out[name] = _loop_steps(state, step_fn, iter(build_data_iterator(cfg)),
+                                cfg.trainer.seed, 1)
+        out[name]["replayed"] = [model.extract_audio.remat, model.encoder.layers[0].remat,
+                                 model.decoder.layers[0].remat]
+    return out
+
+
 def leg_resume(root: Path) -> dict:
     """``train_jepa`` at model_parallel 2 for 4 steps, and for 2 then
     resumed to 4, checkpointing every step: the whole final weights of
@@ -256,6 +282,7 @@ def worker(port: int, rank: int, world: int, out_dir: str) -> None:
     seen["collectives"] = group_collectives()
     if world == 2:
         seen["resume"] = leg_resume(out_dir / "runs")
+        seen["remat"] = leg_remat(MP)
     torch.save(seen, out_dir / f"{GROUP_OF[world]}{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -489,6 +516,20 @@ def test_a_resume_at_model_parallel_two_repeats_the_uninterrupted_run(runs):
     for rank, seen in enumerate(runs["ranks"]["pair"]):
         _close(seen["resume"]["resumed"], seen["resume"]["whole"],
                f"leg resume, pair, rank {rank}, resumed vs uninterrupted weights", rtol=0)
+
+
+def test_recomputation_leaves_the_tensor_parallel_step_bit_equal(runs):
+    """The pair with every stack replayed (each replayed sub-block's
+    forward all-reduce issued again in the backward) against the same
+    layout without recomputation: the step-1 loss, gradient norm and every
+    gradient bit for bit."""
+    for rank, seen in enumerate(runs["ranks"]["pair"]):
+        full, none = seen["remat"]["full"], seen["remat"]["none"]
+        assert full["replayed"] == [True] * 3 and none["replayed"] == [False] * 3
+        what = f"leg remat, pair, rank {rank}"
+        _close(full["loss"], none["loss"], f"{what}, losses", rtol=0)
+        _close(full["grad_norm"], none["grad_norm"], f"{what}, gradient norms", rtol=0)
+        _close(full["grads"], none["grads"], f"{what}, step-1 gradients", rtol=0)
 
 
 def test_a_model_parallel_checkpoint_resumes_at_one_and_serves(runs, tmp_path):

@@ -99,3 +99,54 @@ def test_the_masker_builds_the_ports_maskers():
     assert fn is time_inverse_block_masks and mcfg.context_mask_prob == 0.65
     fn, mcfg = tcfg.MaskerConfig(name="speech-masker").build()
     assert fn is speech_masks and dataclasses.asdict(mcfg)["min_context_len"] == 5
+
+
+# (YAML file or None, overrides, the denoise resolution): the AudioSet
+# default (packed, 16 microbatches), one pass, the large model, Nat, and the
+# denoise run at its default (4 microbatches) and in one pass
+RESOLVED_RUNS = {
+    "audioset": (None, [], False),
+    "accum_1": (None, ["trainer.accum_steps=1"], False),
+    "large": ("configs/large.yaml", [], False),
+    "nat": ("configs/nat_binaural.yaml", [], False),
+    "denoise": (None, [], True),
+    "denoise_accum_1": (None, ["trainer.accum_steps=1"], True),
+}
+REMAT_FIELDS = (("extract_audio", "remat"), ("encoder", "remat"),
+                ("encoder", "remat_save_probs"), ("decoder", "remat"),
+                ("decoder", "remat_save_probs"))
+
+
+@pytest.mark.parametrize("run", list(RESOLVED_RUNS))
+def test_resolved_recomputation_reaches_the_built_modules_as_in_the_jax_package(run):
+    """The recomputation each built module (the conv frontend, the encoder,
+    the predictor; the denoise student) carries, against the same modules
+    of the JAX package built from its own resolution. The port's modules
+    are built on the meta device (no weights)."""
+    import jax.numpy as jnp
+
+    from wavjepa_tpu.models.denoiser import DenoiserStudent as JaxStudent
+    from wavjepa_tpu.models.jepa import JEPA as JaxJEPA
+    from wavjepa_tpu_torch.models.denoiser import DenoiserStudent
+    from wavjepa_tpu_torch.models.jepa import JEPA
+
+    path, overrides, denoise = RESOLVED_RUNS[run]
+    t, j = _both(overrides, path)
+    build = "build_denoise_model_config" if denoise else "build_model_config"
+    tc, jc = getattr(t, build)(), getattr(j, build)()
+    fields = REMAT_FIELDS[:3] if denoise else REMAT_FIELDS
+    if denoise:
+        jax_model = JaxStudent(jc).bind({})
+    else:
+        jax_model = JaxJEPA(jc).bind({"params": {"mask_token": jnp.zeros((1, 1, jc.decoder_dim))}})
+    want = {f"{sub}.{f}": getattr(getattr(jax_model, sub), f) for sub, f in fields}
+    with torch.device("meta"):
+        model = (DenoiserStudent if denoise else JEPA)(tc)
+    got = {f"{sub}.{f}": (getattr(model, sub).remat if sub == "extract_audio" else
+                          {getattr(layer, f) for layer in getattr(model, sub).layers}.pop())
+           for sub, f in fields}
+    assert got == want
+    # every layer of a stack alike
+    for sub in ("encoder",) if denoise else ("encoder", "decoder"):
+        assert len({(layer.remat, layer.remat_save_probs)
+                    for layer in getattr(model, sub).layers}) == 1

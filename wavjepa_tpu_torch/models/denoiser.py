@@ -45,6 +45,14 @@ class DenoiserStudent(EncoderPath):
     """The JEPA encoder path as a module of its own: (B, C, T_samples) →
     (B, total_patches, D_enc) contextual features."""
 
+    @staticmethod
+    def remat_flags(cfg: JEPAConfig) -> tuple[bool, bool, bool]:
+        """The JAX ``DenoiserStudent``'s rule, not ``JEPA``'s: ``cfg.remat``
+        for the conv frontend and the encoder, ``remat_conv`` and
+        ``remat_encoder`` ignored, and the probabilities never kept
+        (``wavjepa_tpu/models/denoiser.py``)."""
+        return cfg.remat, cfg.remat, False
+
     def forward(self, audio: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.represent(audio, padding_mask)

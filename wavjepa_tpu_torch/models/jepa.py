@@ -27,6 +27,13 @@ the same weights. The EMA teacher is a second encoder module,
 ``build_teacher_encoder()``, owned by the train state (``train/state.py``),
 as the JAX package keeps a second parameter tree for the same encoder
 definition.
+
+Recomputation (``ops/remat.py``) is resolved as the JAX package resolves
+it: ``remat_conv``, ``remat_encoder`` and ``remat_decoder`` each
+``cfg.remat`` where it is None, ``remat_save_probs`` for both stacks
+(``EncoderPath.remat_flags``; the denoiser's student has its own rule). It
+replays only where a gradient is taken, so the teacher's forward and
+serving replay nothing.
 """
 
 from __future__ import annotations
@@ -86,15 +93,17 @@ class JEPAConfig:
     average_top_k_layers: int = 8
     # positions: "time" (1-D sincos over all tokens) | "binaural"
     pos_embed: str = "time"
-    # training-only fields, kept so configurations round-trip
+    # visible-token packing (training only)
     pack_encoder: Optional[int] = None
     pack_decoder: Optional[int] = None
+    # recomputation: per-stack overrides of ``remat`` (None follows it)
     remat_encoder: Optional[bool] = None
     remat_decoder: Optional[bool] = None
     remat_conv: Optional[bool] = None
     remat_save_probs: bool = False
     # compute dtype; parameters stay float32
     dtype: Any = torch.float32
+    # replay layers in the backward where a gradient is taken (ops/remat.py)
     remat: bool = True
     attn_impl: str = "auto"
     attn_impl_decoder: Optional[str] = None
@@ -182,14 +191,16 @@ class EncoderPath(nn.Module):
             raise ValueError(f"unknown extractor {cfg.extractor!r}")
         check_attn_impl(cfg.attn_impl)
         self.config = cfg
+        remat_conv, remat_encoder, save_probs = self.remat_flags(cfg)
         if cfg.extractor == "conv_channel":  # WavJEPA-Nat: a stack a channel
             self.extract_audio = ConvChannelFeatureExtractor(
                 cfg.conv_spec, cfg.in_channels, cfg.extractor_mode, cfg.conv_bias,
-                cfg.share_weights_over_channels, cfg.dtype,
+                cfg.share_weights_over_channels, cfg.dtype, remat_conv,
             )
         else:
             self.extract_audio = ConvFeatureExtractor(
-                cfg.conv_spec, cfg.in_channels, cfg.extractor_mode, cfg.conv_bias, cfg.dtype
+                cfg.conv_spec, cfg.in_channels, cfg.extractor_mode, cfg.conv_bias, cfg.dtype,
+                remat_conv,
             )
         self.feature_norms = LayerNorm32(cfg.embedding_dim, eps=1e-5, dtype=cfg.dtype)
         self.post_extraction_mapper = (
@@ -200,11 +211,19 @@ class EncoderPath(nn.Module):
         self.encoder = TransformerEncoder(
             cfg.encoder_layers, cfg.encoder_dim, cfg.encoder_heads,
             int(cfg.encoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
-            cfg.attn_impl, model_parallel,
+            cfg.attn_impl, model_parallel, remat_encoder, save_probs,
         )
         # a fixed table, not a parameter: derived from the config, not stored
         self.register_buffer("pos_encoding_encoder",
                              torch.from_numpy(cfg.pos_table(cfg.encoder_dim)), persistent=False)
+
+    @staticmethod
+    def remat_flags(cfg: JEPAConfig) -> tuple[bool, bool, bool]:
+        """(conv frontend, encoder, save_probs) recomputation, as the JAX
+        ``JEPA`` resolves them (``wavjepa_tpu/models/jepa.py``)."""
+        return (cfg.remat if cfg.remat_conv is None else cfg.remat_conv,
+                cfg.remat if cfg.remat_encoder is None else cfg.remat_encoder,
+                cfg.remat_save_probs)
 
     @torch.no_grad()
     def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -244,7 +263,8 @@ class JEPA(EncoderPath):
             cfg.decoder_layers, cfg.decoder_dim, cfg.decoder_heads,
             int(cfg.decoder_dim * cfg.mlp_ratio), cfg.layer_norm_eps, cfg.dtype,
             cfg.attn_impl if cfg.attn_impl_decoder is None else cfg.attn_impl_decoder,
-            model_parallel,
+            model_parallel, cfg.remat if cfg.remat_decoder is None else cfg.remat_decoder,
+            cfg.remat_save_probs,
         )
         self.encoder_to_decoder_mapper = Linear(cfg.encoder_dim, cfg.decoder_dim, dtype=cfg.dtype)
         self.decoder_to_encoder_mapper = Linear(cfg.decoder_dim, cfg.encoder_dim, dtype=cfg.dtype)
@@ -265,7 +285,7 @@ class JEPA(EncoderPath):
     def build_teacher_encoder(self) -> TransformerEncoder:
         """A copy of the context encoder (its attn_impl too, as the JAX
         teacher runs the encoder module), outside autograd, for the EMA
-        teacher."""
+        teacher: it takes no gradient, so it replays nothing."""
         teacher = copy.deepcopy(self.encoder)
         teacher.requires_grad_(False)
         return teacher

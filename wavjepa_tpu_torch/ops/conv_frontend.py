@@ -14,6 +14,11 @@ reference ``state_dict`` loads as is: ``cnn.{i}.0`` is the convolution,
 ``cnn.{i}.2`` the GroupNorm ("default") or ``cnn.{i}.2.1`` the LayerNorm
 ("layer_norm"). The per-channel frontend keeps the reference's
 ``cnns.{c}.{i}`` (``cnns.0`` when the channels share weights).
+
+``remat`` replays each block on its own in the backward (``ops/remat.py``),
+as the JAX package's ``nn.remat(ConvBlock)``: each block keeps its input,
+never the stack's temporaries, and a stack is never replayed whole (whose
+replay would hold several (B, 512, T_i) f32 temporaries live at once).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wavjepa_tpu_torch.ops.remat import remat as _remat
 
 ConvSpec = Sequence[tuple[int, int, int]]  # (out_dim, kernel, stride) per layer
 
@@ -135,9 +142,9 @@ def _kaiming_init(blocks: nn.ModuleList, generator: Optional[torch.Generator]) -
         w.normal_(0.0, gain / math.sqrt(w.shape[1] * w.shape[2]), generator=generator)
 
 
-def _run(blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+def _run(blocks: nn.ModuleList, x: torch.Tensor, remat: bool) -> torch.Tensor:
     for block in blocks:
-        x = block(x)
+        x = _remat(block, x) if remat else block(x)
     return x
 
 
@@ -146,9 +153,10 @@ class ConvFeatureExtractor(nn.Module):
 
     def __init__(self, conv_spec: ConvSpec = WAVJEPA_CONV_SPEC, in_channels: int = 1,
                  mode: str = "default", conv_bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.conv_spec = tuple(tuple(layer) for layer in conv_spec)
+        self.remat = remat
         self.cnn = _conv_blocks(self.conv_spec, in_channels, mode, conv_bias, dtype)
 
     def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -157,7 +165,7 @@ class ConvFeatureExtractor(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 2:
             x = x[:, None, :]
-        return _run(self.cnn, x).transpose(1, 2)
+        return _run(self.cnn, x, self.remat).transpose(1, 2)
 
 
 class ConvChannelFeatureExtractor(nn.Module):
@@ -168,9 +176,11 @@ class ConvChannelFeatureExtractor(nn.Module):
 
     def __init__(self, conv_spec: ConvSpec = WAVJEPA_CONV_SPEC, in_channels: int = 2,
                  mode: str = "default", conv_bias: bool = False,
-                 share_weights: bool = False, dtype: torch.dtype = torch.float32):
+                 share_weights: bool = False, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.conv_spec = tuple(tuple(layer) for layer in conv_spec)
+        self.remat = remat
         self.in_channels = in_channels
         self.share_weights = share_weights
         self.cnns = nn.ModuleList(
@@ -185,9 +195,9 @@ class ConvChannelFeatureExtractor(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, t = x.shape
         if self.share_weights:
-            y = _run(self.cnns[0], x.reshape(b * c, 1, t))  # (B·C, E, T')
+            y = _run(self.cnns[0], x.reshape(b * c, 1, t), self.remat)  # (B·C, E, T')
             y = y.reshape(b, c, y.shape[1], y.shape[2])
         else:
-            y = torch.stack([_run(blocks, x[:, ch:ch + 1]) for ch, blocks in
+            y = torch.stack([_run(blocks, x[:, ch:ch + 1], self.remat) for ch, blocks in
                              enumerate(self.cnns)], dim=1)  # (B, C, E, T')
         return y.transpose(2, 3).reshape(b, c * y.shape[3], y.shape[2])

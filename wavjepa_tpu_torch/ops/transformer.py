@@ -29,6 +29,23 @@ gradients, as every replicated leaf's, are the same on every rank of the
 group. In bf16 each rank's partial output is rounded before the sum, so a
 bf16 step at mp 2 is not bit-equal to one at mp 1; in f32 they agree to
 rounding. At mp 1 a block is the plain module: no collective, no copy.
+
+Recomputation (``remat``, ``ops/remat.py``), as the JAX package's
+``nn.remat`` of each layer with ``save_only_these_names("attn_out")``: a
+layer keeps its input and ``attn_out`` (``self_attn``'s output after the
+output projection) and replays the rest in the backward, as two regions,
+``self_attn`` and norm1 → MLP → norm2. The flash forward (or the fused
+block's) therefore runs once more a layer in the backward. The JAX
+package's ``remat_save_probs`` also keeps the (B, H, T, T) probabilities,
+which the port's kernels never form; here it means that the attention core
+is not replayed: ``self_attn`` runs outside the replayed regions and keeps
+what its ``autograd.Function`` saves (q, k, v, the mask and the row
+statistics; the fused block its inputs), so that the backward launches no
+attention forward, at (B, T, 4·D) more of kept activations a layer
+instead of the JAX package's (B, H, T, T). At ``model_parallel`` > 1 the
+replay of norm1 → MLP → norm2 issues its forward all-reduce again in the
+backward, as Megatron's recomputation does; every rank replays the same
+layers in the same order, so the collectives stay matched.
 """
 
 from __future__ import annotations
@@ -43,6 +60,7 @@ from torch import nn
 
 from wavjepa_tpu_torch.ops.flash_attention import flash_attention
 from wavjepa_tpu_torch.ops.fused_attention_block import fused_self_attention
+from wavjepa_tpu_torch.ops.remat import remat
 from wavjepa_tpu_torch.parallel.mesh import model_group, model_process_group
 
 # every attn_impl the JAX package names; all but "fused_block" mean the
@@ -248,14 +266,18 @@ class MultiHeadSelfAttention(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """Post-norm block: x = norm1(x + SA(x)); x = norm2(x + MLP(x)). At
     ``model_parallel`` mp > 1 it holds H/mp heads and mlp_dim/mp hidden
-    units, and refuses counts that mp does not divide."""
+    units, and refuses counts that mp does not divide. ``remat`` and
+    ``remat_save_probs``: see the module docstring."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
                  layer_norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto", model_parallel: int = 1):
+                 attn_impl: str = "auto", model_parallel: int = 1, remat: bool = False,
+                 remat_save_probs: bool = False):
         super().__init__()
         check_model_parallel(model_parallel, heads=num_heads, mlp_dim=mlp_dim)
         self.model_parallel = model_parallel
+        self.remat = remat
+        self.remat_save_probs = remat_save_probs
         self.self_attn = MultiHeadSelfAttention(embed_dim, num_heads, dtype, attn_impl,
                                                 model_parallel)
         self.linear1 = Linear(embed_dim, mlp_dim // model_parallel, dtype=dtype)
@@ -265,7 +287,16 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, key_padding_mask))
+        if self.remat and not self.remat_save_probs:
+            attn_out = remat(self.self_attn, x, key_padding_mask)
+        else:
+            attn_out = self.self_attn(x, key_padding_mask)
+        if self.remat:
+            return remat(self._after_attention, x, attn_out)
+        return self._after_attention(x, attn_out)
+
+    def _after_attention(self, x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+        x = self.norm1(x + attn_out)
         if self.model_parallel == 1:
             h = self.linear2(F.gelu(self.linear1(x)))
         else:
@@ -280,16 +311,18 @@ class TransformerEncoder(nn.Module):
     """Stack of post-norm layers plus a final LayerNorm.
 
     ``forward`` returns the normed output; ``layer_outputs`` returns every
-    layer's output before the final norm (the teacher's targets)."""
+    layer's output before the final norm (the teacher's targets). ``remat``
+    replays each layer in the backward (see the module docstring)."""
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int, mlp_dim: int,
                  layer_norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto", model_parallel: int = 1):
+                 attn_impl: str = "auto", model_parallel: int = 1, remat: bool = False,
+                 remat_save_probs: bool = False):
         super().__init__()
         self.model_parallel = model_parallel
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(embed_dim, num_heads, mlp_dim, layer_norm_eps, dtype,
-                                    attn_impl, model_parallel)
+                                    attn_impl, model_parallel, remat, remat_save_probs)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm32(embed_dim, layer_norm_eps, dtype)

@@ -128,8 +128,9 @@ class TrainerConfig:
     # ranks to a tensor-parallel group (parallel/mesh.init_layout); the
     # others are data-parallel
     model_parallel: int = 1
-    # recomputation flags, kept so that configurations round-trip; the port
-    # keeps every activation (no recomputation yet)
+    # recomputation (ops/remat.py), resolved by build_model_config and
+    # build_denoise_model_config as the JAX package resolves it; None
+    # follows remat (or the resolution's rule)
     remat: bool = True
     remat_conv: Optional[bool] = None
     remat_encoder: Optional[bool] = None
@@ -285,9 +286,10 @@ class Config:
         Packing stays off (the denoise step runs whole sequences); with
         microbatches and ``trainer.remat`` not set, ``remat`` goes off; the
         explicit recomputation flags and the attention choices come from the
-        trainer, as the JAX package resolves them (the port does no
-        recomputation yet: the flags only round-trip). Raises on
-        device settings this process cannot honour (``check_devices``)."""
+        trainer, as the JAX package resolves them (the student reads
+        ``remat`` alone, ``models/denoiser.DenoiserStudent.remat_flags``).
+        Raises on device settings this process cannot honour
+        (``check_devices``)."""
         self.check_devices(self.resolved_denoise_accum_steps())
         cfg = self._base_model_config()
         tr = self.trainer
