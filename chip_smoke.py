@@ -185,6 +185,26 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             implies for 256 crops; (d) phase 14(b)'s two gloo ranks at
             ``model_parallel=2``: the replayed f32 step's step-1 gradients
             against the one process's at 14(b)'s rtol and atol.
+16. librispeech  ``configs/librispeech.yaml`` (the wav2vec2 frontend, the
+            speech masker, unpacked tokens) from FLAC shards: (a) shards in
+            LibriSpeech's layout (8 × 8 utterances of 16 kHz mono, 1.5-35 s)
+            and AudioSet's (8 × 4 clips of 10 s, 44.1 kHz stereo) written by
+            the port's FLAC writer, every payload decoded bit for bit by the
+            native library built on this host, one worker's ms a clip for
+            FLAC against WAV of the same samples; (b) the train CLI on the
+            file, 3 steps at 64 × 8 crops in 16 microbatches: finite
+            losses, the teacher moved less
+            than the student, exactly 48 forward and 24 backward flash
+            launches a microbatch (the frontend and the encoder replayed),
+            step p50, clips/s, crops/s, MFU, peak memory, data wait, the
+            checkpoint's sidecar (wav2vec2 spec, 100 tokens) and a HEAR
+            request served from it; (c) ``train_jepa`` on its 4.02-s form
+            (200 tokens, the backward's two-pass route), 2 steps; (d) phase
+            6's injected step at the recipe's configuration, f32 card
+            against CPU and bf16 against f32; (e) ``train_jepa`` on the
+            AudioSet configuration from the AudioSet-layout FLAC shards,
+            with phase 7's priming record, 2 steps. Phase 2 holds the
+            kernels at the recipe's microbatch shapes (``LIBRI_ATTN_SHAPES``).
 
 It imports nothing of JAX. The last lines of standard output are the card's
 name and power limit, the ``kernels`` JSON line and
@@ -366,6 +386,13 @@ FUSED_BWD_SHAPES = [
 FUSED_TP_SHAPES = [
     ("tp2_large_encoder_mb", 16, 88, 1024, 8, 64), ("tp2_decoder_mb", 64, 128, 384, 6, 32),
 ]
+# a microbatch of configs/librispeech.yaml (32 crops, unpacked): the encoder
+# (B, H, T, d) and the predictor (4 groups a crop), at 2.01 s and at 4.02 s
+LIBRI_ATTN_SHAPES = [
+    ("librispeech_encoder_mb", 32, 12, 100, 64), ("librispeech_decoder_mb", 128, 12, 100, 32),
+    ("librispeech_402_encoder_mb", 32, 12, 200, 64),
+    ("librispeech_402_decoder_mb", 128, 12, 200, 32),
+]
 # the training path's attention, AudioSet configuration (256 crops): the
 # packed student encoder, the packed decoder (4 groups a crop) and the
 # teacher, for the whole batch and for one of its 16 microbatches; the
@@ -381,6 +408,10 @@ TRAIN_FWD_SHAPES = [
     # the denoiser at the CLI's defaults (8 clips × 16 crops, 4 microbatches):
     # the teacher and both student views, unpacked at 200 tokens
     ("denoise_mb", 32, 12, 200, 64),
+    # configs/librispeech.yaml (64 clips × 8 crops, 16 microbatches, unpacked):
+    # the encoder, its replay and the teacher, and the 4-group predictor, at
+    # 2.01 s (100 tokens) and at 4.02 s (200)
+    *LIBRI_ATTN_SHAPES,
 ]
 TRAIN_BWD_SHAPES = [
     ("student_encoder", 256, 12, 88, 64), ("decoder", 1024, 12, 128, 32),
@@ -390,6 +421,9 @@ TRAIN_BWD_SHAPES = [
     ("nat_student_encoder_mb", 16, 12, 176, 64), ("nat_decoder_mb", 64, 12, 256, 32),
     # the denoiser's student, unpacked at 200 tokens: the two-pass route
     ("denoise_mb", 32, 12, 200, 64),
+    # configs/librispeech.yaml's encoder and predictor: one pass at 100
+    # tokens, two passes at 200
+    *LIBRI_ATTN_SHAPES,
 ]
 # where the kernels change tile or route: the forward at one 64-row tile and
 # one row past it, and the whole clip at head_dim 32; the backward at the
@@ -1039,23 +1073,92 @@ def primed_shard_batches(cfg, build) -> tuple:
     return ShardBatches(batches.source, timed_batches()), batches, loader_waits, primed
 
 
-def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None) -> dict:
-    """train_jepa on the AudioSet configuration as resolved, once per run
-    (name, overrides, steps, launches of each counted wrapper a microbatch,
-    whether to serve from its checkpoint), on synthetic clips (or scenes)
-    or, given a shard pattern, from the run's shard pipeline
-    (``build_data_iterator``: clips, or Nat scene batches with their banks),
-    wrapped so that the time each batch kept the loader waiting is recorded;
-    the launch counts are set to 0 just before each run and read just after
-    it. ``keep`` maps a run's name to a directory that its last checkpoint
-    and model_config.json are moved to, for a later phase."""
+def seeded_encoder(cfg) -> dict:
+    """The student encoder's weights that a run of ``cfg`` starts from."""
+    from wavjepa_tpu_torch.models.jepa import JEPA
+
+    init = JEPA(cfg.build_model_config())
+    init.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
+    return encoder_weights(init)
+
+
+def checked_run(name: str, cfg, run_dir: str, steps: int, per_microbatch: dict,
+                launches: dict, peak: int, start: dict, student: dict, teacher: dict,
+                warmup: int) -> dict:
+    """What every train run here is held to, and its record: exactly
+    ``per_microbatch`` launches of each counted wrapper a microbatch;
+    ``steps`` finite losses in the run's metrics; the teacher's encoder moved
+    from ``start`` less than the student's (``student`` and ``teacher`` the
+    weights after the run); the step and data-wait p50s after the first
+    ``warmup`` steps, clips/s, crops/s, MFU (replays not counted) and peak
+    memory."""
+    from wavjepa_tpu_torch.utils import flops
+
+    model_cfg, a = cfg.build_model_config(), cfg.resolved_accum_steps()
+    expected = {k: n * a * steps for k, n in per_microbatch.items()}
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected {expected} "
+                             f"({a} microbatches)")
+    with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    losses = [line["loss"] for line in lines]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    d_student = sum((v - start[k]).abs().sum().item() for k, v in student.items())
+    d_teacher = sum((v - start[k]).abs().sum().item() for k, v in teacher.items())
+    if not 0 < d_teacher < d_student:
+        raise AssertionError(f"{name}: teacher moved {d_teacher}, student {d_student}")
+    p50 = statistics.median(line["step_time_ms"] for line in lines[warmup:])
+    b, crops = cfg.trainer.batch_size, cfg.trainer.batch_size * cfg.data.samples_per_audio
+    step_flops = flops.jepa_step_flops(model_cfg, crops)
+    return {
+        "accum_steps": a, "steps": steps, "warmup": warmup, "batch": b, "crops": crops,
+        "pack": [model_cfg.pack_encoder, model_cfg.pack_decoder],
+        "losses": losses, "grad_norms": [line["grad_norm"] for line in lines],
+        "step_ms": [line["step_time_ms"] for line in lines], "step_p50_ms": p50,
+        "clips_per_s": b / (p50 / 1e3), "crops_per_s": crops / (p50 / 1e3),
+        "step_tflop": step_flops / 1e12, "mfu": flops.mfu(step_flops, p50 / 1e3),
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "student_encoder_moved": d_student, "teacher_moved": d_teacher,
+        "attn_impl": model_cfg.attn_impl, "attn_impl_decoder": model_cfg.attn_impl_decoder,
+        "data_wait_ms": [line["data_wait_ms"] for line in lines],
+        "data_wait_p50_ms": statistics.median(line["data_wait_ms"] for line in lines[warmup:]),
+    }
+
+
+def run_summary(rec: dict) -> str:
+    """``checked_run``'s record in a line."""
+    return (f"{rec['steps']} steps of {rec['batch']} clips × {rec['crops'] // rec['batch']} "
+            f"crops, {rec['accum_steps']} microbatches, pack {rec['pack']}; losses "
+            f"{', '.join(f'{x:.5f}' for x in rec['losses'])}; step p50 "
+            f"{rec['step_p50_ms']:.1f} ms after {rec['warmup']} warm-up steps (each: "
+            f"{', '.join(f'{x:.1f}' for x in rec['step_ms'])}), {rec['clips_per_s']:.2f} "
+            f"clips/s, {rec['crops_per_s']:.1f} crops/s, MFU {rec['mfu']:.4f} of "
+            f"{rec['step_tflop']:.2f} TFLOP (replays not counted), peak memory "
+            f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB; data wait p50 "
+            f"{rec['data_wait_p50_ms']:.2f} ms a step (each: "
+            f"{', '.join(f'{x:.2f}' for x in rec['data_wait_ms'])}); launches "
+            f"{rec['launches']}; teacher moved {rec['teacher_moved']:.4g} < student "
+            f"{rec['student_encoder_moved']:.4g}")
+
+
+def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None,
+                warmup: int = TRAIN_WARMUP, recipe: str = None) -> dict:
+    """train_jepa on the AudioSet configuration as resolved (or on the
+    configuration file ``recipe``), once per run (name, overrides, steps,
+    launches of each counted wrapper a microbatch, whether to serve from its
+    checkpoint), on synthetic clips (or scenes) or, given a shard pattern,
+    from the run's shard pipeline (``build_data_iterator``: clips, or Nat
+    scene batches with their banks), wrapped so that the time each batch
+    kept the loader waiting is recorded; the launch counts are set to 0 just
+    before each run and read just after it; ``checked_run``'s checks.
+    ``keep`` maps a run's name to a directory that its last checkpoint and
+    model_config.json are moved to, for a later phase."""
     import shutil
 
     from wavjepa_tpu_torch.api.runtime import load_model
-    from wavjepa_tpu_torch.models.jepa import JEPA
-    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
     from wavjepa_tpu_torch.train.loop import build_data_iterator, train_jepa
-    from wavjepa_tpu_torch.utils import flops
 
     record = {}
     for name, extra, steps, per_microbatch, serve in runs:
@@ -1065,14 +1168,11 @@ def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None)
         # updates (at the configured 100k it is lr 4e-9 at step 1)
         source = ["data.synthetic=false", f"data.data_dirs={shards}"] if shards else [
             "data.synthetic=true"]
-        cfg = apply_overrides(Config(), [*source, f"trainer.save_dir={save_dir}",
-                                         "trainer.log_every=1", "optimizer.warmup_steps=2",
-                                         *extra])
+        cfg = apply_overrides(load_config(recipe), [
+            *source, f"trainer.save_dir={save_dir}", "trainer.log_every=1",
+            "optimizer.warmup_steps=2", *extra])
         model_cfg = cfg.build_model_config()
-        a = cfg.resolved_accum_steps()
-        init = JEPA(model_cfg)
-        init.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
-        start = encoder_weights(init)
+        start = seeded_encoder(cfg)
         batches, loader_waits, data_iter, primed = None, [], None, {}
         if shards:
             data_iter, batches, loader_waits, primed = primed_shard_batches(
@@ -1088,43 +1188,14 @@ def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None)
             if batches is not None:
                 batches.stop()
         launches = {k: c.launches for k, c in counters.items()}  # read just after
-        peak = torch.cuda.max_memory_allocated()
-        expected = {k: n * a * steps for k, n in per_microbatch.items()}
-        if launches != expected:
-            raise AssertionError(f"{name}: launches {launches}, expected {expected} "
-                                 f"({a} microbatches)")
         run_dir = os.path.join(save_dir, cfg.run_identity())
-        with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
-            lines = [json.loads(line) for line in f]
-        losses = [line["loss"] for line in lines]
-        if len(losses) != steps or not all(np.isfinite(losses)):
-            raise AssertionError(f"{name}: losses {losses}")
-        d_student = sum((v.float().cpu() - start[k]).abs().sum().item()
-                        for k, v in state.model.encoder.state_dict().items())
-        d_teacher = sum((v.float().cpu() - start[k]).abs().sum().item()
-                        for k, v in state.teacher_encoder.state_dict().items())
-        if not 0 < d_teacher < d_student:
-            raise AssertionError(f"{name}: teacher moved {d_teacher}, student {d_student}")
-        times = [line["step_time_ms"] for line in lines[TRAIN_WARMUP:]]
-        p50 = statistics.median(times)
-        b = cfg.trainer.batch_size
-        rec = {
-            "accum_steps": a, "steps": steps, "pack": [model_cfg.pack_encoder,
-                                                      model_cfg.pack_decoder],
-            "losses": losses, "grad_norms": [line["grad_norm"] for line in lines],
-            "step_ms": [line["step_time_ms"] for line in lines], "step_p50_ms": p50,
-            "clips_per_s": b / (p50 / 1e3),
-            "crops_per_s": b * cfg.data.samples_per_audio / (p50 / 1e3),
-            "max_memory_allocated_bytes": peak, "launches": launches,
-            "student_encoder_moved": d_student, "teacher_moved": d_teacher,
-            "attn_impl": model_cfg.attn_impl, "attn_impl_decoder": model_cfg.attn_impl_decoder,
-            "data_wait_ms": [line["data_wait_ms"] for line in lines],
-            "data_wait_p50_ms": statistics.median(
-                line["data_wait_ms"] for line in lines[TRAIN_WARMUP:]),
-            "mfu": flops.mfu(flops.jepa_step_flops(model_cfg, b * cfg.data.samples_per_audio),
-                             p50 / 1e3),
-            "source": "shards" if shards else "synthetic",
-        }
+        rec = checked_run(
+            name, cfg, run_dir, steps, per_microbatch, launches,
+            torch.cuda.max_memory_allocated(), start,
+            {k: v.float().cpu() for k, v in state.model.encoder.state_dict().items()},
+            {k: v.float().cpu() for k, v in state.teacher_encoder.state_dict().items()},
+            warmup)
+        rec["source"] = "shards" if shards else "synthetic"
         if shards:
             rec["loader_wait_ms"], rec["primed"] = loader_waits, primed
         if serve:
@@ -1150,26 +1221,20 @@ def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None)
             shutil.copy(os.path.join(run_dir, "model_config.json"), keep[name])
         shutil.rmtree(save_dir)  # ~1.7 GB of base-width checkpoint
         record[name] = rec
-        print(f"[train] {name}: {steps} steps of {b} clips × {cfg.data.samples_per_audio} "
-              f"crops, {a} microbatches, pack {rec['pack']}; losses "
-              f"{', '.join(f'{x:.5f}' for x in losses)}; step p50 {p50:.1f} ms "
-              f"(after {TRAIN_WARMUP} warm-up steps), {rec['clips_per_s']:.2f} clips/s, "
-              f"{rec['crops_per_s']:.1f} crops/s, peak memory {peak / 2**30:.2f} GiB; "
-              f"launches {launches}; teacher moved {d_teacher:.4g} < student "
-              f"{d_student:.4g}; {rec['source']}, data wait p50 "
-              f"{rec['data_wait_p50_ms']:.2f} ms a step; MFU {rec['mfu']:.4f}", flush=True)
+        print(f"[train] {name}: {run_summary(rec)}; {rec['source']}", flush=True)
     return record
 
 
-def parity_case(overrides: tuple = ()) -> tuple:
-    """Phase 6's injected step: the run configuration (base width, f32, 1
-    clip × 2 crops, packed, one pass) with ``overrides``, its model
-    configuration, and the crops and masks from seeded numpy."""
+def parity_case(overrides: tuple = (), recipe: str = None) -> tuple:
+    """Phase 6's injected step: the run configuration (the defaults, or the
+    file ``recipe``, at f32, 1 clip × 2 crops, one pass) with
+    ``overrides``, its model configuration, and the crops and masks from
+    seeded numpy."""
     from wavjepa_tpu_torch.ops.audio import instance_normalize
-    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
 
-    cfg = apply_overrides(Config(), ["trainer.precision=f32", "trainer.batch_size=1",
-                                     "data.samples_per_audio=2", *overrides])
+    cfg = apply_overrides(load_config(recipe), ["trainer.precision=f32", "trainer.batch_size=1",
+                                                "data.samples_per_audio=2", *overrides])
     f32_cfg = cfg.build_model_config()
     masker, masker_cfg = cfg.masker.build()
     rng = np.random.default_rng(11)
@@ -1204,10 +1269,11 @@ def injected_step(cfg, model_cfg, device, crops, masks) -> tuple:
     return float(m["loss"]), float(m["grad_norm"]), m["lr"], weights, teacher
 
 
-def phase_train_parity(overrides: tuple = (), tag: str = "train parity") -> dict:
+def phase_train_parity(overrides: tuple = (), tag: str = "train parity",
+                       recipe: str = None) -> dict:
     """One injected step at base width: f32 on the card against the CPU,
     then bf16 on the card against that f32 step."""
-    cfg, f32_cfg, crops, masks = parity_case(overrides)
+    cfg, f32_cfg, crops, masks = parity_case(overrides, recipe)
 
     def one_step(model_cfg, device):
         return injected_step(cfg, model_cfg, device, crops, masks)
@@ -3105,8 +3171,8 @@ def phase_parallel(counters: dict, train: dict) -> dict:
     return record
 
 
-# phase 14 (tensor parallel): configs/large.yaml as overrides (the card's
-# machine has no PyYAML): the 24 × 1024 encoder (16 heads) and the 12 × 384
+# phase 14 (tensor parallel): configs/large.yaml as overrides (a machine may
+# lack PyYAML): the 24 × 1024 encoder (16 heads) and the 12 × 384
 # predictor, 8 clips × 8 crops a step in bf16, one pass by the resolved rule
 LARGE_OVERRIDES = ("data.name=AudioSet", "trainer.size=large", "trainer.batch_size=8",
                    "trainer.precision=bf16")
@@ -3571,6 +3637,280 @@ def phase_recompute(counters: dict, train: dict, tensor_parallel: dict) -> dict:
     return record
 
 
+# phase 16 (LibriSpeech): configs/librispeech.yaml trained from FLAC shards
+# in LibriSpeech's layout (8 shards of 8 utterances of 16 kHz mono, at the
+# corpus's mean length, 12.30 s, one at its 35-s maximum:
+# data/synthetic.librispeech_durations), and the AudioSet configuration from
+# AudioSet-layout FLAC shards (8 shards of 4 clips of 10 s, 44.1 kHz
+# stereo); both written here by the port's FLAC writer, in parallel
+# processes, and deleted at the end
+LIBRI_DIR = os.path.join("build", "chip_smoke_librispeech")
+LIBRI_SHARDS, LIBRI_PER_SHARD = 8, 8
+AUDIOSET_FLAC_SHARDS, AUDIOSET_FLAC_PER_SHARD = 8, 4
+LIBRI_RECIPE = "configs/librispeech.yaml"
+# the steps of (b) the CLI, (c) the 4.02-s form and (e) AudioSet: the first
+# (the allocator's growth, the loader's first batch) left out of the p50s,
+# three timed
+LIBRI_CLI_STEPS = LIBRI_402_STEPS = AUDIOSET_FLAC_STEPS = 4
+LIBRI_WARMUP = 1
+# the shuffle buffer of (b) and (c), one batch of the recipe, cut from the
+# default 1000 clips for the script's time (the CLI's first step waits for
+# its fill)
+LIBRI_SHUFFLE_BUFFER = 64
+# launches a microbatch of the recipe (packing off, so the frontend and the
+# encoder are replayed in the backward as the JAX package resolves it): 12
+# layers each of the student encoder, its replay, the teacher and the
+# predictor forward; the student encoder and the predictor backward
+LIBRI_LAUNCHES = dict(zip(COUNTER_NAMES, (48, 24, 0, 0)))
+LIBRI_RE = r"^\d+-\d+-\d{4}$"  # {speaker}-{chapter}-{utterance:04d}
+
+
+def flac_worker_ms(samples: dict) -> dict:
+    """One worker's ms a clip (decode, first channel, resample to 16 kHz,
+    −14 dBFS, 10 s, int16) for a shard's FLAC payload against a PCM16 WAV
+    payload of the same samples, rate and channels, timed in turns; and the
+    FLAC decode alone. ``samples`` maps a name to (FLAC bytes, its samples
+    (C, T) int16, rate)."""
+    import io
+
+    from scipy.io import wavfile
+
+    from wavjepa_tpu_torch.data import decode, pipeline, resample
+
+    def worker_clip(sample):
+        wav, sr = decode.decode_audio(sample)
+        wav = wav[:1]
+        if sr != 16000:
+            wav = resample.resample_np(wav, sr, 16000)
+        return pipeline.quantize_clip_int16(pipeline.preprocess_clip(wav, 16000, 10.0))
+
+    out = {}
+    for name, (flac_bytes, pcm, sr) in samples.items():
+        buf = io.BytesIO()
+        wavfile.write(buf, sr, pcm.T.squeeze())
+        flac_sample = {"flac": flac_bytes}
+        wav_sample = {"wav": buf.getvalue()}
+        if not np.array_equal(worker_clip(flac_sample), worker_clip(wav_sample)):
+            raise AssertionError(f"{name}: the FLAC and WAV payloads give different clips")
+        flac_ms, wav_ms = [], []
+        for _ in range(2):  # FLAC, WAV, WAV, FLAC
+            flac_ms.append(median_ms(lambda: worker_clip(flac_sample), 5))
+            wav_ms.append(median_ms(lambda: worker_clip(wav_sample), 10))
+            wav_ms.append(median_ms(lambda: worker_clip(wav_sample), 10))
+            flac_ms.append(median_ms(lambda: worker_clip(flac_sample), 5))
+        out[name] = {"seconds": pcm.shape[1] / sr, "sr": sr, "channels": pcm.shape[0],
+                     "flac_ms": statistics.median(flac_ms), "wav_ms": statistics.median(wav_ms),
+                     "flac_decode_ms": median_ms(lambda: decode.decode_audio(flac_sample), 10),
+                     "flac_bytes_ratio": len(flac_sample["flac"]) / pcm.nbytes}
+    return out
+
+
+def phase_flac_shards() -> tuple[dict, str, str]:
+    """Phase 16(a): LibriSpeech- and AudioSet-layout FLAC shards written by
+    the port's writer; the native library built from the checkout on this
+    host; every payload decoded bit for bit against the written samples; one
+    worker's ms a clip for FLAC against WAV of the same samples. Returns
+    the record and the two shard patterns."""
+    import re
+    import shutil
+
+    from wavjepa_tpu_torch.data import decode, shards, synthetic
+    from wavjepa_tpu_torch.data._native import build as native_build
+
+    shutil.rmtree(LIBRI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    lib = native_build.build()  # phase 7 built it here; its path names the sources' hash
+    # both layouts at once, the host's CPUs split between them by their
+    # encoding work (the 44.1-kHz stereo clips take about twice the mono
+    # utterances' in all)
+    workers = os.cpu_count() or 2
+    libri_workers = max(1, (workers + 2) // 3)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libri_job = pool.submit(synthetic.write_librispeech_shards,
+                                os.path.join(LIBRI_DIR, "librispeech"), LIBRI_SHARDS,
+                                LIBRI_PER_SHARD, workers=libri_workers)
+        as_job = pool.submit(synthetic.write_audioset_shards, os.path.join(LIBRI_DIR, "audioset"),
+                             AUDIOSET_FLAC_SHARDS, AUDIOSET_FLAC_PER_SHARD,
+                             workers=max(1, workers - libri_workers))
+        (libri_pattern, libri), (as_pattern, aset) = libri_job.result(), as_job.result()
+    write_s = time.perf_counter() - t0
+    record = {"library": str(lib), "write_s": write_s, "writer_processes": workers}
+    t1, payloads = time.perf_counter(), {}
+    for name, pattern, written, sr, members in (
+            ("librispeech", libri_pattern, libri, 16000, {"flac", "txt"}),
+            ("audioset", as_pattern, aset, 44100, {"flac", "json"})):
+        n, flac_bytes, seconds = 0, 0, []
+        for shard in shards.expand_shard_pattern(pattern):
+            for key, sample in shards.iter_tar_samples(shard):
+                key = os.path.basename(key)
+                if set(sample) != members or (name == "librispeech"
+                                              and not re.match(LIBRI_RE, key)):
+                    raise AssertionError(f"{name} {key}: members {sorted(sample)}")
+                wav, rate = decode.decode_audio(sample)
+                if rate != sr or not np.array_equal(
+                        wav, written[key].astype(np.float32) / 32768):
+                    raise AssertionError(f"{name} {key}: decoded samples differ from written")
+                n, flac_bytes = n + 1, flac_bytes + len(sample["flac"])
+                payloads[key] = sample["flac"]
+                seconds.append(wav.shape[1] / sr)
+        if n != len(written):
+            raise AssertionError(f"{name}: {n} samples read of {len(written)} written")
+        record[name] = {"pattern": pattern, "clips": n, "audio_s": float(np.sum(seconds)),
+                        "seconds_min_median_max": [min(seconds), statistics.median(seconds),
+                                                   max(seconds)],
+                        "flac_bytes": flac_bytes,
+                        "bytes_ratio": flac_bytes / sum(v.nbytes for v in written.values())}
+    record["verify_s"] = time.perf_counter() - t1
+    mid = min(libri, key=lambda k: abs(libri[k].shape[1] / 16000 - 13.0))
+    first = next(iter(aset))
+    record["worker_ms"] = flac_worker_ms({
+        "librispeech_16k_mono": (payloads[mid], libri[mid], 16000),
+        "audioset_44k_stereo": (payloads[first], aset[first], 44100)})
+    ls, au = record["librispeech"], record["audioset"]
+    print(f"[librispeech] (a) FLAC shards written by the port's writer in {write_s:.1f} s "
+          f"({workers} processes): LibriSpeech layout {ls['clips']} utterances, "
+          f"{ls['audio_s']:.1f} s of audio (min / median / max "
+          f"{' / '.join(f'{x:.2f}' for x in ls['seconds_min_median_max'])} s), "
+          f"{ls['bytes_ratio']:.3f} of PCM16; AudioSet layout {au['clips']} clips of 10 s at "
+          f"44.1 kHz stereo, {au['bytes_ratio']:.3f} of PCM16; all decoded bit for bit by "
+          f"{lib.name} (g++, built on this host) in {record['verify_s']:.1f} s", flush=True)
+    for name, r in record["worker_ms"].items():
+        print(f"[librispeech] (a) one worker a clip, {name} ({r['seconds']:.2f} s): FLAC "
+              f"{r['flac_ms']:.2f} ms (decode {r['flac_decode_ms']:.2f}) against WAV of the "
+              f"same samples {r['wav_ms']:.2f} ms, in turns", flush=True)
+    return record, libri_pattern, as_pattern
+
+
+def sidecar_and_weights(run_dir: str, steps: int) -> tuple:
+    """A run's last checkpoint, its sidecar's configuration and its student
+    and teacher encoders' weights on the host."""
+    from wavjepa_tpu_torch.train.checkpoint import read_model_config
+
+    ckpt = os.path.join(run_dir, "ckpt", f"step_{steps:08d}.ckpt")
+    if not (os.path.isfile(ckpt) and os.path.isfile(os.path.join(run_dir, "model_config.json"))):
+        raise AssertionError(f"no checkpoint or model_config.json in {run_dir}")
+    sd = torch.load(ckpt, map_location="cpu", weights_only=False)["state_dict"]
+    student = {k[len("encoder."):]: v.float() for k, v in sd.items() if k.startswith("encoder.")}
+    teacher = {k[len("teacher_encoder."):]: v.float() for k, v in sd.items()
+               if k.startswith("teacher_encoder.")}
+    return ckpt, read_model_config(ckpt), student, teacher
+
+
+def phase_librispeech_cli(counters: dict, pattern: str) -> dict:
+    """Phase 16(b): ``python -m wavjepa_tpu_torch.train
+    configs/librispeech.yaml data.data_dirs=...`` as its ``main`` in this
+    process (PyYAML reads the file), LIBRI_CLI_STEPS steps: exit 0,
+    ``checked_run``'s checks at exactly LIBRI_LAUNCHES a microbatch; its
+    checkpoint and sidecar (the wav2vec2 spec, ``pos_embed``, 100 tokens)
+    served by ``load_model``."""
+    import shutil
+
+    from wavjepa_tpu_torch.api.runtime import load_model
+    from wavjepa_tpu_torch.ops.conv_frontend import WAV2VEC2_CONV_SPEC
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
+
+    cli_dir = os.path.join("build", "chip_smoke_train", "librispeech_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    items = [f"data.data_dirs={pattern}", f"trainer.steps={LIBRI_CLI_STEPS}",
+             "trainer.log_every=1", "optimizer.warmup_steps=2", f"trainer.save_dir={cli_dir}",
+             f"data.shuffle_buffer={LIBRI_SHUFFLE_BUFFER}"]
+    argv = [LIBRI_RECIPE, *items]
+    cfg = apply_overrides(load_config(LIBRI_RECIPE), items)
+    start = seeded_encoder(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters.values():  # the main path's run starts here
+        counter.launches = 0
+    rc, stdout, cli_s = cli_in_process("wavjepa_tpu_torch.train", argv)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0 or f"[step {LIBRI_CLI_STEPS}] loss=" not in stdout:
+        raise AssertionError(f"LibriSpeech CLI: exit {rc}\n{stdout[-3000:]}")
+    run_dir = os.path.join(cli_dir, cfg.run_identity())
+    ckpt, sidecar, student, teacher = sidecar_and_weights(run_dir, LIBRI_CLI_STEPS)
+    rec = checked_run("LibriSpeech CLI", cfg, run_dir, LIBRI_CLI_STEPS, LIBRI_LAUNCHES,
+                      launches, peak, start, student, teacher, LIBRI_WARMUP)
+    if rec["accum_steps"] != 16:
+        raise AssertionError(f"LibriSpeech CLI: {rec['accum_steps']} microbatches, not 16")
+    if (sidecar.conv_spec != WAV2VEC2_CONV_SPEC or sidecar.pos_embed != "time"
+            or sidecar.total_patches != 100 or sidecar.extractor_mode != "default"):
+        raise AssertionError(f"LibriSpeech CLI: sidecar {sidecar}")
+    # a HEAR request served from the checkpoint (architecture from the sidecar)
+    rt, served = load_model(ckpt), {}
+    serve = counted_run(counters, lambda: served.setdefault(
+        "emb", rt.get_timestamp_embeddings(make_clips([10.0, 4.0], 16))[0]))
+    emb = served["emb"]
+    if (emb.dim() != 3 or emb.shape[0] != 2 or emb.shape[2] != sidecar.encoder_dim
+            or not torch.isfinite(emb).all() or rt.config.total_patches != 100):
+        raise AssertionError(f"LibriSpeech checkpoint served {tuple(emb.shape)}")
+    del rt
+    rec.update({"argv": argv, "seconds": cli_s,
+                "sidecar": {"conv_spec": [list(x) for x in sidecar.conv_spec],
+                            "pos_embed": sidecar.pos_embed,
+                            "total_patches": sidecar.total_patches},
+                "served": list(emb.shape), "serve_launches": serve})
+    shutil.rmtree(cli_dir)  # ~1.7 GB of checkpoint
+    print(f"[librispeech] (b) the CLI on {LIBRI_RECIPE} (its main in this process, "
+          f"{cli_s:.1f} s): {run_summary(rec)}; checkpoint served {tuple(emb.shape)} from its "
+          f"sidecar (wav2vec2 spec, 100 tokens)", flush=True)
+    return rec
+
+
+def phase_librispeech(counters: dict) -> dict:
+    """Phase 16: (a) ``phase_flac_shards``; (b) ``phase_librispeech_cli``;
+    (c) ``train_jepa`` on the recipe's 4.02-s form from the same shards,
+    with phase 5's checks, its backward on the two-pass route; (d) phase
+    6's injected step at the recipe's configuration (speech masks, the
+    wav2vec2 frontend, unpacked, replayed as resolved), f32 card against
+    CPU and bf16 against f32; (e) ``train_jepa`` on the AudioSet
+    configuration from the AudioSet-layout FLAC shards, with phase 7's
+    priming record."""
+    import shutil
+
+    from wavjepa_tpu_torch.ops import flash_attention as fam
+
+    t0 = time.perf_counter()
+    record = {"card": card_line()}
+    record["flac"], libri_pattern, as_pattern = phase_flac_shards()
+    record["cli"] = phase_librispeech_cli(counters, libri_pattern)
+    torch.cuda.empty_cache()
+    routes = {f"T{t}_d{d}": fam.flash_attention_bwd_route(t, d, torch.bfloat16)
+              for t in (100, 200) for d in (64, 32)}
+    if routes != {"T100_d64": "single_pass", "T100_d32": "single_pass",
+                  "T200_d64": "two_pass", "T200_d32": "two_pass"}:
+        raise AssertionError(f"the backward's routes at the recipe's shapes: {routes}")
+    record["bwd_routes"] = routes
+    record["train_402"] = phase_train(counters, [
+        ("librispeech_402", ["data.process_seconds=4.02",
+                             f"data.shuffle_buffer={LIBRI_SHUFFLE_BUFFER}"],
+         LIBRI_402_STEPS, LIBRI_LAUNCHES, False)], shards=libri_pattern, warmup=LIBRI_WARMUP,
+        recipe=LIBRI_RECIPE)["librispeech_402"]
+    torch.cuda.empty_cache()
+    record["parity"] = phase_train_parity(tag="librispeech parity", recipe=LIBRI_RECIPE)
+    torch.cuda.empty_cache()
+    record["audioset_flac"] = phase_train(counters, [
+        ("audioset_flac", [f"data.shuffle_buffer={CLI_SHUFFLE_BUFFER}"], AUDIOSET_FLAC_STEPS,
+         dict(zip(counters, (36, 24, 0, 0))), False)], shards=as_pattern, warmup=LIBRI_WARMUP
+    )["audioset_flac"]
+    primed = record["audioset_flac"]["primed"]
+    if primed["first"] != {"shape": [32, 1, 160000], "dtype": "int16", "peak": 32767}:
+        raise AssertionError(f"AudioSet FLAC loader's first batch {primed['first']}")
+    shutil.rmtree(LIBRI_DIR)
+    record["seconds"] = time.perf_counter() - t0
+    c, r4, af = record["cli"], record["train_402"], record["audioset_flac"]
+    print(f"[librispeech] (c) 4.02-s form (200 tokens, the backward's route "
+          f"{routes['T200_d64']}): step p50 {r4['step_p50_ms']:.1f} ms, {r4['clips_per_s']:.2f} "
+          f"clips/s, MFU {r4['mfu']:.4f}, peak {r4['max_memory_allocated_bytes'] / 2**30:.2f} "
+          f"GiB; (e) AudioSet configuration from FLAC shards: first batch after "
+          f"{primed['buffer_s']:.2f} s, {primed['produced_clips_per_s']:.1f} clips/s produced, "
+          f"step p50 {af['step_p50_ms']:.1f} ms, data wait p50 {af['data_wait_p50_ms']:.2f} ms; "
+          f"(b) {c['step_p50_ms']:.1f} ms a 2.01-s step; phase 16 took {record['seconds']:.1f} "
+          f"s; {record['card']}", flush=True)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
@@ -3695,6 +4035,8 @@ def main() -> int:
     done("tensor parallel")
     recompute = phase_recompute(counters, train, tensor_parallel)
     done("recomputation")
+    librispeech = phase_librispeech(counters)
+    done("librispeech")
 
     def entry(name, replaces, launches, head, rows):
         return {"name": name, "route": "cuda",
@@ -3728,6 +4070,10 @@ def main() -> int:
         paths.update({f"recompute f32 step {impl}": sum(n[kernel] for n in r["launches"].values())
                       for impl, r in recompute["parity"].items()})
         paths["recompute large 256 crops"] = recompute["large"]["launches"][kernel]
+        paths["librispeech cli"] = librispeech["cli"]["launches"][kernel]
+        paths["serve librispeech"] = librispeech["cli"]["serve_launches"][kernel]
+        paths["librispeech 4.02 s"] = librispeech["train_402"]["launches"][kernel]
+        paths["audioset flac"] = librispeech["audioset_flac"]["launches"][kernel]
         return paths
 
     fwd = entry("flash_attention_fwd", "wavjepa_tpu/ops/flash_attention.py:39", 0,
@@ -3767,7 +4113,7 @@ def main() -> int:
                    "train_shards": train_shards, "trace": trace, "nat": nat,
                    "denoise": denoise, "eval": evaluation, "eval_arch_xares": arch_xares,
                    "parallel": parallel, "tensor_parallel": tensor_parallel,
-                   "recompute": recompute, "phase_s": phase_s,
+                   "recompute": recompute, "librispeech": librispeech, "phase_s": phase_s,
                    "torch": torch.__version__, "cuda": torch.version.cuda}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
