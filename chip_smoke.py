@@ -86,6 +86,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             and one refresh a batch; and the Nat HEAR runtime
             (``api/hear_natjepa``: binaural scene and timestamp requests, a
             4-channel request, f32 card against CPU, bf16 against f32);
+9b. ambisonic  WavJEPA-Nat at 4 channels (``configs/nat_binaural.yaml`` with
+            ``data.in_channels=4 extractor.pos_embed=time``, base width):
+            the flash shapes it resolves to (packing 352/512, the teacher on
+            800 tokens, 16 microbatches) against those phase 2 holds; the
+            step's scene build from a 4-channel batch at the real shape;
+            ``train_jepa`` on synthetic 4-channel scene batches with phase
+            5's checks (exactly 36 forward and 24 backward launches a
+            microbatch, both backwards on the two-pass route), its step
+            p50, MFU, peak memory and the scene build's share; one f32 step
+            card against CPU and bf16 against it (phase 6's); ``train_jepa``
+            from shards with 4-channel RIR stacks, the device banks and one
+            refresh a batch; and the first run's checkpoint served by
+            ``api/hear_natjepa.load_model`` (2 four-channel clips of 10 s,
+            f32 card against CPU, bf16 against f32);
 10. denoise  denoise distillation at the CLI's defaults (base width, bf16,
             8 clips × 16 crops, 4 microbatches, α = 0): a seeded JEPA
             written as a port checkpoint under ``build/`` and loaded as the
@@ -98,7 +112,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             backward); one traced step (phase 8's reading); one f32 step
             card against CPU and bf16 against it;
             ``train_denoiser`` from phase 9's shards with device banks (the
-            RIR's first channel); the CLI in a process of its own; and the
+            RIR's first channel); the CLI (its ``main`` in this process); and the
             distilled student's checkpoint served by ``load_model``;
 11. eval     the HF-style surface (``api/hf.py``) on phase 5's checkpoint: the
             feature extractor on a 10-s clip at 44.1 kHz and at 16 kHz into
@@ -217,6 +231,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import faulthandler
+import functools
 import json
 import os
 import statistics
@@ -288,10 +303,11 @@ CLI_STEPS = 2
 # for the script's time (its fill, ~5 s of the run, is timed by the
 # shard-fed runs before it)
 CLI_SHUFFLE_BUFFER = 256
-# configs/nat_binaural.yaml as overrides of the defaults (the card's machine
-# may lack PyYAML; tests/test_torch_nat_step.py holds the two equal)
-NAT_OVERRIDES = ("data.nat_scenes=true", "data.in_channels=2", "extractor.channel_wise=true",
-                 "extractor.pos_embed=binaural", "masker.channel_based_masking=true")
+# WavJEPA-Nat's configuration file (phases 9, 9b and 13(b))
+NAT_RECIPE = "configs/nat_binaural.yaml"
+# each Nat run (phases 9 and 9b): 1 warm-up step and 3 timed (phase 9's cut
+# from 5 steps for the script's time)
+NAT_STEPS, NAT_WARMUP = 4, 1
 # phase 9 (WavJEPA-Nat): one scene batch of the Nat configuration (32 clips
 # of 10 s at 32 kHz, 2-s binaural RIRs, 5 noise sources); the scenes on the
 # card against the same code on the CPU (the convolutions as in
@@ -368,6 +384,9 @@ FUSED_FWD_SHAPES = [
     ("decoder_mb", 64, 128, 384, 12), ("decoder", 1024, 128, 384, 12),
     ("windowed", 40, 200, 768, 12), ("whole_clip", 8, 999, 768, 12),
     ("student_encoder_mb", 16, 88, 768, 12), ("large_windowed", 4, 200, 1024, 16),
+    # the ambisonic Nat predictor's microbatch under
+    # trainer.attn_impl_decoder=fused_block (its core's backward at T = 512)
+    ("ambisonic_decoder_mb", 64, 512, 384, 12),
 ]
 FUSED_BWD_SHAPES = [
     ("decoder_mb", 64, 128, 384, 12), ("decoder", 1024, 128, 384, 12),
@@ -375,6 +394,7 @@ FUSED_BWD_SHAPES = [
     ("odd_rows", 3, 99, 384, 12),
     # the unpacked 200-token encoder: its core takes the two-pass route
     ("unpacked_encoder_t200", 16, 200, 768, 12),
+    ("ambisonic_decoder_mb", 64, 512, 384, 12),
 ]
 # (name, B, T, D, heads, head_dim) of a tensor-parallel rank's block at
 # trainer.model_parallel=2 on the large configuration: a subset of the heads,
@@ -392,6 +412,14 @@ LIBRI_ATTN_SHAPES = [
     ("librispeech_encoder_mb", 32, 12, 100, 64), ("librispeech_decoder_mb", 128, 12, 100, 32),
     ("librispeech_402_encoder_mb", 32, 12, 200, 64),
     ("librispeech_402_decoder_mb", 128, 12, 200, 32),
+]
+# a microbatch of the ambisonic Nat configuration (configs/nat_binaural.yaml
+# with AMBISONIC; 16 microbatches of 16 crops): the packed student encoder
+# (B, H, T, d), the packed predictor (4 groups a crop) and the teacher on all
+# 800 tokens; phase 9b checks them against the configuration as resolved
+AMBISONIC_ATTN_SHAPES = [
+    ("ambisonic_student_encoder_mb", 16, 12, 352, 64), ("ambisonic_decoder_mb", 64, 12, 512, 32),
+    ("ambisonic_teacher_mb", 16, 12, 800, 64),
 ]
 # the training path's attention, AudioSet configuration (256 crops): the
 # packed student encoder, the packed decoder (4 groups a crop) and the
@@ -412,6 +440,7 @@ TRAIN_FWD_SHAPES = [
     # the encoder, its replay and the teacher, and the 4-group predictor, at
     # 2.01 s (100 tokens) and at 4.02 s (200)
     *LIBRI_ATTN_SHAPES,
+    *AMBISONIC_ATTN_SHAPES,
 ]
 TRAIN_BWD_SHAPES = [
     ("student_encoder", 256, 12, 88, 64), ("decoder", 1024, 12, 128, 32),
@@ -424,6 +453,8 @@ TRAIN_BWD_SHAPES = [
     # configs/librispeech.yaml's encoder and predictor: one pass at 100
     # tokens, two passes at 200
     *LIBRI_ATTN_SHAPES,
+    # the ambisonic Nat encoder and predictor: two passes at 352 and 512
+    *AMBISONIC_ATTN_SHAPES[:2],
 ]
 # where the kernels change tile or route: the forward at one 64-row tile and
 # one row past it, and the whole clip at head_dim 32; the backward at the
@@ -1074,11 +1105,22 @@ def primed_shard_batches(cfg, build) -> tuple:
 
 
 def seeded_encoder(cfg) -> dict:
-    """The student encoder's weights that a run of ``cfg`` starts from."""
-    from wavjepa_tpu_torch.models.jepa import JEPA
+    """The student encoder's weights that a run of ``cfg`` starts from
+    (read-only), made on the host once a model configuration and seed: the
+    runs of one configuration on synthetic data and from shards share
+    them."""
+    from wavjepa_tpu_torch.models.jepa import jepa_config_to_dict
 
-    init = JEPA(cfg.build_model_config())
-    init.init_parameters(torch.Generator().manual_seed(cfg.trainer.seed))
+    return _seeded_encoder(json.dumps(jepa_config_to_dict(cfg.build_model_config()),
+                                      sort_keys=True), cfg.trainer.seed)
+
+
+@functools.cache
+def _seeded_encoder(model_config: str, seed: int) -> dict:
+    from wavjepa_tpu_torch.models.jepa import JEPA, jepa_config_from_dict
+
+    init = JEPA(jepa_config_from_dict(json.loads(model_config)))
+    init.init_parameters(torch.Generator().manual_seed(seed))
     return encoder_weights(init)
 
 
@@ -1333,14 +1375,17 @@ def write_shards(root: str, seed: int = 0) -> str:
 
 
 def cli_in_process(module: str, argv: list) -> tuple[int, str, float]:
-    """``python -m module *argv`` as its ``main`` in this process, standard
-    output captured: the CLI's path without a new interpreter's start-up and
-    its first touch of the card. Returns (exit code, output, seconds)."""
+    """``python -m module *argv`` as its ``main`` in this process (a
+    package's ``__main__``, or the module's own), standard output captured:
+    the CLI's path without a new interpreter's start-up and its first touch
+    of the card. Returns (exit code, output, seconds)."""
     import contextlib
     import importlib
+    import importlib.util
     import io
 
-    main = importlib.import_module(f"{module}.__main__").main
+    package = importlib.util.find_spec(module).submodule_search_locations is not None
+    main = importlib.import_module(f"{module}.__main__" if package else module).main
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1566,7 +1611,7 @@ def phase_trace(synthetic_runs: dict, shard_runs: dict) -> dict:
 def nat_scene_batch(seed: int, b: int = 32, seconds: float = 10.0, sr: int = 32000,
                     rir_s: float = 2.0, n_noise: int = 5, channels: int = 2) -> dict:
     """A Nat scene batch at the real shape from seeded numpy: clean clips,
-    binaural RIRs (an onset, then exponentially decaying noise a channel),
+    RIRs of ``channels`` (an onset, then exponentially decaying noise a channel),
     noise over a random span, SNRs in [-5, 5] dB; 2 of the 5 noise sources
     absent (zero rows)."""
     rng = np.random.default_rng(seed)
@@ -1600,11 +1645,11 @@ def phase_nat_scenes() -> dict:
     from wavjepa_tpu_torch.data.resample import resample_np_plain
     from wavjepa_tpu_torch.ops import scenes
     from wavjepa_tpu_torch.ops.resample import resample_torch
-    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
     from wavjepa_tpu_torch.train.loop import scene_config
     from wavjepa_tpu_torch.train.step import make_jepa_train_step
 
-    cfg = apply_overrides(Config(), [*NAT_OVERRIDES, "data.synthetic=true"])
+    cfg = apply_overrides(load_config(NAT_RECIPE), ["data.synthetic=true"])
     model_cfg = cfg.build_model_config()
     step = make_jepa_train_step(cfg.optimizer, scene_cfg=scene_config(cfg))
     batch = nat_scene_batch(21)
@@ -1674,41 +1719,51 @@ def phase_nat_scenes() -> dict:
     return rec
 
 
-def write_nat_shards(root: str, seed: int = 0) -> tuple[str, str, str]:
-    """Phase 9's shards: the clean clips of phase 7 (``write_shards``), 4
-    .npy tars of binaural RIR stacks ((1 + 0..5, 2, 64000) f32: the
-    source's, then the noise sources'; an onset, then decaying noise) and 1
-    .npy tar of noise rows of 3-15 s at 32 kHz. Returns their patterns."""
+def npy_tar(path: str, arrays) -> None:
+    """A tar of .npy members, one an array."""
     import io
     import tarfile
 
-    audio = write_shards(os.path.join(root, "audio"), seed)
-    rng = np.random.default_rng(seed + 1)
+    with tarfile.open(path, "w") as tar:
+        for i, arr in enumerate(arrays):
+            buf = io.BytesIO()
+            np.save(buf, arr)
+            info = tarfile.TarInfo(f"item{i:04d}.npy")
+            info.size = buf.tell()
+            buf.seek(0)
+            tar.addfile(info, buf)
+
+
+def write_rir_shards(root: str, rng, channels: int) -> str:
+    """4 .npy tars of NAT_RIR_STACKS RIR stacks in all ((1 + 0..5,
+    channels, 64000) f32: the source's, then the noise sources'; an onset,
+    then decaying noise; 2 channels binaural, 4 ambisonic). Returns their
+    pattern."""
+    os.makedirs(root, exist_ok=True)
     decay = np.exp(-np.arange(64000) / 1600.0).astype(np.float32)
-
-    def npy_tar(path, arrays):
-        with tarfile.open(path, "w") as tar:
-            for i, arr in enumerate(arrays):
-                buf = io.BytesIO()
-                np.save(buf, arr)
-                info = tarfile.TarInfo(f"item{i:04d}.npy")
-                info.size = buf.tell()
-                buf.seek(0)
-                tar.addfile(info, buf)
-
-    per = NAT_RIR_STACKS // 4
     for s in range(4):
         stacks = []
-        for _ in range(per):
-            st = rng.standard_normal((1 + int(rng.integers(0, 6)), 2, 64000)).astype(
+        for _ in range(NAT_RIR_STACKS // 4):
+            st = rng.standard_normal((1 + int(rng.integers(0, 6)), channels, 64000)).astype(
                 np.float32) * decay * 0.05
             st[..., int(rng.integers(0, 200))] += 1.0
             stacks.append(st)
         npy_tar(os.path.join(root, f"rir-{s}.tar"), stacks)
+    return os.path.join(root, "rir-{0..3}.tar")
+
+
+def write_nat_shards(root: str, seed: int = 0) -> tuple[str, str, str]:
+    """Phase 9's shards, which phases 9b and 10 read too: the clean clips of
+    phase 7 (``write_shards``), binaural RIR stacks (``write_rir_shards``)
+    and 1 .npy tar of noise rows of 3-15 s at 32 kHz. Returns their
+    patterns."""
+    audio = write_shards(os.path.join(root, "audio"), seed)
+    rng = np.random.default_rng(seed + 1)
+    rir = write_rir_shards(root, rng, 2)
     npy_tar(os.path.join(root, "noise-0.tar"), [
         rng.standard_normal(int(32000 * rng.uniform(3, 15))).astype(np.float32)
         for _ in range(NAT_NOISE_ROWS)])
-    return audio, os.path.join(root, "rir-{0..3}.tar"), os.path.join(root, "noise-0.tar")
+    return audio, rir, os.path.join(root, "noise-0.tar")
 
 
 def phase_nat_serve(counted, idle) -> dict:
@@ -1789,47 +1844,221 @@ def phase_nat_serve(counted, idle) -> dict:
     return record
 
 
+def nat_launches(counters: dict, model_cfg) -> dict:
+    """Launches of each counted wrapper a microbatch of a Nat step on the
+    default path: the student encoder, the teacher and the predictor
+    forward, the student encoder and the predictor backward (36 and 24 at
+    base width, nothing replayed)."""
+    enc, dec = model_cfg.encoder_layers, model_cfg.decoder_layers
+    return dict(zip(counters, (2 * enc + dec, enc + dec, 0, 0)))
+
+
+def nat_runs(counters: dict, prefix: str, items: list, shards: tuple,
+             keep: dict = None) -> dict:
+    """NAT_RECIPE with ``items`` at base width: ``train_jepa`` on synthetic
+    scene batches, its checkpoint served here, or moved as ``keep`` says
+    for a later phase to serve; one f32 step card against CPU and bf16
+    against it (phase 6's); then ``train_jepa`` from ``shards`` (the
+    patterns of the clean clips, the RIR stacks and the noise) with the
+    device banks and one refresh a batch. Both runs NAT_STEPS steps with
+    phase 5's checks at a Nat microbatch's launches."""
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
+
+    per_microbatch = nat_launches(
+        counters, apply_overrides(load_config(NAT_RECIPE), items).build_model_config())
+    record = {"per_microbatch": per_microbatch}
+    name = f"{prefix}_accum_auto"
+    record["train"] = phase_train(counters, [(name, items, NAT_STEPS, per_microbatch,
+                                              keep is None)],
+                                  keep=keep, warmup=NAT_WARMUP, recipe=NAT_RECIPE)
+    record["train_parity"] = phase_train_parity(tuple(items), f"{prefix} train parity",
+                                                recipe=NAT_RECIPE)
+    audio, rir, noise = shards
+    shard_name = f"{prefix}_shards_accum_auto"
+    record["train_shards"] = phase_train(counters, [
+        (shard_name, [*items, f"data.rir_dir={rir}", f"data.noise_dir={noise}",
+                      "data.rir_refresh_per_batch=1"], NAT_STEPS, per_microbatch, False)],
+        shards=audio, warmup=NAT_WARMUP, recipe=NAT_RECIPE)
+    run, shard_run = record["train"][name], record["train_shards"][shard_name]
+    print(f"[{prefix}] from shards with device banks beside synthetic scenes: step p50 "
+          f"{shard_run['step_p50_ms']:.1f} vs {run['step_p50_ms']:.1f} ms, "
+          f"{shard_run['clips_per_s']:.2f} vs {run['clips_per_s']:.2f} clips/s; data wait "
+          f"p50 {shard_run['data_wait_p50_ms']:.2f} ms a step (each step's: "
+          f"{', '.join(f'{x:.1f}' for x in shard_run['data_wait_ms'])})", flush=True)
+    return record
+
+
 def phase_nat(counters: dict) -> dict:
     """Phase 9, WavJEPA-Nat (configs/nat_binaural.yaml at base width): the
-    scene synthesis (``phase_nat_scenes``); train_jepa on synthetic scene
-    batches at the resolved accumulation with phase 5's checks; one f32 Nat
-    step card against CPU (phase 6's); train_jepa from shards written here
-    (clean clips, binaural RIR and noise .npy tars) with the device banks
-    and one refresh a batch; the Nat HEAR runtime."""
+    scene synthesis (``phase_nat_scenes``); ``nat_runs`` from shards written
+    under NAT_SHARDS_DIR (kept for phases 9b and 10, which deletes them) at
+    the resolved accumulation; the Nat HEAR runtime."""
     import shutil
 
-    from wavjepa_tpu_torch.train.config import Config, apply_overrides
-
     record = {"scenes": phase_nat_scenes()}
-    # a microbatch: the student encoder, the teacher and the predictor
-    # forward, the student encoder and the predictor backward (36 and 24)
-    mc = apply_overrides(Config(), list(NAT_OVERRIDES)).build_model_config()
-    default_path = dict(zip(counters, (2 * mc.encoder_layers + mc.decoder_layers,
-                                       mc.encoder_layers + mc.decoder_layers, 0, 0)))
-    record["train"] = phase_train(counters, [
-        ("nat_accum_auto", list(NAT_OVERRIDES), TRAIN_STEPS, default_path, True)])
+    shutil.rmtree(NAT_SHARDS_DIR, ignore_errors=True)
+    record["shards"] = write_nat_shards(NAT_SHARDS_DIR)
+    record.update(nat_runs(counters, "nat", [], record["shards"]))
     run = record["train"]["nat_accum_auto"]
     share = record["scenes"]["step_scenes_inline_ms"] / run["step_p50_ms"]
     record["scene_share_of_step"] = share
     print(f"[nat] scene build {record['scenes']['step_scenes_inline_ms']:.2f} ms of the "
           f"{run['step_p50_ms']:.1f}-ms step ({share:.4f})", flush=True)
-    record["train_parity"] = phase_train_parity(NAT_OVERRIDES, "nat train parity")
-
-    shutil.rmtree(NAT_SHARDS_DIR, ignore_errors=True)
-    audio, rir, noise = write_nat_shards(NAT_SHARDS_DIR)
-    record["train_shards"] = phase_train(counters, [
-        ("nat_shards_accum_auto", [*NAT_OVERRIDES, f"data.rir_dir={rir}",
-                                   f"data.noise_dir={noise}", "data.rir_refresh_per_batch=1"],
-         TRAIN_STEPS, default_path, False)], shards=audio)
-    shard_run = record["train_shards"]["nat_shards_accum_auto"]
-    print(f"[nat] from shards with device banks beside synthetic scenes: step p50 "
-          f"{shard_run['step_p50_ms']:.1f} vs {run['step_p50_ms']:.1f} ms, "
-          f"{shard_run['clips_per_s']:.2f} vs {run['clips_per_s']:.2f} clips/s; data wait "
-          f"p50 {shard_run['data_wait_p50_ms']:.2f} ms a step (each step's: "
-          f"{', '.join(f'{x:.1f}' for x in shard_run['data_wait_ms'])})", flush=True)
-    shutil.rmtree(NAT_SHARDS_DIR)
     record["serve"] = phase_nat_serve(counters["flash_attention_fwd"],
                                       counters["fused_attention_block_fwd"])
+    return record
+
+
+# phase 9b (ambisonic Nat): configs/nat_binaural.yaml at 4 channels with the
+# 1-D time positions (the binaural table holds 2·T rows, so both packages
+# refuse it at 4 channels); (b)'s checkpoint and the 4-channel shards under
+# build/, deleted at the end
+AMBISONIC = ("data.in_channels=4", "extractor.pos_embed=time")
+AMBISONIC_DIR = os.path.join("build", "chip_smoke_ambisonic")
+AMBISONIC_REQUEST = (2, 10.0)  # (e): 2 four-channel clips of 10 s
+
+
+def ambisonic_shapes(cfg) -> list:
+    """(name, B, H, T, d) of the flash kernels' calls in a microbatch of
+    ``cfg`` as resolved, in AMBISONIC_ATTN_SHAPES' order: the packed
+    student encoder, the packed predictor (a group a target) and the
+    teacher on every token."""
+    m = cfg.build_model_config()
+    mb = cfg.trainer.batch_size * cfg.data.samples_per_audio // cfg.resolved_accum_steps()
+    groups = cfg.masker.target_masks_per_context
+    calls = [(mb, m.encoder_heads, m.pack_encoder, m.encoder_dim // m.encoder_heads),
+             (mb * groups, m.decoder_heads, m.pack_decoder, m.decoder_dim // m.decoder_heads),
+             (mb, m.encoder_heads, m.total_patches, m.encoder_dim // m.encoder_heads)]
+    return [(name, *call) for (name, *_), call in zip(AMBISONIC_ATTN_SHAPES, calls)]
+
+
+def phase_ambisonic_serve(counters: dict, ckpt: str) -> dict:
+    """Phase 9b(e): (b)'s checkpoint served by ``api/hear_natjepa.load_model``
+    (the sidecar's 4 channels and time positions, bf16): timestamp
+    embeddings of AMBISONIC_REQUEST, channel-averaged (B, S, D), the flash
+    forward once per encoder layer, nothing else; then the same weights in
+    f32 on the card against the CPU (phase 4's atol) and bf16 against that
+    f32 result (phase 4's relative Frobenius)."""
+    from wavjepa_tpu_torch.api import hear_natjepa
+    from wavjepa_tpu_torch.api.runtime import chunk_padding, load_model
+
+    rt = hear_natjepa.load_model(ckpt, in_channels=4)
+    if (rt.in_channels, rt.config.pos_embed, rt.config.dtype) != (4, "time", torch.bfloat16):
+        raise AssertionError(f"ambisonic checkpoint served as {rt.config}")
+    n, seconds = AMBISONIC_REQUEST
+    rng = np.random.default_rng(35)
+    x = [rng.standard_normal((4, int(seconds * 16000))).astype(np.float32) * 0.1
+         for _ in range(n)]
+    served = {}
+    launches = counted_run(counters, lambda: served.setdefault(
+        "out", rt.get_timestamp_embeddings(x)))
+    emb, ts = served["out"]
+    _, _, cut_off, _ = chunk_padding(x[0].shape[-1], rt.unit_frames, rt.sample_rate,
+                                     rt.output_steps)
+    expect = (n, cut_off, rt.config.encoder_dim)
+    if (tuple(emb.shape) != expect or tuple(ts.shape) != expect[:2]
+            or not torch.isfinite(emb).all()):
+        raise AssertionError(f"ambisonic served {tuple(emb.shape)}, expected {expect}")
+    if launches != dict(zip(counters, (rt.config.encoder_layers, 0, 0, 0))):
+        raise AssertionError(f"ambisonic serving launched {launches}")
+    times = []
+    for i in range(7):
+        t0 = time.perf_counter()
+        rt.get_timestamp_embeddings(x)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    f32_cfg = dataclasses.replace(rt.config, dtype=torch.float32)
+    e_card = load_model(ckpt, config=f32_cfg, device="cuda").get_timestamp_embeddings(x)[0].cpu()
+    e_cpu = load_model(ckpt, config=f32_cfg, device="cpu").get_timestamp_embeddings(x)[0]
+    err = (e_card - e_cpu).abs().max().item()
+    if not torch.allclose(e_card, e_cpu, atol=CARD_CPU_ATOL, rtol=CARD_CPU_ATOL):
+        raise AssertionError(f"ambisonic checkpoint, f32 card vs CPU: max abs err {err}")
+    rel = (torch.linalg.norm(emb.float().cpu() - e_card) / torch.linalg.norm(e_card)).item()
+    if not rel <= BF16_REL_FRO:
+        raise AssertionError(f"ambisonic checkpoint, bf16 vs f32: relative Frobenius {rel}")
+    record = {"shape": list(emb.shape), "tokens_per_window": rt.config.total_patches,
+              "launches": launches, "p50_ms": statistics.median(times), "n": len(times),
+              "f32_card_vs_cpu_max_abs_err": err, "bf16_vs_f32_rel_fro": rel}
+    print(f"[ambisonic serve] (b)'s checkpoint by hear_natjepa.load_model: {n} clips of "
+          f"{seconds} s × 4 channels, {rt.config.total_patches} tokens a window, out "
+          f"{tuple(emb.shape)}, p50 {record['p50_ms']:.3f} ms over {len(times)} requests, "
+          f"launches {launches}; f32 card vs CPU max abs err {err:.3g} (atol {CARD_CPU_ATOL}); "
+          f"bf16 vs f32 relative Frobenius {rel:.4g} (limit {BF16_REL_FRO})", flush=True)
+    del rt
+    return record
+
+
+def phase_ambisonic(counters: dict, nat: dict) -> dict:
+    """Phase 9b, the ambisonic Nat configuration (NAT_RECIPE with
+    AMBISONIC) at base width: the flash shapes it resolves to against
+    AMBISONIC_ATTN_SHAPES (held in phase 2); the step's scene build from a
+    4-channel batch at the real shape; ``nat_runs`` with 4-channel RIR
+    stacks ((b) synthetic scenes, its checkpoint kept; (c) the f32 step
+    card against CPU, bf16 against f32; (d) from shards); (e)
+    ``phase_ambisonic_serve`` of (b)'s checkpoint. Beside phase 9's
+    binaural step (``nat``)."""
+    import shutil
+
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
+    from wavjepa_tpu_torch.train.loop import scene_config
+    from wavjepa_tpu_torch.train.step import make_jepa_train_step
+
+    shutil.rmtree(AMBISONIC_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    seconds = {}  # each part's end, from the phase's start
+
+    def part(name):
+        seconds[name] = time.perf_counter() - t0
+
+    record = {"card": card_line(), "seconds": seconds}
+    cfg = apply_overrides(load_config(NAT_RECIPE), [*AMBISONIC, "data.synthetic=true"])
+    model_cfg = cfg.build_model_config()
+    shapes = ambisonic_shapes(cfg)
+    if shapes != AMBISONIC_ATTN_SHAPES:
+        raise AssertionError(f"ambisonic configuration resolves to {shapes}, phase 2 held "
+                             f"{AMBISONIC_ATTN_SHAPES}")
+    record["shapes"] = shapes
+
+    # the step's scene build from a 4-channel batch at the real shape
+    step = make_jepa_train_step(cfg.optimizer, scene_cfg=scene_config(cfg))
+    card = {k: torch.from_numpy(v).cuda() for k, v in nat_scene_batch(22, channels=4).items()}
+    scene = step.scenes(model_cfg, card)
+    if tuple(scene.shape) != (32, 4, 160000) or not torch.isfinite(scene).all():
+        raise AssertionError(f"ambisonic scenes {tuple(scene.shape)}")
+    record["step_scenes_inline_ms"] = cuda_ms(lambda: step.scenes(model_cfg, card), iters=10)
+    del step, card, scene
+    torch.cuda.empty_cache()
+    part("scenes")
+
+    # phase 9's clean clips and noise, with 4-channel RIR stacks
+    audio, _, noise = nat["shards"]
+    rir = write_rir_shards(os.path.join(AMBISONIC_DIR, "rirs"), np.random.default_rng(23), 4)
+    record.update(nat_runs(counters, "ambisonic", list(AMBISONIC), (audio, rir, noise),
+                           keep={"ambisonic_accum_auto": AMBISONIC_DIR}))
+    part("runs")
+    run, per_microbatch = record["train"]["ambisonic_accum_auto"], record["per_microbatch"]
+    per_step = {k: n // NAT_STEPS for k, n in run["launches"].items()}
+    share = record["step_scenes_inline_ms"] / run["step_p50_ms"]
+    record.update(launches_per_step=per_step, scene_share_of_step=share)
+    binaural = nat["train"]["nat_accum_auto"]
+    print(f"[ambisonic] (b) {run['accum_steps']} microbatches of {shapes[0][1]} crops, flash "
+          f"launches a step {per_step['flash_attention_fwd']} forward / "
+          f"{per_step['flash_attention_bwd']} backward ({per_microbatch['flash_attention_fwd']} / "
+          f"{per_microbatch['flash_attention_bwd']} a microbatch); step p50 "
+          f"{run['step_p50_ms']:.1f} ms, {run['clips_per_s']:.2f} clips/s, "
+          f"{run['crops_per_s']:.1f} crops/s, MFU {run['mfu']:.4f} of {run['step_tflop']:.2f} "
+          f"TFLOP, peak memory {run['max_memory_allocated_bytes'] / 2**30:.2f} GiB; scene build "
+          f"{record['step_scenes_inline_ms']:.2f} ms ({share:.4f} of the step); phase 9's "
+          f"binaural step {binaural['step_p50_ms']:.1f} ms, MFU {binaural['mfu']:.4f}, "
+          f"{binaural['max_memory_allocated_bytes'] / 2**30:.2f} GiB; {record['card']}",
+          flush=True)
+    record["serve"] = phase_ambisonic_serve(
+        counters, os.path.join(AMBISONIC_DIR, f"step_{NAT_STEPS:08d}.ckpt"))
+    shutil.rmtree(AMBISONIC_DIR)  # ~1.7 GB of base-width checkpoint
+    part("serve")
+    print("[ambisonic] seconds from the phase's start at the end of each part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
     return record
 
 
@@ -2164,13 +2393,14 @@ def phase_denoise_trace(teacher_path: str) -> dict:
     return rec
 
 
-def phase_denoise(counters: dict) -> dict:
+def phase_denoise(counters: dict, shards: tuple) -> dict:
     """Phase 10, denoise distillation at the CLI's defaults (base width,
     bf16): a seeded JEPA written as a port checkpoint and loaded as the
     teacher; train_denoiser on synthetic scene batches at α = 0 and α =
     0.5; one f32 step card against CPU and bf16 against it; train_denoiser
-    from shards (phase 9's) with device banks and one refresh a batch; the
-    CLI in a process of its own; the distilled student served."""
+    from ``shards`` (phase 9's, deleted after) with device banks and one
+    refresh a batch; the CLI (its ``main`` in this process); the distilled
+    student served."""
     import shutil
 
     from wavjepa_tpu_torch.ops.flash_attention import flash_attention_bwd_route
@@ -2194,8 +2424,6 @@ def phase_denoise(counters: dict) -> dict:
         ("denoise_alpha_0.5", ["alpha=0.5"], DENOISE_STEPS_BLEND, blend, False)])
     record["trace"] = phase_denoise_trace(teacher_path)
     record["parity"] = phase_denoise_parity()
-    shutil.rmtree(NAT_SHARDS_DIR, ignore_errors=True)
-    shards = write_nat_shards(NAT_SHARDS_DIR)
     record["train_shards"] = phase_denoise_train(counters, teacher_path, teacher_sd, [
         ("denoise_shards", [], DENOISE_STEPS, alpha_0, False)], shards=shards)
     shutil.rmtree(NAT_SHARDS_DIR)
@@ -2206,26 +2434,23 @@ def phase_denoise(counters: dict) -> dict:
           f"p50 {shard_run['data_wait_p50_ms']:.2f} ms a step (each step's: "
           f"{', '.join(f'{x:.1f}' for x in shard_run['data_wait_ms'])})", flush=True)
 
-    # the CLI as users run it, in a process of its own
+    # the CLI: python -m wavjepa_tpu_torch.denoise, its main in this process
     torch.cuda.empty_cache()
     cli_dir = os.path.join(DENOISE_DIR, "cli")
-    cmd = [sys.executable, "-m", "wavjepa_tpu_torch.denoise", "data.synthetic=true",
-           f"teacher_ckpt={teacher_path}", f"trainer.steps={CLI_STEPS}", "trainer.log_every=1",
-           "optimizer.warmup_steps=2", f"trainer.save_dir={cli_dir}"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    cli_s = time.perf_counter() - t0
+    argv = ["data.synthetic=true", f"teacher_ckpt={teacher_path}", f"trainer.steps={CLI_STEPS}",
+            "trainer.log_every=1", "optimizer.warmup_steps=2", f"trainer.save_dir={cli_dir}"]
+    rc, stdout, cli_s = cli_in_process("wavjepa_tpu_torch.denoise", argv)
     ckpts = [os.path.join(d, f) for d, _, fs in os.walk(cli_dir) for f in fs
              if f == f"step_{CLI_STEPS:08d}.ckpt"]
-    losses = [float(line.split("loss=")[1].split()[0]) for line in proc.stdout.splitlines()
+    losses = [float(line.split("loss=")[1].split()[0]) for line in stdout.splitlines()
               if line.startswith("[step ")]
-    if (proc.returncode != 0 or "run: Denoise-" not in proc.stdout or not ckpts
+    if (rc != 0 or "run: Denoise-" not in stdout or not ckpts
             or len(losses) != CLI_STEPS or not all(np.isfinite(losses))):
-        raise AssertionError(f"denoise CLI: exit {proc.returncode}, checkpoints {ckpts}, "
-                             f"losses {losses}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    record["cli"] = {"cmd": cmd, "seconds": cli_s, "losses": losses}
+        raise AssertionError(f"denoise CLI: exit {rc}, checkpoints {ckpts}, "
+                             f"losses {losses}\n{stdout[-3000:]}")
+    record["cli"] = {"argv": argv, "seconds": cli_s, "losses": losses}
     print(f"[denoise] CLI: {CLI_STEPS} steps, losses {', '.join(f'{x:.5f}' for x in losses)}, "
-          f"checkpoint written; {cli_s:.1f} s with start-up", flush=True)
+          f"checkpoint written; {cli_s:.1f} s", flush=True)
     shutil.rmtree(DENOISE_DIR)
     return record
 
@@ -2932,12 +3157,13 @@ def weights_digest(tensors: dict) -> str:
     return h.hexdigest()
 
 
-def parallel_leg(items: list, steps: int) -> dict:
-    """``build_run`` on the card and ``steps`` steps from the run's own
-    synthetic data (a rank's rows in a process group), each step's generator
-    seeded from (seed, step) as ``run_loop`` seeds it: the losses, gradient
-    norms and the digests of the weights and the teacher after the steps."""
-    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+def parallel_leg(recipe: str, items: list, steps: int) -> dict:
+    """``build_run`` on the card of the defaults (or the file ``recipe``)
+    with ``items``, and ``steps`` steps from the run's own synthetic data (a
+    rank's rows in a process group), each step's generator seeded from
+    (seed, step) as ``run_loop`` seeds it: the losses, gradient norms and
+    the digests of the weights and the teacher after the steps."""
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
     from wavjepa_tpu_torch.train.loop import (
         build_data_iterator,
         build_run,
@@ -2946,9 +3172,9 @@ def parallel_leg(items: list, steps: int) -> dict:
         step_seed,
     )
 
-    cfg = apply_overrides(Config(), ["data.synthetic=true", "optimizer.warmup_steps=2",
-                                     f"trainer.batch_size={PARALLEL_BATCH}",
-                                     f"trainer.accum_steps={PARALLEL_ACCUM}", *items])
+    cfg = apply_overrides(load_config(recipe), [
+        "data.synthetic=true", "optimizer.warmup_steps=2", f"trainer.batch_size={PARALLEL_BATCH}",
+        f"trainer.accum_steps={PARALLEL_ACCUM}", *items])
     dev, _, state, step_fn = build_run(cfg, device="cuda")
     batches = prefetch_to_device(build_data_iterator(cfg), dev)
     generator = torch.Generator(device=dev)
@@ -2969,9 +3195,10 @@ def parallel_leg(items: list, steps: int) -> dict:
     return record
 
 
-PARALLEL_LEGS = {"f32": (["trainer.precision=f32"], PARALLEL_STEPS),
-                 "bf16": ([], PARALLEL_STEPS),
-                 "nat": (list(NAT_OVERRIDES), 1)}
+# (b)'s legs: (configuration file or None for the defaults, overrides, steps)
+PARALLEL_LEGS = {"f32": (None, ["trainer.precision=f32"], PARALLEL_STEPS),
+                 "bf16": (None, [], PARALLEL_STEPS),
+                 "nat": (NAT_RECIPE, [], 1)}
 
 
 def worker_gloo(out: str, port: int, rank: int) -> int:
@@ -2986,7 +3213,7 @@ def worker_gloo(out: str, port: int, rank: int) -> int:
     counters = launch_counters()
     record = {}
     record["launches"] = counted_run(counters, lambda: record.update(
-        {name: parallel_leg(items, steps) for name, (items, steps) in PARALLEL_LEGS.items()}))
+        {name: parallel_leg(*leg) for name, leg in PARALLEL_LEGS.items()}))
     with open(out, "w") as f:
         json.dump(record, f)
     dist.destroy_process_group()
@@ -3124,8 +3351,7 @@ def phase_parallel(counters: dict, train: dict) -> dict:
                           str(r)] for r in range(2)}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:  # the ranks beside one process
         waiter = pool.submit(run_workers, cmds, 400)
-        alone = {name: parallel_leg(items, steps) for name, (items, steps) in
-                 PARALLEL_LEGS.items()}
+        alone = {name: parallel_leg(*leg) for name, leg in PARALLEL_LEGS.items()}
         waiter.result()
     ranks = []
     for path in outs:
@@ -3171,11 +3397,10 @@ def phase_parallel(counters: dict, train: dict) -> dict:
     return record
 
 
-# phase 14 (tensor parallel): configs/large.yaml as overrides (a machine may
-# lack PyYAML): the 24 × 1024 encoder (16 heads) and the 12 × 384
-# predictor, 8 clips × 8 crops a step in bf16, one pass by the resolved rule
-LARGE_OVERRIDES = ("data.name=AudioSet", "trainer.size=large", "trainer.batch_size=8",
-                   "trainer.precision=bf16")
+# phase 14 (tensor parallel): configs/large.yaml, the 24 × 1024 encoder (16
+# heads) and the 12 × 384 predictor, 8 clips × 8 crops a step in bf16, one
+# pass by the resolved rule
+LARGE_RECIPE = "configs/large.yaml"
 LARGE_STEPS = 5  # (a): the first TRAIN_WARMUP left out of the p50
 TP_DIR = os.path.join("build", "chip_smoke_tp")
 TP = 2  # (b): trainer.model_parallel, two gloo ranks on the one card
@@ -3200,13 +3425,12 @@ def tp_leg(items: list, stops: tuple, save_dir: str, grads_to: str = "") -> dict
     whole step-1 gradients (after the clip) there. Rank 0's metrics stay in
     ``save_dir``."""
     from wavjepa_tpu_torch.parallel.mesh import gather_params, tp_rule
-    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
     from wavjepa_tpu_torch.train.loop import train_jepa
 
-    cfg = apply_overrides(Config(), [*LARGE_OVERRIDES, "data.synthetic=true",
-                                     "optimizer.warmup_steps=2", "trainer.log_every=1",
-                                     "trainer.keep_ckpts=1", f"trainer.save_dir={save_dir}",
-                                     *items])
+    cfg = apply_overrides(load_config(LARGE_RECIPE), [
+        "data.synthetic=true", "optimizer.warmup_steps=2", "trainer.log_every=1",
+        "trainer.keep_ckpts=1", f"trainer.save_dir={save_dir}", *items])
     for i, stop in enumerate(stops):
         state = train_jepa(cfg, max_steps=stop, device="cuda")
         if i == 0 and grads_to:
@@ -3336,8 +3560,8 @@ def phase_tensor_parallel(counters: dict) -> dict:
     torch.cuda.empty_cache()
     record = {"card": card_line()}
     # (a)
-    large = phase_train(counters, [("large", list(LARGE_OVERRIDES), LARGE_STEPS,
-                                    dict(zip(counters, (72, 36, 0, 0))), True)])["large"]
+    large = phase_train(counters, [("large", [], LARGE_STEPS, dict(zip(counters, (72, 36, 0, 0))),
+                                    True)], recipe=LARGE_RECIPE)["large"]
     if large["accum_steps"] != 1:
         raise AssertionError(f"large: {large['accum_steps']} microbatches, expected one pass")
     large["launches_per_step"] = {k: n // LARGE_STEPS for k, n in large["launches"].items()}
@@ -3562,11 +3786,11 @@ def large_unreplayed_peak() -> dict:
     its state keeps after the step (weights, gradients, the teacher, the
     AdamW moments), the step's peak, and the peak that implies for 256
     crops in one pass, state + 4 × (peak − state)."""
-    from wavjepa_tpu_torch.train.config import Config, apply_overrides
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
     from wavjepa_tpu_torch.train.loop import build_data_iterator, build_run
 
-    cfg = apply_overrides(Config(), [*LARGE_OVERRIDES, "data.synthetic=true",
-                                     "trainer.remat=false"])
+    cfg = apply_overrides(load_config(LARGE_RECIPE), ["data.synthetic=true",
+                                                      "trainer.remat=false"])
     torch.cuda.empty_cache()
     dev, model_cfg, state, step_fn = build_run(cfg, "cuda")
     batch = torch.from_numpy(next(build_data_iterator(cfg))).to(dev)
@@ -3616,8 +3840,8 @@ def phase_recompute(counters: dict, train: dict, tensor_parallel: dict) -> dict:
                             counters, ("trainer.attn_impl=fused_block",))}
     yardstick = large_unreplayed_peak()
     large = phase_train(counters, [
-        ("large_remat_256", [*LARGE_OVERRIDES, "trainer.batch_size=32", "trainer.accum_steps=1",
-                             *FULL_REMAT], TRAIN_STEPS_ONE_PASS, LARGE_REMAT_LAUNCHES, False)]
+        ("large_remat_256", ["trainer.batch_size=32", "trainer.accum_steps=1", *FULL_REMAT],
+         TRAIN_STEPS_ONE_PASS, LARGE_REMAT_LAUNCHES, False)], recipe=LARGE_RECIPE
     )["large_remat_256"]
     large["unreplayed_64"] = yardstick
     peak, card_bytes = large["max_memory_allocated_bytes"], torch.cuda.mem_get_info()[1]
@@ -4023,7 +4247,9 @@ def main() -> int:
     done("trace")
     nat = phase_nat(counters)
     done("nat")
-    denoise = phase_denoise(counters)
+    ambisonic = phase_ambisonic(counters, nat)
+    done("ambisonic nat")
+    denoise = phase_denoise(counters, nat["shards"])
     done("denoise")
     evaluation = phase_eval(counters)
     done("eval")
@@ -4050,7 +4276,8 @@ def main() -> int:
         paths = {"serve": serving["launches"] if serving else 0}
         paths.update({f"train {name}": r["launches"][kernel]
                       for runs in (train, train_fused, train_shards, nat["train"],
-                                   nat["train_shards"], denoise["train"],
+                                   nat["train_shards"], ambisonic["train"],
+                                   ambisonic["train_shards"], denoise["train"],
                                    denoise["train_shards"])
                       for name, r in runs.items()})
         paths.update({"serve hf": evaluation["hf"]["launches"][kernel],
@@ -4081,6 +4308,8 @@ def main() -> int:
                 kernel_rows + train_fwd_rows)
     fwd["launches_by_path"] = by_path("flash_attention_fwd", serve)
     fwd["launches_by_path"]["serve nat"] = nat["serve"]["launches"]
+    fwd["launches_by_path"]["serve ambisonic"] = ambisonic["serve"]["launches"][
+        "flash_attention_fwd"]
     fwd["launches_by_path"]["serve denoise"] = denoise["train"]["denoise"]["serve"]["launches"]
     fwd["bf16_routes"] = {r["shape"]: "wgmma" for r in kernel_rows + train_fwd_rows}
     bwd = entry("flash_attention_bwd", "wavjepa_tpu/ops/flash_attention.py:58", 0,
@@ -4111,6 +4340,7 @@ def main() -> int:
                    "train_fused": train_fused, "train_parity": train_parity,
                    "train_parity_fused": train_parity_fused, "data": data,
                    "train_shards": train_shards, "trace": trace, "nat": nat,
+                   "ambisonic": ambisonic,
                    "denoise": denoise, "eval": evaluation, "eval_arch_xares": arch_xares,
                    "parallel": parallel, "tensor_parallel": tensor_parallel,
                    "recompute": recompute, "librispeech": librispeech, "phase_s": phase_s,

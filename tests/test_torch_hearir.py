@@ -1,7 +1,8 @@
 """The port's heaRIR (scene and noise iterators, the eval-time augmenter)
 against the JAX package's: the same seeds, scene specs, RIR and noise files
-(those of tests/test_api_aux.py) give equal outputs; resampled noise within
-the native resampler's 2e-6."""
+(those of tests/test_api_aux.py) give equal outputs, with binaural (2-channel)
+and ambisonic (4-channel) RIRs; resampled noise within the native
+resampler's 2e-6."""
 
 import json
 
@@ -11,8 +12,13 @@ import pytest
 from wavjepa_tpu.api import hearir as jhearir
 from wavjepa_tpu_torch.api import hearir as thearir
 
+RIR_TYPES = ["binaural", "ambisonic"]
+CHANNELS = {"binaural": 2, "ambisonic": 4}
 
-def _write_scene_spec(tmp_path, channels=2, n_noise=2):
+
+def _write_scene_spec(tmp_path, rir_type="binaural", n_noise=2):
+    channels = CHANNELS[rir_type]
+    key = f"{rir_type}_rir_path"
     rng = np.random.default_rng(0)
     rirs = []
     for i in range(1 + n_noise):
@@ -23,8 +29,8 @@ def _write_scene_spec(tmp_path, channels=2, n_noise=2):
         np.save(p, rir)
         rirs.append(str(p))
     regions = [{"region": {"scene": {
-        "source": {"rir": {"binaural_rir_path": rirs[k]}},
-        "noise": [{"rir": {"binaural_rir_path": r}} for r in rirs[k + 1:]]}}}
+        "source": {"rir": {key: rirs[k]}},
+        "noise": [{"rir": {key: r}} for r in rirs[k + 1:]]}}}
         for k in range(n_noise)]  # a second region with fewer noise sources
     spec_path = tmp_path / "scene.json"
     spec_path.write_text(json.dumps({"sampled_regions": regions}))
@@ -41,13 +47,14 @@ def _write_noise(tmp_path, sr):
     return str(tmp_path)
 
 
-def test_scene_iterators_draw_the_same_scenes(tmp_path):
-    spec = _write_scene_spec(tmp_path)
-    its = [pkg.SceneIterator([spec], rir_type="binaural", sr=1000, rir_seconds=0.5, seed=4)
+@pytest.mark.parametrize("rir_type", RIR_TYPES)
+def test_scene_iterators_draw_the_same_scenes(tmp_path, rir_type):
+    spec = _write_scene_spec(tmp_path, rir_type)
+    its = [pkg.SceneIterator([spec], rir_type=rir_type, sr=1000, rir_seconds=0.5, seed=4)
            for pkg in (jhearir, thearir)]
     for _ in range(6):
         (js, jn, jm), (ts, tn, tm) = (next(it) for it in its)
-        assert ts.shape == (2, 500) and len(tn) == len(jn)
+        assert ts.shape == (CHANNELS[rir_type], 500) and len(tn) == len(jn)
         np.testing.assert_array_equal(ts, js)
         for a, b in zip(tn, jn):
             np.testing.assert_array_equal(a, b)
@@ -64,34 +71,37 @@ def test_noise_iterators_match(tmp_path, noise_sr):
         np.testing.assert_allclose(out, ref, atol=2e-6, rtol=0)
 
 
+@pytest.mark.parametrize("rir_type", RIR_TYPES)
 @pytest.mark.parametrize("noise_seconds,snr", [(2.0, 5.0), (0.5, 0.0), (3.0, -3.0),
                                                (None, None)])
-def test_augmenter_matches(tmp_path, noise_seconds, snr):
-    spec = _write_scene_spec(tmp_path)
+def test_augmenter_matches(tmp_path, noise_seconds, snr, rir_type):
+    spec = _write_scene_spec(tmp_path, rir_type)
     rng = np.random.default_rng(1)
     audio = rng.standard_normal(2000).astype(np.float32)
     noise = (rng.standard_normal(int(1000 * noise_seconds)).astype(np.float32)
              if noise_seconds else None)
     outs = []
     for pkg in (jhearir, thearir):
-        it = pkg.SceneIterator([spec], rir_type="binaural", sr=1000, rir_seconds=0.5, seed=3)
+        it = pkg.SceneIterator([spec], rir_type=rir_type, sr=1000, rir_seconds=0.5, seed=3)
         aug = pkg.Augmenter(it, sr=1000, snr=snr, seed=5)
         outs.append([aug.augment(audio, noise) for _ in range(3)])
     for ref, out in zip(*outs):
-        assert out.shape == (2, 2000)
+        assert out.shape == (CHANNELS[rir_type], 2000)
         np.testing.assert_array_equal(out, ref)
 
 
-def test_augmenter_draws_noise_from_its_iterator(tmp_path):
-    spec = _write_scene_spec(tmp_path)
+@pytest.mark.parametrize("rir_type", RIR_TYPES)
+def test_augmenter_draws_noise_from_its_iterator(tmp_path, rir_type):
+    spec = _write_scene_spec(tmp_path, rir_type)
     noise_dir = _write_noise(tmp_path, 1000)
     audio = np.random.default_rng(2).standard_normal(1500).astype(np.float32)
     outs = []
     for pkg in (jhearir, thearir):
         aug = pkg.Augmenter(
-            pkg.SceneIterator([spec], sr=1000, rir_seconds=0.5, seed=1), sr=1000, snr=2.0,
-            noise_iter=pkg.NoiseIterator(noise_dir, sr=1000, seed=1), seed=1)
+            pkg.SceneIterator([spec], rir_type=rir_type, sr=1000, rir_seconds=0.5, seed=1),
+            sr=1000, snr=2.0, noise_iter=pkg.NoiseIterator(noise_dir, sr=1000, seed=1), seed=1)
         outs.append(np.stack([aug.augment(audio) for _ in range(4)]))
+    assert outs[1].shape == (4, CHANNELS[rir_type], 1500)
     np.testing.assert_array_equal(outs[1], outs[0])
     # pass-through without a scene iterator
     np.testing.assert_array_equal(thearir.Augmenter(None, sr=1000, snr=None).augment(audio)[0],

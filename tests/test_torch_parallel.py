@@ -56,7 +56,7 @@ TINY_RUN = [
     "trainer.average_top_k_layers=2", "trainer.precision=f32", "trainer.log_every=1",
     "optimizer.warmup_steps=1",
 ]
-# configs/nat_binaural.yaml as overrides (chip_smoke.NAT_OVERRIDES), tiny, with
+# configs/nat_binaural.yaml as overrides of the defaults, tiny, with
 # tests/test_torch_nat_step.py's CLI rates
 NAT_RUN = [
     "data.nat_scenes=true", "data.in_channels=2", "extractor.channel_wise=true",
