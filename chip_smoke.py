@@ -1573,7 +1573,8 @@ def phase_trace(synthetic_runs: dict, shard_runs: dict) -> dict:
         summary = profiling.trace_summary(path, window="train_step", top=10)
         if not summary["kernels"] or not np.isfinite(loss):
             raise AssertionError(f"trace {name}: {summary['kernels']} kernels, loss {loss}")
-        host = sorted((e for e in prof.key_averages() if e.key != "train_step"),
+        host = sorted((e for e in prof.key_averages()  # operators, not named ranges
+                       if e.key != "train_step" and not getattr(e, "is_user_annotation", False)),
                       key=lambda e: -e.self_cpu_time_total)[:5]
         a = cfg.resolved_accum_steps()
         crops = cfg.trainer.batch_size * cfg.data.samples_per_audio
@@ -2976,10 +2977,10 @@ def phase_xares(counters: dict) -> dict:
         "", config=JEPAConfig(attn_impl="fused_block", dtype=torch.bfloat16), seed=0))
     forwards = {}
     for name, e in (("default", enc), ("fused", fused)):
-        def counted(*args, _f=e.runtime._forward, _n=name):
+        def counted(*args, _f=e.runtime._encode, _n=name):
             forwards[_n] += 1
             return _f(*args)
-        e.runtime._forward = counted
+        e.runtime._encode = counted
     n_esc, n_fsd = XARES_CLIPS["esc50"], XARES_CLIPS["fsd50k"]
     t0 = time.perf_counter()
     esc = {"train": xares_tones(n_esc[0] // 50, 50, 5.0, 81),

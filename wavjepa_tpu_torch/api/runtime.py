@@ -10,11 +10,20 @@ channels, so its outputs have the mono model's shapes. Entry points run on ``cud
     load_model(ckpt_path, ...) -> RuntimeJEPA
     get_timestamp_embeddings(audio, model) -> (emb (B, S, E), timestamps_ms (B, S))
     get_scene_embeddings(audio, model) -> emb (B, E)
+
+A request is span ``embed.request`` (``utils/profiling.span``, recorded only
+while a recording is open; with the runtime's request number), holding
+``embed.prepare`` (the host's padding, window fold and masks),
+``embed.h2d`` (the copies to the device) and ``embed.encode``
+(normalisation, encoder, channel average, cut). Counters ``embed.tokens``
+and ``embed.padded_tokens`` count the encoder tokens computed and those
+of them that are padding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from pathlib import Path
 from typing import Mapping, Optional, Union
 
@@ -29,6 +38,7 @@ from wavjepa_tpu_torch.api.convert import (
 from wavjepa_tpu_torch.api.feature_helper import prepare_batch
 from wavjepa_tpu_torch.models.jepa import ENCODER_SIDE, JEPA, JEPAConfig
 from wavjepa_tpu_torch.train.checkpoint import read_model_config
+from wavjepa_tpu_torch.utils.profiling import count, span
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -114,55 +124,67 @@ class RuntimeJEPA:
         self.average_channels = config.extractor == "conv_channel"
         self.unit_frames = config.target_length
         self.output_steps = config.frames_per_window  # a channel's steps a window
+        self._requests = itertools.count()
 
-    def _forward(self, chunks: np.ndarray, masks: np.ndarray) -> torch.Tensor:
-        """chunks (N, C, unit_frames), masks (N, tokens) True = padding →
-        (N, tokens, E) float32 on the device, the tokens of the channels
+    def _encode(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        """chunks (N, C, unit_frames), masks (N, tokens) True = padding, on
+        the device → (N, tokens, E) float32, the tokens of the channels
         averaged for a channel-averaging model."""
-        with torch.inference_mode():
-            x = torch.from_numpy(chunks).to(self.device)
-            m = torch.from_numpy(masks).to(self.device)
-            # per-window normalisation over (C, T): unbiased variance, std + 1e-5
-            mean = x.mean(dim=(-2, -1), keepdim=True)
-            n = x.shape[-1] * x.shape[-2]
-            var = (x - mean).square().sum(dim=(-2, -1), keepdim=True) / max(n - 1, 1)
-            normed = (x - mean) / (var.sqrt() + 1e-5)
-            emb = self.model.represent(normed.to(self.config.dtype), m).float()
-            if self.average_channels and self.in_channels > 1:
-                n_win, _, e = emb.shape
-                emb = emb.reshape(n_win, self.in_channels, self.output_steps, e).mean(1)
-            return emb
+        # per-window normalisation over (C, T): unbiased variance, std + 1e-5
+        mean = x.mean(dim=(-2, -1), keepdim=True)
+        n = x.shape[-1] * x.shape[-2]
+        var = (x - mean).square().sum(dim=(-2, -1), keepdim=True) / max(n - 1, 1)
+        normed = (x - mean) / (var.sqrt() + 1e-5)
+        emb = self.model.represent(normed.to(self.config.dtype), m).float()
+        if self.average_channels and self.in_channels > 1:
+            n_win, _, e = emb.shape
+            emb = emb.reshape(n_win, self.in_channels, self.output_steps, e).mean(1)
+        return emb
 
-    def get_timestamp_embeddings(self, audio) -> tuple[torch.Tensor, torch.Tensor]:
-        """audio: list of waveforms, or (B, T)/(B, C, T) array or tensor →
-        ((B, S, E) float32, (B, S) float64 timestamps in ms), on the device."""
-        batch = self._to_batch(audio)
-        b, c, cur_frames = batch.shape
-        pad_frames, n_chunks, cut_off, total_steps = chunk_padding(
-            cur_frames, self.unit_frames, self.sample_rate, self.output_steps
-        )
-        padded = np.pad(batch, ((0, 0), (0, 0), (0, pad_frames)))
-        step_mask = np.zeros((b, total_steps), bool)
-        step_mask[:, cut_off:] = True
-        # fold windows into the batch: (B·n, C, unit)
-        chunks = padded.reshape(b, c, n_chunks, self.unit_frames).transpose(0, 2, 1, 3)
-        chunks = np.ascontiguousarray(chunks.reshape(b * n_chunks, c, self.unit_frames))
-        masks = step_mask.reshape(b * n_chunks, self.output_steps)
-        if self.in_channels > 1 and self.config.extractor == "conv_channel":
-            # a copy of the mask a channel, channel-major, as the tokens
-            masks = np.tile(masks[:, None, :], (1, self.in_channels, 1)).reshape(
-                b * n_chunks, -1)
-        emb = self._forward(chunks, masks)
-        emb = emb.reshape(b, n_chunks * emb.shape[1], emb.shape[-1])[:, :cut_off]
+    def _timestamp_embeddings(self, audio) -> tuple[torch.Tensor, torch.Tensor]:
+        with span("embed.prepare"):
+            batch = self._to_batch(audio)
+            b, c, cur_frames = batch.shape
+            pad_frames, n_chunks, cut_off, total_steps = chunk_padding(
+                cur_frames, self.unit_frames, self.sample_rate, self.output_steps
+            )
+            padded = np.pad(batch, ((0, 0), (0, 0), (0, pad_frames)))
+            step_mask = np.zeros((b, total_steps), bool)
+            step_mask[:, cut_off:] = True
+            # fold windows into the batch: (B·n, C, unit)
+            chunks = padded.reshape(b, c, n_chunks, self.unit_frames).transpose(0, 2, 1, 3)
+            chunks = np.ascontiguousarray(chunks.reshape(b * n_chunks, c, self.unit_frames))
+            masks = step_mask.reshape(b * n_chunks, self.output_steps)
+            if self.in_channels > 1 and self.config.extractor == "conv_channel":
+                # a copy of the mask a channel, channel-major, as the tokens
+                masks = np.tile(masks[:, None, :], (1, self.in_channels, 1)).reshape(
+                    b * n_chunks, -1)
+        copies = masks.shape[1] // self.output_steps  # the tokens of a step: a channel's each
+        count("embed.tokens", b * total_steps * copies)
+        count("embed.padded_tokens", b * (total_steps - cut_off) * copies)
+        with torch.inference_mode():
+            with span("embed.h2d"):
+                x = torch.from_numpy(chunks).to(self.device)
+                m = torch.from_numpy(masks).to(self.device)
+            with span("embed.encode"):
+                emb = self._encode(x, m)
+                emb = emb.reshape(b, n_chunks * emb.shape[1], emb.shape[-1])[:, :cut_off]
         # uniform grid over the unpadded duration, in ms
         x_len = emb.shape[1]
         step_ms = cur_frames / self.sample_rate / x_len * 1000.0
         ts = step_ms * torch.arange(x_len, dtype=torch.float64, device=self.device)
         return emb, ts[None, :].expand(b, x_len).contiguous()
 
+    def get_timestamp_embeddings(self, audio) -> tuple[torch.Tensor, torch.Tensor]:
+        """audio: list of waveforms, or (B, T)/(B, C, T) array or tensor →
+        ((B, S, E) float32, (B, S) float64 timestamps in ms), on the device."""
+        with span("embed.request", request=next(self._requests)):
+            return self._timestamp_embeddings(audio)
+
     def get_scene_embeddings(self, audio) -> torch.Tensor:
-        emb, _ = self.get_timestamp_embeddings(audio)
-        return emb.mean(dim=1)
+        with span("embed.request", request=next(self._requests)):
+            emb, _ = self._timestamp_embeddings(audio)
+            return emb.mean(dim=1)
 
     def _to_batch(self, audio) -> np.ndarray:
         if isinstance(audio, (list, tuple)):

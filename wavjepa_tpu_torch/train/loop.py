@@ -68,6 +68,7 @@ from wavjepa_tpu_torch.train.config import Config
 from wavjepa_tpu_torch.train.state import TrainState
 from wavjepa_tpu_torch.train.step import NatSceneConfig, make_jepa_train_step, make_optimizer
 from wavjepa_tpu_torch.utils.metrics import MetricLogger, Throughput
+from wavjepa_tpu_torch.utils.profiling import span
 
 
 def build_data_iterator(cfg: Config, start_step: int = 0) -> Iterator:
@@ -105,8 +106,9 @@ def prefetch_to_device(iterator: Iterator, device: torch.device,
                        size: int = 2) -> Iterator:
     """Host batches → device tensors, ``size`` ahead, from a background
     thread: each batch (an array or a dict of arrays) is copied into pinned
-    memory and sent with ``non_blocking`` while the current step runs.
-    Closing the generator stops the thread."""
+    memory and sent with ``non_blocking`` while the current step runs
+    (span ``train.h2d``, on that thread); the consumer's wait for a batch
+    is span ``train.data_wait``. Closing the generator stops the thread."""
     buf: queue.Queue = queue.Queue(maxsize=max(1, size))
     done = object()
     errors: list = []
@@ -124,7 +126,9 @@ def prefetch_to_device(iterator: Iterator, device: torch.device,
     def producer():
         try:
             for batch in iterator:
-                if not put(_to_device(batch, device)):
+                with span("train.h2d"):
+                    batch = _to_device(batch, device)
+                if not put(batch):
                     return
         except BaseException as exc:  # re-raised on the consumer's side
             errors.append(exc)
@@ -135,7 +139,8 @@ def prefetch_to_device(iterator: Iterator, device: torch.device,
     thread.start()
     try:
         while True:
-            item = buf.get()
+            with span("train.data_wait"):
+                item = buf.get()
             if item is done:
                 if errors:
                     raise errors[0]

@@ -34,6 +34,12 @@ global norm counts each split leaf's squared norm summed over the
 tensor-parallel group once and each replicated leaf once
 (``global_grad_norm``).
 
+Phases (``utils/profiling.span``, recorded only while a recording is open):
+``train.step`` (the call, with the step index) holds ``scene_synthesis``,
+``train.prepare`` (crops, instance norm, masks), one ``train.microbatch``
+a microbatch (one in a single pass) with its ``train.forward`` and
+``train.backward``, and ``train.update`` (EMA, clip, AdamW).
+
 ``JEPATrainStep.step_on`` runs the step from given crops and masks: torch
 cannot reproduce ``jax.random``, so the tests feed both packages the same
 crops and masks through it.
@@ -63,6 +69,7 @@ from wavjepa_tpu_torch.parallel.mesh import (
 )
 from wavjepa_tpu_torch.train.schedule import ema_decay_schedule, warmup_cosine_schedule
 from wavjepa_tpu_torch.train.state import TrainState, ema_update
+from wavjepa_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +115,7 @@ def build_scenes(sc: NatSceneConfig, sample_rate: int, batch: dict,
     RIRs come inline (``source_rir``, ``noise_rirs``) or from the bank by
     ``rir_index``; noise inline (``noise``, placed) or from the bank's faded
     rows by ``noise_index`` and ``noise_start``."""
-    with torch.profiler.record_function("scene_synthesis"):
+    with span("scene_synthesis"):
         source_rir, noise_rirs = batch.get("source_rir"), batch.get("noise_rirs")
         if sc.with_rir and source_rir is None:
             source_rir, noise_rirs = gather_scene_rirs(rir_bank, batch["rir_index"])
@@ -243,10 +250,11 @@ class JEPATrainStep:
         """``audio`` is a (B, C, L) clip batch, or with ``scene_cfg`` a dict
         scene batch, whose indices read ``rir_bank``."""
         cfg = state.model.config
-        if self.scene_cfg is not None:
-            audio = self.scenes(cfg, audio, rir_bank)
-        crops, ctx_mask, target_masks, visible_masks = self.prepare(cfg, audio, generator)
-        return self.step_on(state, crops, ctx_mask, target_masks, visible_masks)
+        with span("train.step", step=state.step):
+            if self.scene_cfg is not None:
+                audio = self.scenes(cfg, audio, rir_bank)
+            crops, ctx_mask, target_masks, visible_masks = self.prepare(cfg, audio, generator)
+            return self.step_on(state, crops, ctx_mask, target_masks, visible_masks)
 
     def scenes(self, cfg, batch: dict, rir_bank: Optional[dict] = None) -> torch.Tensor:
         """A scene batch → (B, n_channels, T) f32 scenes at ``cfg``'s sample
@@ -258,19 +266,21 @@ class JEPATrainStep:
         crops (B·n, C, crop) in ``cfg.dtype`` and their masks. The starts and
         masks are drawn from ``generator`` for the global batch (W·B clips at
         data-parallel world size W), and this rank's rows taken."""
-        audio = wire_to_f32(audio)
-        if audio.dim() == 2:
-            audio = audio[:, None, :]
-        _, world = data_group()
-        starts = random_starts(generator, audio, cfg.target_length, self.n_crops,
-                               n_clips=audio.shape[0] * world)
-        crops = crops_at(audio, shard_batch(starts), cfg.target_length)
-        crops = instance_normalize(crops, dims=(-2, -1))
-        b, s, c, length = crops.shape
-        crops = crops.reshape(b * s, c, length).to(cfg.dtype)
-        masks = self.masker(generator, batch_size=b * s * world, n_times=cfg.total_patches,
-                            in_channels=cfg.in_channels, cfg=self.masker_cfg)
-        return (crops, *(shard_batch(m) for m in masks))
+        with span("train.prepare"):
+            audio = wire_to_f32(audio)
+            if audio.dim() == 2:
+                audio = audio[:, None, :]
+            _, world = data_group()
+            starts = random_starts(generator, audio, cfg.target_length, self.n_crops,
+                                   n_clips=audio.shape[0] * world)
+            crops = crops_at(audio, shard_batch(starts), cfg.target_length)
+            crops = instance_normalize(crops, dims=(-2, -1))
+            b, s, c, length = crops.shape
+            crops = crops.reshape(b * s, c, length).to(cfg.dtype)
+            masks = self.masker(generator, batch_size=b * s * world,
+                                n_times=cfg.total_patches, in_channels=cfg.in_channels,
+                                cfg=self.masker_cfg)
+            return (crops, *(shard_batch(m) for m in masks))
 
     def step_on(self, state: TrainState, crops, ctx_mask, target_masks, visible_masks):
         model, cfg = state.model, state.model.config
@@ -291,12 +301,15 @@ class JEPATrainStep:
             num_sum = den_sum = 0.0
             for i in range(self.accum_steps):
                 part = slice(i * mb, (i + 1) * mb)
-                num, den = jepa_loss_fn(model, state.teacher_encoder, crops[part],
-                                        ctx_mask[part], target_masks[part],
-                                        visible_masks[part], return_terms=True)
-                num.backward()  # the gradients sum ∇num over microbatches
-                num_sum = num_sum + num.detach()
-                den_sum = den_sum + den
+                with span("train.microbatch", index=i):
+                    with span("train.forward"):
+                        num, den = jepa_loss_fn(model, state.teacher_encoder, crops[part],
+                                                ctx_mask[part], target_masks[part],
+                                                visible_masks[part], return_terms=True)
+                    with span("train.backward"):
+                        num.backward()  # the gradients sum ∇num over microbatches
+                    num_sum = num_sum + num.detach()
+                    den_sum = den_sum + den
             if world > 1:  # global numerator, target count and gradients
                 num_sum, den_sum = all_reduce_gradients(params, num_sum, den_sum,
                                                         group=data_process_group())
@@ -306,16 +319,20 @@ class JEPATrainStep:
                     p.grad.mul_(inv)
             loss = num_sum * inv
         else:
-            loss = jepa_loss_fn(model, state.teacher_encoder, crops, ctx_mask,
-                                target_masks, visible_masks)
-            loss.backward()
-            loss = loss.detach()
-        # EMA from the student encoder before its update, then the update
-        decay = self.ema_schedule(state.step)
-        ema_update(state.teacher_encoder, model.encoder, decay)
-        lr = self.lr_schedule(state.step)
-        g_norm = optimizer_update(params, state.optimizer, lr, self.grad_clip,
-                                  split_leaves(model))
+            with span("train.microbatch", index=0):
+                with span("train.forward"):
+                    loss = jepa_loss_fn(model, state.teacher_encoder, crops, ctx_mask,
+                                        target_masks, visible_masks)
+                with span("train.backward"):
+                    loss.backward()
+                loss = loss.detach()
+        with span("train.update"):
+            # EMA from the student encoder before its update, then the update
+            decay = self.ema_schedule(state.step)
+            ema_update(state.teacher_encoder, model.encoder, decay)
+            lr = self.lr_schedule(state.step)
+            g_norm = optimizer_update(params, state.optimizer, lr, self.grad_clip,
+                                      split_leaves(model))
         state.step += 1
         return state, {"loss": loss, "ema_decay": decay, "lr": lr, "grad_norm": g_norm}
 

@@ -1,29 +1,43 @@
-"""Profiling: ``torch.profiler`` traces, timed blocks and device memory.
+"""Profiling: phase spans and counters, ``torch.profiler`` traces.
 
 Counterpart of ``wavjepa_tpu/utils/profiling.py``:
+
+    with recording() as rec:               # spans and counters, kept in memory
+        state, m = step_fn(state, batch, generator)
+    rec.totals()                           # host seconds and count by span name
 
     with trace("runs/profile") as prof:   # CPU and, where present, CUDA activity
         state, m = step_fn(state, batch, generator)
     prof.key_averages()                    # time by operator and kernel
 
-    with timed("step") as t: ...
-    print(t.elapsed_ms)
+The program marks its phases with ``span(name, **attrs)`` and counts work
+with ``count(name, n)``. Both do nothing unless a ``recording()`` is open:
+then each span keeps its name, its parent (from a stack per thread), its
+thread, its start and end on ``time.perf_counter_ns()`` and its attributes,
+and opens a ``torch.profiler.record_function`` of the same name, so that
+under a profiler the phases lie in the trace on the clock of the card's
+kernels and copies. Spans measure the host: a span that launches device
+work ends when the launches are issued, not when the card finishes them.
 
 ``trace`` writes a Chrome/Perfetto trace (``<name>.json.gz``, open it in
-https://ui.perfetto.dev or chrome://tracing) into the log directory;
-``trace_summary`` reads one back: the card's busy and idle share of a window,
-its kernel launches and the kernels that took the most time.
+https://ui.perfetto.dev or chrome://tracing) into the log directory, with
+the spans recorded, as ``user_annotation`` events; ``trace_summary`` reads
+one back: the card's busy and idle share of a window, its kernel launches
+and the kernels that took the most time.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import gzip
+import itertools
 import json
 import os
 import re
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Iterator, Optional
@@ -33,10 +47,131 @@ import torch
 from wavjepa_tpu_torch.parallel.mesh import process_group
 
 
+@dataclasses.dataclass
+class Span:
+    """A finished span. ``parent`` is the id of the span that was open on
+    the same thread when it began (None for a root); ``root`` is its root's
+    attributes, the same dict for every span under one root (a train step's
+    ``step``, a request's ``request``)."""
+
+    name: str
+    id: int
+    parent: Optional[int]
+    root: dict
+    thread: int
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+class Recording:
+    """What a ``recording()`` collected: finished spans, in the order they
+    ended, and counters by name."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.counters: collections.Counter = collections.Counter()
+        self._lock = threading.Lock()
+
+    def _add(self, name: str, n: int) -> None:
+        with self._lock:
+            self.counters[name] += n
+
+    def totals(self) -> dict:
+        """{span name: {"count": spans, "s": summed host seconds}}."""
+        out: dict = {}
+        for s in self.spans:
+            t = out.setdefault(s.name, {"count": 0, "s": 0.0})
+            t["count"] += 1
+            t["s"] += s.seconds
+        return out
+
+
+_OPEN: Optional[Recording] = None  # spans and counters are off while None
+_NOOP = contextlib.nullcontext()
+_ids = itertools.count()
+_local = threading.local()
+
+
+def _stack() -> list:
+    """This thread's open spans, outermost first."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Active:
+    """An open span: its record, its thread's stack, the recording it goes
+    to and its profiler range."""
+
+    __slots__ = ("span", "stack", "target", "range")
+
+    def __init__(self, name: str, attrs: dict, target: Recording):
+        self.stack = _stack()
+        parent = self.stack[-1] if self.stack else None
+        self.span = Span(name, next(_ids), parent.id if parent else None,
+                         parent.root if parent else attrs, threading.get_ident(), 0, 0, attrs)
+        self.target = target
+        self.range = torch.profiler.record_function(name)
+
+    def __enter__(self) -> Span:
+        self.stack.append(self.span)
+        self.range.__enter__()
+        self.span.start_ns = time.perf_counter_ns()
+        return self.span
+
+    def __exit__(self, *exc) -> None:
+        self.span.end_ns = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        self.stack.pop()
+        self.target.spans.append(self.span)
+
+
+def span(name: str, **attrs):
+    """A phase of the program, as a context manager. While no recording is
+    open it returns a shared no-op context and records nothing; while one
+    is, it records a ``Span`` into it and opens a
+    ``torch.profiler.record_function`` of the same name."""
+    rec = _OPEN
+    if rec is None:
+        return _NOOP
+    return _Active(name, attrs, rec)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` of the open recording."""
+    rec = _OPEN
+    if rec is None:
+        return
+    rec._add(name, n)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recording]:
+    """Record the spans that begin and the counts made in the block, on
+    every thread, in memory; yields the ``Recording``. One recording is
+    open at a time: opening a second inside it raises ``RuntimeError``."""
+    global _OPEN
+    if _OPEN is not None:
+        raise RuntimeError("a recording is already open")
+    rec = _OPEN = Recording()
+    try:
+        yield rec
+    finally:
+        _OPEN = None
+
+
 @contextlib.contextmanager
 def trace(log_dir: str, name: str = "trace") -> Iterator["torch.profiler.profile"]:
     """Profile the block with CPU and (when CUDA is available) CUDA
-    activity; on exit, waits for the card and writes
+    activity, with the program's spans recorded (into the open
+    ``recording()``, else into one of the block's own), so that they lie in
+    the trace; on exit, waits for the card and writes
     ``<log_dir>/<name>.json.gz``. Yields the profiler, whose
     ``key_averages()`` and ``events()`` can be read after the block. In a
     process group (data- or tensor-parallel) global rank 0 alone traces:
@@ -49,7 +184,7 @@ def trace(log_dir: str, name: str = "trace") -> Iterator["torch.profiler.profile
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     prof = torch.profiler.profile(activities=activities)
-    with prof:
+    with prof, (recording() if _OPEN is None else _NOOP):
         yield prof
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
@@ -61,6 +196,7 @@ def trace(log_dir: str, name: str = "trace") -> Iterator["torch.profiler.profile
 
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")  # the host calls that launch them
 # kernel classes by name, first match wins: this package's own kernels,
 # cuDNN's convolutions, the GEMMs of cuBLAS and CUTLASS, reductions, then
 # elementwise work and copies
@@ -88,7 +224,11 @@ def trace_summary(path: str, window: Optional[str] = None, top: int = 10) -> dic
     ``kernel_us`` the kernels' summed durations, and ``kernel_us_by_class``
     by ``kernel_class``; ``kernels`` and ``copies`` their counts;
     ``top_kernels`` the ``top`` kernel names by summed time, each (name,
-    count, µs)."""
+    count, µs). Kernels and copies count when they were launched in the
+    window (the ``cuda_runtime`` or ``cuda_driver`` event of the same
+    ``correlation``; their own start where the trace has no launch): a
+    trace can place the last kernels of a range that ends on a synchronize
+    a few milliseconds past its end."""
     opener = gzip.open if str(path).endswith(".gz") else open
     with opener(path, "rt") as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
@@ -109,7 +249,11 @@ def trace_summary(path: str, window: Optional[str] = None, top: int = 10) -> dic
         if stop > start:
             busy += stop - start
             end = stop
-    kernels = [e for e in device if e["cat"] == "kernel" and lo <= e["ts"] < hi]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in LAUNCH_CATEGORIES and "correlation" in e.get("args", {})}
+    device = [e for e in device
+              if lo <= launched.get(e.get("args", {}).get("correlation"), e["ts"]) < hi]
+    kernels = [e for e in device if e["cat"] == "kernel"]
     by_name: dict = collections.defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e["name"]][0] += 1
@@ -123,55 +267,9 @@ def trace_summary(path: str, window: Optional[str] = None, top: int = 10) -> dic
         "wall_us": wall, "busy_us": busy, "idle_share": 1.0 - busy / wall if wall > 0 else None,
         "kernel_us": sum(e["dur"] for e in kernels), "kernels": len(kernels),
         "kernel_us_by_class": dict(by_class.most_common()),
-        "copies": sum(1 for e in device if e["cat"] != "kernel" and lo <= e["ts"] < hi),
+        "copies": sum(1 for e in device if e["cat"] != "kernel"),
         "top_kernels": [(name, n, us) for name, (n, us) in ranked],
     }
-
-
-class _Timer:
-    def __init__(self, name: str):
-        self.name = name
-        self.elapsed_ms: Optional[float] = None
-
-
-def _sync() -> None:
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-@contextlib.contextmanager
-def timed(name: str, sync: bool = True, verbose: bool = True) -> Iterator[_Timer]:
-    """Time a block on the host clock. With ``sync``, when CUDA is in use,
-    waits for the card before and after, so the time covers the block's
-    device work and not only its launches."""
-    timer = _Timer(name)
-    if sync:
-        _sync()
-    t0 = time.perf_counter()
-    try:
-        yield timer
-    finally:
-        if sync:
-            _sync()
-        timer.elapsed_ms = 1000.0 * (time.perf_counter() - t0)
-        if verbose:
-            print(f"[timed] {name}: {timer.elapsed_ms:.2f} ms", flush=True)
-
-
-def device_memory_stats() -> dict:
-    """Per CUDA device: bytes allocated now and at peak (by PyTorch's
-    caching allocator) and the device's total; empty without CUDA."""
-    stats = {}
-    if not torch.cuda.is_available():
-        return stats
-    for i in range(torch.cuda.device_count()):
-        s = torch.cuda.memory_stats(i)
-        stats[f"cuda:{i}"] = {
-            "bytes_in_use": s.get("allocated_bytes.all.current", 0),
-            "peak_bytes_in_use": s.get("allocated_bytes.all.peak", 0),
-            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
-        }
-    return stats
 
 
 if __name__ == "__main__":
