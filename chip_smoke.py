@@ -28,13 +28,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             route) and twice with equal bits; and the fused block's bf16 product alone
             (``csrc/hopper_gemm.cu``) against ``torch.matmul`` at the QKV and
             weight-gradient products of the decoder batch and serving's QKV
-            product, both timed in turns, in TFLOP/s;
+            product, both timed in turns, in TFLOP/s; and the fused
+            residual-add + LayerNorm32 (``csrc/layer_norm.cu``), forward and
+            backward, bf16 and f32, with and without a residual, at the main
+            paths' row counts, its backward twice with equal bits, timed
+            beside its bound, its plain versions and ``F.layer_norm``;
 3. serve    load the HEAR runtime at base width with seeded random weights
             and answer requests: scene embeddings of 8 clips of 10 s,
             timestamp embeddings of a ragged batch (1.0, 2.01, 4.3, 30 s) and
             of one clip of exactly one window (32159 samples), and the whole-clip config (T=999) on
             4 clips of 10 s; check shapes, finiteness and that the attention
-            kernel ran exactly once per encoder layer per request;
+            kernel ran exactly once per encoder layer per request, and
+            the norm kernel 2·layers + 2 times (no backward);
 3b. serve fused  the same requests and weights with ``attn_impl="fused_block"``:
             the fused forward once per encoder layer, flash attention never,
             and embeddings within 5e-2 (relative Frobenius) of phase 3's;
@@ -50,6 +55,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             from that checkpoint (bf16, unpacked); then a few steps in one
             pass (accum 1), where the predictor is replayed in the backward
             as the JAX package resolves recomputation: 48 forward launches;
+            the norm kernel 75 forward and 51 backward launches a
+            microbatch (99 and 51 at accum 1);
 5b. train fused  the same with ``trainer.attn_impl_decoder=fused_block``:
             12·a fused forward and backward launches a step, 24·a flash
             forward and 12·a flash backward, and the override kept in the
@@ -922,6 +929,114 @@ def make_clips(seconds: list[float], seed: int, sr: int = 16000) -> list[np.ndar
             for s in seconds]
 
 
+# the fused residual-add + LayerNorm32 at the main paths' row counts (rows, D,
+# eps): 256 crops of the one-pass step, a Nat microbatch, serving's windows
+LAYER_NORM_SHAPES = [
+    ("student encoder (256·88, 768)", 256 * 88, 768, 1e-6),
+    ("predictor (1024·128, 384)", 1024 * 128, 384, 1e-6),
+    ("teacher (256·200, 768)", 256 * 200, 768, 1e-6),
+    ("feature_norms (256·200, 512)", 256 * 200, 512, 1e-5),
+    ("Nat encoder (16·176, 768)", 16 * 176, 768, 1e-6),
+    ("Nat predictor (64·256, 384)", 64 * 256, 384, 1e-6),
+    ("Nat teacher (16·400, 768)", 16 * 400, 768, 1e-6),
+    ("serve (40·200, 768)", 40 * 200, 768, 1e-6),
+]
+# layer_norm32's launches (forward, backward) a microbatch of the AudioSet
+# configuration: feature_norms, the student encoder's 2·12 + 1, the
+# predictor's 2·12 + 1 and the teacher's 2·12 (its layer outputs), forward;
+# the first three backward; at accum 1 the predictor's 24 replayed too
+LAYER_NORM_PER_MICROBATCH = {"fwd": 75, "bwd": 51}
+LAYER_NORM_REPLAYED = {"fwd": 99, "bwd": 51}
+
+
+def layer_norm_bound(rows: int, d: int, elem: int, backward: bool) -> tuple[float, str]:
+    """Least time for a training call with a residual: forward x and the
+    residual read, y and s written; backward dy and s read, ds written;
+    each row's two f32 statistics, and the f32 parameters (and their
+    gradients) once. Memory bounds it (under one operation a byte)."""
+    per_row = 3 * d * elem + 8
+    params = 12 * d if backward else 8 * d
+    bytes_moved = rows * (per_row + (0 if backward else d * elem)) + params
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_layer_norm() -> list[dict]:
+    """``ops/layer_norm.py``'s kernels against their plain versions at the
+    main paths' shapes, in bf16 and f32, with and without a residual:
+    forward (y, and s bit for bit), backward (ds, dweight, dbias), and the
+    backward twice with equal bits; then the bf16 training call timed beside
+    its bound, the plain versions and ``F.layer_norm`` (the yardstick: the
+    port never calls it), and the forward alone without saving (serving and
+    the teacher)."""
+    import torch.nn.functional as F
+
+    from wavjepa_tpu_torch.ops import layer_norm as L
+
+    rows_out = []
+    for n, (name, rows, d, eps) in enumerate(LAYER_NORM_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(700 + n)
+        x = 3.0 * torch.randn(rows, d, generator=g, device="cuda") + 0.5
+        r = torch.randn(rows, d, generator=g, device="cuda")
+        w = 1.0 + 0.3 * torch.randn(d, generator=g, device="cuda")
+        b = 0.2 * torch.randn(d, generator=g, device="cuda")
+        dy = torch.randn(rows, d, generator=g, device="cuda")
+        row = {"shape": name, "rows": rows, "D": d, "eps": eps}
+        for dtype, rel, key in ((torch.float32, F32_REL, "f32"), (torch.bfloat16, BF16_REL, "bf16")):
+            errs = []
+            for res in (None, r.to(dtype)):
+                xx, gy = x.to(dtype), dy.to(dtype)
+                y, s, mean, rstd = L.layer_norm32_fwd(xx, w, b, eps, dtype, res, save=True)
+                y_ref, s_ref, _, _ = L._reference_fwd(xx, w, b, eps, dtype, res)
+                ds, dw, db = L.layer_norm32_bwd(gy, s, mean, rstd, w)
+                again = L.layer_norm32_bwd(gy, s, mean, rstd, w)
+                ds_ref, dw_ref, db_ref = L.layer_norm32_bwd_reference(gy, s, mean, rstd, w)
+                torch.cuda.synchronize()
+                if not torch.equal(s, s_ref):
+                    raise AssertionError(f"layer_norm {name} {key}: s differs from the plain add")
+                if not all(torch.equal(u, v) for u, v in zip((ds, dw, db), again)):
+                    raise AssertionError(f"layer_norm {name} {key}: backward not deterministic")
+                for what, out, ref in (("y", y, y_ref), ("ds", ds, ds_ref), ("dw", dw, dw_ref),
+                                       ("db", db, db_ref)):
+                    err, ok = scaled_err(out, ref, rel)
+                    if not ok or not torch.isfinite(out).all():
+                        raise AssertionError(f"layer_norm {name} {key} residual "
+                                             f"{res is not None}: {what} max |kernel - plain| {err}")
+                    errs.append(err)
+            row[f"max_abs_err_{key}"] = max(errs)
+        xx, rr, gy = x.bfloat16(), r.bfloat16(), dy.bfloat16()
+        bf = torch.bfloat16
+        _, s, mean, rstd = L.layer_norm32_fwd(xx, w, b, eps, bf, rr, save=True)
+        _, s_p, mean_p, rstd_p = L._reference_fwd(xx, w, b, eps, bf, rr)
+        row["ms"] = cuda_ms(lambda: L.layer_norm32_fwd(xx, w, b, eps, bf, rr, save=True))
+        row["no_save_ms"] = cuda_ms(lambda: L.layer_norm32_fwd(xx, w, b, eps, bf, rr))
+        row["bwd_ms"] = cuda_ms(lambda: L.layer_norm32_bwd(gy, s, mean, rstd, w))
+        row["plain_ms"] = cuda_ms(lambda: L._reference_fwd(xx, w, b, eps, bf, rr))
+        row["plain_bwd_ms"] = cuda_ms(
+            lambda: L.layer_norm32_bwd_reference(gy, s_p, mean_p, rstd_p, w))
+        wb, bb = w.bfloat16(), b.bfloat16()
+        row["library_ms"] = cuda_ms(lambda: F.layer_norm(xx + rr, (d,), wb, bb, eps))
+        xl = (xx + rr).requires_grad_(True)
+        wl, bl = wb.clone().requires_grad_(True), bb.clone().requires_grad_(True)
+
+        def library_step():
+            out = F.layer_norm(xl, (d,), wl, bl, eps)
+            torch.autograd.grad(out, (xl, wl, bl), gy)
+
+        fwd_bwd = cuda_ms(library_step)
+        row["library_bwd_ms"] = fwd_bwd - cuda_ms(lambda: F.layer_norm(xl, (d,), wl, bl, eps))
+        row["bound_ms"], row["bound_by"] = layer_norm_bound(rows, d, 2, backward=False)
+        row["bwd_bound_ms"], _ = layer_norm_bound(rows, d, 2, backward=True)
+        print(f"[kernels] layer_norm {name}: err f32 {row['max_abs_err_f32']:.3g} bf16 "
+              f"{row['max_abs_err_bf16']:.3g}; bf16 with a residual: forward {row['ms']:.4f} ms "
+              f"({row['no_save_ms']:.4f} without saving), bound {row['bound_ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f}, F.layer_norm {row['library_ms']:.4f}; backward "
+              f"{row['bwd_ms']:.4f} ms, bound {row['bwd_bound_ms']:.4f}, plain "
+              f"{row['plain_bwd_ms']:.4f}, F.layer_norm {row['library_bwd_ms']:.4f}", flush=True)
+        rows_out.append(row)
+        del x, r, dy, xx, rr, gy, s, s_p, xl
+    return rows_out
+
+
 def phase_serve(counted, idle, load_model, chunk_padding, config=None,
                 reference=None) -> tuple[dict, object, dict]:
     """The HEAR requests at base width with the weights of seed 0, on the
@@ -947,16 +1062,25 @@ def phase_serve(counted, idle, load_model, chunk_padding, config=None,
         ("whole_clip_4x10s", whole, "timestamps", make_clips([10.0] * 4, 4)),
     ]
 
+    from wavjepa_tpu_torch.ops.layer_norm import layer_norm32_bwd, layer_norm32_fwd
+
     record, outputs = {}, {}
     counted.launches = idle.launches = 0  # the main path's run starts here
     for name, rt, kind, clips in requests:
         before = counted.launches
+        norms_before = (layer_norm32_fwd.launches, layer_norm32_bwd.launches)
         emb, ts = serve_request(rt, kind, clips)
         torch.cuda.synchronize()
         if counted.launches - before != layers or idle.launches:
             raise AssertionError(f"{name}: {counted.launches - before} kernel launches, "
                                  f"expected {layers} (one per encoder layer), and "
                                  f"{idle.launches} of the other attention kernel")
+        # feature_norms, two a layer and the final norm; no backward
+        norms = (layer_norm32_fwd.launches - norms_before[0],
+                 layer_norm32_bwd.launches - norms_before[1])
+        if norms != (2 * layers + 2, 0):
+            raise AssertionError(f"{name}: layer_norm32 launches (forward, backward) {norms}, "
+                                 f"expected ({2 * layers + 2}, 0)")
         outputs[name] = emb
         n = max(len(c) for c in clips)
         _, n_chunks, cut_off, _ = chunk_padding(n, rt.unit_frames, rt.sample_rate,
@@ -1180,7 +1304,7 @@ def run_summary(rec: dict) -> str:
             f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB; data wait p50 "
             f"{rec['data_wait_p50_ms']:.2f} ms a step (each: "
             f"{', '.join(f'{x:.2f}' for x in rec['data_wait_ms'])}); launches "
-            f"{rec['launches']}; teacher moved {rec['teacher_moved']:.4g} < student "
+            f"{rec['launches']}, layer_norm32 {rec.get('layer_norm_launches')}; teacher moved {rec['teacher_moved']:.4g} < student "
             f"{rec['student_encoder_moved']:.4g}")
 
 
@@ -1199,9 +1323,11 @@ def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None,
     import shutil
 
     from wavjepa_tpu_torch.api.runtime import load_model
+    from wavjepa_tpu_torch.ops import layer_norm
     from wavjepa_tpu_torch.train.config import apply_overrides, load_config
     from wavjepa_tpu_torch.train.loop import build_data_iterator, train_jepa
 
+    norm_counters = {"fwd": layer_norm.layer_norm32_fwd, "bwd": layer_norm.layer_norm32_bwd}
     record = {}
     for name, extra, steps, per_microbatch, serve in runs:
         save_dir = os.path.join("build", "chip_smoke_train", name)
@@ -1221,7 +1347,7 @@ def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None,
                 cfg, build_data_iterator)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for counter in counters.values():  # the main path's run starts here
+        for counter in (*counters.values(), *norm_counters.values()):  # the run starts here
             counter.launches = 0
         try:
             state = train_jepa(cfg, data_iter=data_iter, max_steps=steps, device="cuda")
@@ -1230,6 +1356,9 @@ def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None,
             if batches is not None:
                 batches.stop()
         launches = {k: c.launches for k, c in counters.items()}  # read just after
+        norm_launches = {k: c.launches for k, c in norm_counters.items()}
+        if not all(norm_launches.values()):
+            raise AssertionError(f"{name}: layer_norm32 launches {norm_launches}")
         run_dir = os.path.join(save_dir, cfg.run_identity())
         rec = checked_run(
             name, cfg, run_dir, steps, per_microbatch, launches,
@@ -1238,6 +1367,7 @@ def phase_train(counters: dict, runs: list, shards: str = "", keep: dict = None,
             {k: v.float().cpu() for k, v in state.teacher_encoder.state_dict().items()},
             warmup)
         rec["source"] = "shards" if shards else "synthetic"
+        rec["layer_norm_launches"] = norm_launches
         if shards:
             rec["loader_wait_ms"], rec["primed"] = loader_waits, primed
         if serve:
@@ -4187,6 +4317,7 @@ def main() -> int:
     train_fwd_rows, train_bwd_rows = phase_train_kernels()
     fused_fwd_rows, fused_bwd_rows = phase_fused_kernels()
     products = phase_products()
+    layer_norm_rows = phase_layer_norm()
     done("kernels")
     serve, default_requests, served = phase_serve(
         flash_attention_fwd, fab.fused_attention_block_fwd, load_model, chunk_padding)
@@ -4212,6 +4343,13 @@ def main() -> int:
         ("fused_decoder", ["trainer.attn_impl_decoder=fused_block"], TRAIN_STEPS,
          fused_decoder, True),
     ])
+    for name, per_microbatch in (("accum_auto", LAYER_NORM_PER_MICROBATCH),
+                                 ("accum_1", LAYER_NORM_REPLAYED)):
+        run = train[name]
+        expected = {k: n * run["accum_steps"] * run["steps"] for k, n in per_microbatch.items()}
+        if run["layer_norm_launches"] != expected:
+            raise AssertionError(f"{name}: layer_norm32 launches {run['layer_norm_launches']}, "
+                                 f"expected {expected}")
     base, fused = train["accum_auto"], train_fused["fused_decoder"]
     print(f"[train fused] beside phase 5 at accum {base['accum_steps']}: step p50 "
           f"{fused['step_p50_ms']:.1f} vs {base['step_p50_ms']:.1f} ms, "
@@ -4331,7 +4469,14 @@ def main() -> int:
                                   "less that chain's forward")
     for k in (fwd, bwd, fused_fwd, fused_bwd):
         k["launches"] = sum(k["launches_by_path"].values())
-    kernels = [fwd, bwd, fused_fwd, fused_bwd]
+    norm = entry("layer_norm", "none: XLA fuses the norm on the TPU", 0,
+                 layer_norm_rows[0],  # the student encoder's 256 crops
+                 layer_norm_rows)
+    norm["launches_by_path"] = {f"train {name} {k}": n for name, r in train.items()
+                                for k, n in r["layer_norm_launches"].items()}
+    norm["launches"] = sum(norm["launches_by_path"].values())
+    norm["library_ms_is"] = "F.layer_norm in bf16 on the rounded sum (forward)"
+    kernels = [fwd, bwd, fused_fwd, fused_bwd, norm]
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "hgmma": wgmma,

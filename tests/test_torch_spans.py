@@ -192,7 +192,10 @@ def test_runtime_records_a_request_and_counts_its_tokens(runtime, seconds, cut_o
     assert root.parent is None and "request" in root.attrs
     kids = [s.name for s in rec.spans if s.parent == root.id]
     assert kids == ["embed.prepare", "embed.h2d", "embed.encode"]
-    assert rec.counters == {"embed.tokens": 2 * total, "embed.padded_tokens": 2 * (total - cut_off)}
+    # one encoder forward: feature_norms, two norms a layer and the final one
+    layers = runtime.config.encoder_layers
+    assert rec.counters == {"embed.tokens": 2 * total, "embed.padded_tokens": 2 * (total - cut_off),
+                            "layer_norm.plain": 2 * layers + 2}
 
 
 def test_padding_share_of_the_mixed_requests():

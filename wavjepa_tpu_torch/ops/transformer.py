@@ -13,7 +13,9 @@ same parameters.
 
 Mixed precision follows flax: parameters stay float32 and are cast to the
 compute ``dtype`` (bfloat16 on the card) at use; LayerNorm and softmax run in
-float32; GELU is exact, in the compute dtype.
+float32; GELU is exact, in the compute dtype. Each residual add goes into
+the norm after it (``norm1(x, attn_out)``), which is one kernel on the card
+(``ops/layer_norm.py``).
 
 Tensor parallelism (``model_parallel`` = mp > 1, in the layout of
 ``parallel/mesh.init_layout``): a block holds its rank's H/mp heads (the q,
@@ -60,6 +62,7 @@ from torch import nn
 
 from wavjepa_tpu_torch.ops.flash_attention import flash_attention
 from wavjepa_tpu_torch.ops.fused_attention_block import fused_self_attention
+from wavjepa_tpu_torch.ops.layer_norm import layer_norm32
 from wavjepa_tpu_torch.ops.remat import remat
 from wavjepa_tpu_torch.parallel.mesh import model_group, model_process_group
 
@@ -188,7 +191,9 @@ class Linear(nn.Module):
 
 class LayerNorm32(nn.Module):
     """LayerNorm over the last dim computed in float32 whatever the input
-    dtype, returned in ``dtype``."""
+    dtype, returned in ``dtype``; ``residual``, when given, is added to x
+    first, rounded to x's dtype as the add rounds it
+    (``ops/layer_norm.layer_norm32``: the kernel on the card)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -197,12 +202,8 @@ class LayerNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(self.dtype)
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return layer_norm32(x, self.weight, self.bias, self.eps, self.dtype, residual)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -296,7 +297,7 @@ class TransformerEncoderLayer(nn.Module):
         return self._after_attention(x, attn_out)
 
     def _after_attention(self, x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + attn_out)
+        x = self.norm1(x, attn_out)
         if self.model_parallel == 1:
             h = self.linear2(F.gelu(self.linear1(x)))
         else:
@@ -304,7 +305,7 @@ class TransformerEncoderLayer(nn.Module):
             h = F.gelu(self.linear1(to_model_parallel(x))).to(lin2.dtype)
             h = from_model_parallel(F.linear(h, lin2.weight.to(lin2.dtype))) + lin2.bias.to(
                 lin2.dtype)
-        return self.norm2(x + h)
+        return self.norm2(x, h)
 
 
 class TransformerEncoder(nn.Module):
