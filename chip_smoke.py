@@ -32,7 +32,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             residual-add + LayerNorm32 (``csrc/layer_norm.cu``), forward and
             backward, bf16 and f32, with and without a residual, at the main
             paths' row counts, its backward twice with equal bits, timed
-            beside its bound, its plain versions and ``F.layer_norm``;
+            beside its bound, its plain versions and ``F.layer_norm``; and
+            WavLM's gated relative-position bias in the flash forward
+            (``relbias_flash``, through ``relbias_attention``), bf16 and f32,
+            against its plain version at a WavLM request's shapes (16, 16,
+            1749 and 880, 64) and at T = 1, 63, 65 and 129, with padded,
+            scattered and fully masked keys, and with a zero bias against
+            the unbiased kernel; timed at the request shapes beside its
+            bound, the plain version and the library route (the bias
+            materialised, then SDPA);
 3. serve    load the HEAR runtime at base width with seeded random weights
             and answer requests: scene embeddings of 8 clips of 10 s,
             timestamp embeddings of a ragged batch (1.0, 2.01, 4.3, 30 s) and
@@ -44,6 +52,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             the fused forward once per encoder layer, flash attention never,
             and embeddings within 5e-2 (relative Frobenius) of phase 3's;
             then both paths timed in turns on the same clips;
+3c. serve wavlm  WavLM Large (seeded weights, bf16, f32 norms) through
+            ``api/hear_wavlm``: one request of 16 utterances padded to the
+            longest, 35 s (1,749 frames); the biased kernel exactly once a
+            layer, the norm kernel 2·layers + 2 times, no unbiased flash
+            forward; finite scene and timestamp embeddings, each utterance's
+            averaged frames as the frontend counts them; the request timed;
 4. parity   the same weights in f32 on the card (TF32 off) and on the CPU, and
             bf16 on the card against that f32 result;
 5. train    ``train_jepa`` on the AudioSet configuration as resolved (base
@@ -362,10 +376,11 @@ ARCH_EPOCHS = {"linear": 10, "non-linear": 10, "attention-pooling": 3}
 XARES_CLIPS = {"esc50": (300, 100), "fsd50k": (160, 80)}
 XARES_REQUEST = (4, 10.0)  # the encoder request timed: 4 clips of 10 s
 # a run still going after this many seconds prints every thread's stack and
-# exits non-zero, inside the 1200 s a run may take (the imports before it
-# take a few seconds); host speed moves the host-bound phases by up to 40%
-# between NVIDIA H100 80GB HBM3 machines at 700 W (PERF.md, section 4)
-WATCHDOG_S = 1100
+# exits non-zero; give the run a time limit above it (1,800 s). Whole runs
+# took 908-1,022 s before WavLM's phases; host speed
+# moves the host-bound phases by up to 40% between NVIDIA H100 80GB HBM3
+# machines at 700 W (PERF.md, section 4)
+WATCHDOG_S = 1500
 
 # (name, B, H, T): the windowed batch of 8 clips of 10 s (40 windows of 200
 # tokens), the whole-clip batch of 4 clips of 10 s (each gains a fully padded
@@ -1035,6 +1050,187 @@ def phase_layer_norm() -> list[dict]:
         rows_out.append(row)
         del x, r, dy, xx, rr, gy, s, s_p, xl
     return rows_out
+
+
+# WavLM's gated relative-position bias in the flash forward (``relbias_flash``,
+# kernel row 6), (name, B, H, T) at d 64: a request of 16 utterances padded to
+# LibriSpeech's 35-s maximum (1,749 frames) and to 880, then the tile edges
+RELBIAS_SHAPES = [
+    ("WavLM request (16, 16, 1749, 64)", 16, 16, 1749),
+    ("WavLM request (16, 16, 880, 64)", 16, 16, 880),
+    *((f"edge T = {t} (4, 16, {t}, 64)", 4, 16, t) for t in (1, 63, 65, 129)),
+]
+RELBIAS_TIMED = 2  # the request shapes, timed
+# against the plain f32 formula: the flash forward's tolerances, and one ulp
+# of |o| above them (bf16 2^-7; f32 sums over 1,749 keys in another order),
+# since the bias sharpens P so that |o| reaches 2-4
+RELBIAS_BF16_RTOL, RELBIAS_F32_RTOL = 2.0**-7, 1e-5
+# phase 3c (WavLM): one request of 16 utterances evenly over LibriSpeech's
+# 12.30 ± 6 s with its 35-s maximum among them (1,749 frames), as the longest
+# requests of the benchmark's `wavlm-large-embed`; the request timed this often
+WAVLM_SECONDS = [*(12.3 + 6.0 * ((2 * i + 1) / 16 - 1) for i in range(15)), 35.0]
+WAVLM_TIMED = 10
+
+
+def relbias_bound(b: int, h: int, t: int, d: int) -> tuple[float, str]:
+    """Least time for the biased forward in bf16: q, k, v read and o written
+    once, the key mask, the (H, 256·⌈T/128⌉) f32 table and the (B, H, T)
+    f32 gate read once, against 4·B·H·T²·d operations (QKᵀ and PV)."""
+    nb = -(-t // 128)
+    bytes_moved = 4 * b * h * t * d * 2 + b * t + h * 256 * nb * 4 + b * h * t * 4
+    ops = 4 * b * h * t * t * d
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def relbias_inputs(b, h, t, d, seed):
+    """q, k, v (B, H, T, d) f32 on the card; a key mask with each row's tail
+    past its length and a tenth of the keys masked (row 0 wholly where B >
+    1); a table in the kernel's layout and a (B, H, T) gate in WavLM's range
+    (1, 3)."""
+    from wavjepa_tpu_torch.ops.flash_attention import relbias_offsets
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, h, t, d, generator=g, device="cuda") for _ in range(3))
+    lengths = torch.randint(max(1, t // 3), t + 1, (b,), generator=g, device="cuda")
+    lengths[-1] = t
+    mask = torch.arange(t, device="cuda")[None, :] >= lengths[:, None]
+    mask |= torch.rand(b, t, generator=g, device="cuda") < 0.1
+    if b > 1:
+        mask[0] = True
+    table = torch.randn(h, relbias_offsets(t).numel(), generator=g, device="cuda")
+    gate = 1.0 + 2.0 * torch.rand(b, h, t, generator=g, device="cuda")
+    return q, k, v, mask, table, gate
+
+
+def phase_relbias() -> list[dict]:
+    """The ``relbias_flash`` kernels through ``relbias_attention`` against
+    their plain version (``flash_attention_reference`` with
+    ``relbias_dense``'s bias) at ``RELBIAS_SHAPES``, bf16 and f32, one launch
+    a call; with a zero table and a unit gate, the bf16 kernel against the
+    unbiased one within an output ulp; then at the request shapes the bf16
+    kernel timed beside its bound, the plain version and the library route
+    it replaces (the bias materialised in bf16 with the key mask folded in,
+    then SDPA)."""
+    import torch.nn.functional as F
+
+    from wavjepa_tpu_torch.ops import flash_attention as FA
+
+    rows = []
+    for i, (name, b, h, t) in enumerate(RELBIAS_SHAPES):
+        q, k, v, mask, table, gate = relbias_inputs(b, h, t, HEAD_DIM, seed=800 + i)
+        row = {"shape": name, "B": b, "H": h, "T": t, "d": HEAD_DIM}
+        for dtype, atol, rtol, key in ((torch.float32, F32_ATOL, RELBIAS_F32_RTOL, "f32"),
+                                       (torch.bfloat16, BF16_ATOL, RELBIAS_BF16_RTOL, "bf16")):
+            qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+            before = FA.relbias_flash_attention_fwd.launches
+            out = FA.relbias_attention(qq, kk, vv, mask, table, gate)
+            ref = FA.flash_attention_reference(qq, kk, vv, mask, FA.relbias_dense(table, gate))
+            torch.cuda.synchronize()
+            if FA.relbias_flash_attention_fwd.launches != before + 1:
+                raise AssertionError(f"relbias {name} {key}: the kernel did not run once")
+            diff = (out.float() - ref.float()).abs()
+            excess = (diff - (atol + rtol * ref.float().abs())).max().item()
+            row[f"max_abs_err_{key}"] = diff.max().item()
+            if not torch.isfinite(out).all() or excess > 0:
+                raise AssertionError(f"relbias {name} {key}: max |kernel - plain| "
+                                     f"{row[f'max_abs_err_{key}']} (over the tolerance by {excess})")
+            del out, ref, diff
+        qq, kk, vv = (x.to(torch.bfloat16) for x in (q, k, v))
+        zero = FA.relbias_attention(qq, kk, vv, mask, torch.zeros_like(table),
+                                    torch.ones_like(gate)).float()
+        unbiased = FA.flash_attention_fwd(qq, kk, vv, mask)[0].float()
+        ulp = torch.finfo(torch.bfloat16).eps * unbiased.abs().clamp_min(2**-126)
+        row["zero_bias_vs_unbiased"] = (zero - unbiased).abs().max().item()
+        if not ((zero - unbiased).abs() <= ulp).all():
+            raise AssertionError(f"relbias {name}: zero bias differs from the unbiased kernel "
+                                 f"by {row['zero_bias_vs_unbiased']}, over an ulp")
+        del zero, unbiased
+        if i < RELBIAS_TIMED:
+            def library():
+                bias = FA.relbias_dense(table, gate).masked_fill(mask[:, None, None, :], -1e30)
+                return F.scaled_dot_product_attention(qq, kk, vv, bias.bfloat16())
+
+            row["ms"] = cuda_ms(lambda: FA.relbias_attention(qq, kk, vv, mask, table, gate))
+            row["plain_ms"] = cuda_ms(lambda: FA.flash_attention_reference(
+                qq, kk, vv, mask, FA.relbias_dense(table, gate)), iters=5)
+            row["library_ms"] = cuda_ms(library, iters=5)
+            row["bound_ms"], row["bound_by"] = relbias_bound(b, h, t, HEAD_DIM)
+            print(f"[kernels] relbias_flash_attention_fwd {name}: err f32 "
+                  f"{row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g}, zero bias "
+                  f"vs unbiased {row['zero_bias_vs_unbiased']:.3g}; bf16 kernel {row['ms']:.4f} "
+                  f"ms, plain {row['plain_ms']:.4f} ms, bias materialised + sdpa "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
+        else:
+            print(f"[kernels] relbias_flash_attention_fwd {name}: err f32 "
+                  f"{row['max_abs_err_f32']:.3g} bf16 {row['max_abs_err_bf16']:.3g}, zero bias "
+                  f"vs unbiased {row['zero_bias_vs_unbiased']:.3g}", flush=True)
+        rows.append(row)
+        del q, k, v, qq, kk, vv, mask, table, gate
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wavlm_serve() -> dict:
+    """WavLM Large (seeded weights, bf16 with f32 norms) served through
+    ``api/hear_wavlm`` and ``api/runtime.RuntimeWavLM``, whole utterances
+    padded to the longest: one request of ``WAVLM_SECONDS``, the launch
+    counters zeroed just before it. The biased kernel runs once a layer, the
+    norm kernel 2·layers + 2 times (the projection, layer 0's input, two
+    joins a layer but the last layer's second, the final norm), and neither
+    the unbiased flash forward nor a backward. Scene embeddings (16, 1,024)
+    and timestamp embeddings finite; each utterance's averaged frames the
+    frontend's count of its samples; the request then timed."""
+    from wavjepa_tpu_torch.api import hear_wavlm
+    from wavjepa_tpu_torch.ops import flash_attention as FA
+    from wavjepa_tpu_torch.ops import layer_norm as L
+
+    model = hear_wavlm.load_model("", device="cuda", seed=0)
+    cfg = model.config
+    clips = make_clips(WAVLM_SECONDS, 21)
+    frames = [cfg.frames(len(c)) for c in clips]
+    if model.valid_frames(clips) != frames:
+        raise AssertionError(f"wavlm: valid frames {model.valid_frames(clips)}, "
+                             f"expected {frames}")
+    hear_wavlm.get_scene_embeddings(clips, model).cpu()  # warm: cuDNN picks its convolution
+    counters = {"relbias_flash_attention_fwd": FA.relbias_flash_attention_fwd,
+                "layer_norm32_fwd": L.layer_norm32_fwd,
+                "flash_attention_fwd": FA.flash_attention_fwd,
+                "flash_attention_bwd": FA.flash_attention_bwd,
+                "layer_norm32_bwd": L.layer_norm32_bwd}
+    for c in counters.values():
+        c.launches = 0
+    scene = hear_wavlm.get_scene_embeddings(clips, model).cpu()
+    launches = {k: c.launches for k, c in counters.items()}
+    layers = cfg.num_hidden_layers
+    expected = {"relbias_flash_attention_fwd": layers, "layer_norm32_fwd": 2 * layers + 2,
+                "flash_attention_fwd": 0, "flash_attention_bwd": 0, "layer_norm32_bwd": 0}
+    if launches != expected:
+        raise AssertionError(f"wavlm request launched {launches}, expected {expected}")
+    if scene.shape != (len(clips), cfg.hidden_size) or not torch.isfinite(scene).all():
+        raise AssertionError(f"wavlm scene embeddings {tuple(scene.shape)}, finite "
+                             f"{bool(torch.isfinite(scene).all())}")
+    emb, ts = hear_wavlm.get_timestamp_embeddings(clips, model)
+    if emb.shape != (len(clips), max(frames), cfg.hidden_size) or ts.shape != emb.shape[:2] \
+            or not torch.isfinite(emb).all():
+        raise AssertionError(f"wavlm timestamp embeddings {tuple(emb.shape)}, timestamps "
+                             f"{tuple(ts.shape)}")
+    del emb, ts
+    times = []
+    for _ in range(WAVLM_TIMED):
+        t0 = time.perf_counter()
+        hear_wavlm.get_scene_embeddings(clips, model).cpu()
+        times.append(1000.0 * (time.perf_counter() - t0))
+    record = {"seconds": WAVLM_SECONDS, "frames": max(frames), "launches": launches,
+              "request_p50_ms": statistics.median(times), "request_ms": times,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[serve wavlm] 16 utterances (6.68-17.93 s and 35 s, T = {max(frames)}): launches "
+          f"{launches}; request p50 {record['request_p50_ms']:.1f} ms over {WAVLM_TIMED}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return record
 
 
 def phase_serve(counted, idle, load_model, chunk_padding, config=None,
@@ -4318,6 +4514,7 @@ def main() -> int:
     fused_fwd_rows, fused_bwd_rows = phase_fused_kernels()
     products = phase_products()
     layer_norm_rows = phase_layer_norm()
+    relbias_rows = phase_relbias()
     done("kernels")
     serve, default_requests, served = phase_serve(
         flash_attention_fwd, fab.fused_attention_block_fwd, load_model, chunk_padding)
@@ -4327,6 +4524,7 @@ def main() -> int:
     serve_fused["in_turns"] = phase_serve_turns(default_requests, fused_requests)
     bf16_runtime = default_requests[0][1]  # the windowed runtime
     del served, fused_requests
+    serve_wavlm = phase_wavlm_serve()
     parity = phase_parity(load_model, JEPAConfig, bf16_runtime)
     done("serve, parity")
     counters = launch_counters()
@@ -4474,14 +4672,23 @@ def main() -> int:
                  layer_norm_rows)
     norm["launches_by_path"] = {f"train {name} {k}": n for name, r in train.items()
                                 for k, n in r["layer_norm_launches"].items()}
+    norm["launches_by_path"]["serve wavlm"] = serve_wavlm["launches"]["layer_norm32_fwd"]
     norm["launches"] = sum(norm["launches_by_path"].values())
     norm["library_ms_is"] = "F.layer_norm in bf16 on the rounded sum (forward)"
-    kernels = [fwd, bwd, fused_fwd, fused_bwd, norm]
+    relbias = entry("relbias_flash_attention_fwd", "none: the JAX package has no WavLM", 0,
+                    relbias_rows[0],  # a WavLM request of 16 utterances padded to 1,749 frames
+                    relbias_rows)
+    relbias["source"] = "wavjepa_tpu_torch/csrc/flash_attention_fwd.cu"
+    relbias["launches_by_path"] = {"serve wavlm": serve_wavlm["launches"][
+        "relbias_flash_attention_fwd"]}
+    relbias["launches"] = sum(relbias["launches_by_path"].values())
+    relbias["library_ms_is"] = "the bias materialised in bf16 with the key mask, then SDPA"
+    kernels = [fwd, bwd, fused_fwd, fused_bwd, norm, relbias]
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "hgmma": wgmma,
                    "hgmma_by_function": wgmma_by_function, "products": products,
-                   "kernels": kernels, "serve": serve,
+                   "kernels": kernels, "serve": serve, "serve_wavlm": serve_wavlm,
                    "serve_fused": serve_fused, "parity": parity, "train": train,
                    "train_fused": train_fused, "train_parity": train_parity,
                    "train_parity_fused": train_parity_fused, "data": data,

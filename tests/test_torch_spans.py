@@ -250,3 +250,85 @@ def test_trace_writes_the_spans_as_user_annotations(tmp_path):
         outer["ts"] + outer["dur"]
     s = profiling.trace_summary(str(tmp_path / "spans.json.gz"), window="phase.inner")
     assert s["wall_us"] > 0
+
+
+def test_wavlm_runtime_records_its_phases_inside_encode():
+    from wavjepa_tpu_torch.api.runtime import RuntimeWavLM
+    from wavjepa_tpu_torch.models.wavlm import WavLMConfig
+
+    cfg = WavLMConfig(conv_dim=(16,) * 7, hidden_size=64, num_hidden_layers=2,
+                      num_attention_heads=4, intermediate_size=128, dtype=torch.float32)
+    runtime = RuntimeWavLM(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    waves = [rng.standard_normal(400 + 320 * n).astype(np.float32) for n in (30, 11)]
+    with profiling.recording() as rec:
+        runtime.get_scene_embeddings(waves)
+    by_id = {s.id: s for s in rec.spans}
+    (root,) = [s for s in rec.spans if s.name == "embed.request"]
+    assert [s.name for s in rec.spans if s.parent == root.id] == [
+        "embed.prepare", "embed.h2d", "embed.encode"]
+    (encode,) = [s for s in rec.spans if s.name == "embed.encode"]
+    inner = [s.name for s in rec.spans if s.parent == encode.id]
+    assert inner == ["wavlm.frontend", "wavlm.pos_conv", "wavlm.encoder"]
+    assert all(by_id[s.parent] is encode for s in rec.spans if s.name.startswith("wavlm."))
+    # the projection's norm and layer 0's first, then two joins a layer
+    assert rec.counters == {"embed.tokens": 62, "embed.padded_tokens": 19,
+                            "layer_norm.plain": 2 + 2 * 2}
+
+
+def _all_reduce_stub(params, *scalars, group=None):
+    """The gradient round at world size 2 with the other rank's gradients
+    equal to this one's: every sum doubles."""
+    for p in params:
+        if p.grad is not None:
+            p.grad.mul_(2)
+    return tuple(2 * s for s in scalars)
+
+
+def test_step_records_the_all_reduce_only_across_ranks(monkeypatch):
+    from wavjepa_tpu_torch.train import step as step_module
+
+    cfg = JEPAConfig(**TINY)
+    state, step = _state(cfg), _step(False, accum=1)
+    crops, *masks = step.prepare(cfg, _clips(), torch.Generator().manual_seed(0))
+    with profiling.recording() as alone:
+        step.step_on(state, crops, *masks)
+    assert "train.all_reduce" not in [s.name for s in alone.spans]
+    monkeypatch.setattr(step_module, "data_group", lambda: (0, 2))
+    monkeypatch.setattr(step_module, "all_reduce_gradients", _all_reduce_stub)
+    with profiling.recording() as rec:
+        step.step_on(state, crops, *masks)
+    names = [s.name for s in rec.spans]
+    assert names.count("train.all_reduce") == 1
+    assert names.index("train.backward") < names.index("train.all_reduce") < names.index(
+        "train.update")
+    (ar,) = [s for s in rec.spans if s.name == "train.all_reduce"]
+    assert ar.parent is None  # step_on alone: no train.step around it
+
+
+def test_denoise_step_records_the_all_reduce_across_ranks(monkeypatch):
+    from wavjepa_tpu_torch.models.denoiser import DenoiserConfig, DenoiserStudent
+    from wavjepa_tpu_torch.train import denoise_step as D
+
+    cfg = JEPAConfig(**{k: v for k, v in TINY.items() if k != "size"}, encoder_layers=2,
+                     encoder_dim=32, encoder_heads=4, decoder_layers=1, decoder_dim=16,
+                     decoder_heads=4)
+    teacher = JEPA(cfg)
+    teacher.init_parameters(torch.Generator().manual_seed(1))
+    teacher.requires_grad_(False)
+    student = DenoiserStudent(cfg)
+    student.init_parameters(torch.Generator().manual_seed(2))
+    opt = D.DenoiseOptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    state = D.DenoiseTrainState(student, D.make_denoise_optimizer(opt, student))
+    step = D.make_denoise_train_step(opt, DenoiserConfig(jepa=cfg, original_sr=3200,
+                                                         nr_samples_per_audio=2,
+                                                         target_seconds=1.0),
+                                     with_rir=False, with_noise=False)
+    rng = np.random.default_rng(3)
+    clean, noisy = (torch.from_numpy(rng.standard_normal((4, 1, cfg.target_length)).astype(
+        np.float32)) for _ in range(2))
+    monkeypatch.setattr(D, "data_group", lambda: (0, 2))
+    monkeypatch.setattr(D, "all_reduce_gradients", _all_reduce_stub)
+    with profiling.recording() as rec:
+        step.step_on(state, teacher, clean, noisy)
+    assert [s.name for s in rec.spans].count("train.all_reduce") == 1

@@ -16,6 +16,12 @@ tree (nested dicts of arrays) across:
     ``wavjepa_tpu/api/convert.py`` exports them;
   * a tree with no decoder (the JAX package's ``DenoiserStudent``) gives
     the encoder side alone, the denoiser student's state_dict.
+
+``state_dict_from_hf_wavlm`` loads a ``transformers`` ``WavLMModel`` state
+dict (or a task model's, under ``wavlm.``) into ``models/wavlm.WavLM``'s
+names: the frontend's blocks to ``feature_extractor.cnn.{i}``, each layer's
+q, k and v projections packed into ``in_proj_weight`` (q | k | v), and the
+positional convolution's weight norm folded into one weight.
 """
 
 from __future__ import annotations
@@ -159,4 +165,47 @@ def state_dict_from_jax_params(params: Mapping, extractor_mode: str = "default",
         out["mask_token"] = _t(params["mask_token"])
     if teacher_encoder is not None:
         _encoder(teacher_encoder, "teacher_encoder", out)
+    return out
+
+
+def _fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """g·v/‖v‖ with the norm over every dim but 2 (weight norm at dim 2)."""
+    return g * v / v.norm(dim=(0, 1), keepdim=True)
+
+
+_HF_POS = "encoder.pos_conv_embed.conv"
+_HF_QKV = ("q_proj", "k_proj", "v_proj")
+_HF_WEIGHT_NORM = (("weight_g", "weight_v"),
+                   ("parametrizations.weight.original0", "parametrizations.weight.original1"))
+
+
+def state_dict_from_hf_wavlm(hf: Mapping[str, object]) -> dict[str, torch.Tensor]:
+    """A ``transformers`` WavLM state dict → ``models/wavlm.WavLM``'s. Keys
+    that the encoder does not use (``masked_spec_embed``, a task head's)
+    are left out."""
+    sd = {k.removeprefix("wavlm."): torch.as_tensor(v).float() for k, v in hf.items()}
+    out: dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        if key.startswith("feature_extractor.conv_layers."):
+            i, rest = key.removeprefix("feature_extractor.conv_layers.").split(".", 1)
+            block = f"feature_extractor.cnn.{i}"
+            out[f"{block}.0.{rest.removeprefix('conv.')}" if rest.startswith("conv.")
+                else f"{block}.2.1.{rest.removeprefix('layer_norm.')}"] = value
+        elif key.startswith(("feature_projection.", "encoder.layer_norm.")):
+            out[key] = value
+        elif key.startswith("encoder.layers.") and key.split(".")[-2] not in _HF_QKV:
+            out[key] = value
+    for g_key, v_key in _HF_WEIGHT_NORM:
+        if f"{_HF_POS}.{g_key}" in sd:
+            out[f"{_HF_POS}.weight"] = _fold_weight_norm(sd[f"{_HF_POS}.{g_key}"],
+                                                        sd[f"{_HF_POS}.{v_key}"])
+    if f"{_HF_POS}.weight" in sd:
+        out[f"{_HF_POS}.weight"] = sd[f"{_HF_POS}.weight"]
+    out[f"{_HF_POS}.bias"] = sd[f"{_HF_POS}.bias"]
+    layers = sorted({int(k.split(".")[2]) for k in sd if k.startswith("encoder.layers.")})
+    for i in layers:
+        a = f"encoder.layers.{i}.attention"
+        for part in ("weight", "bias"):
+            out[f"{a}.in_proj_{part}"] = torch.cat(
+                [sd[f"{a}.{n}_proj.{part}"] for n in ("q", "k", "v")])
     return out

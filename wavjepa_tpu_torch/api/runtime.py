@@ -1,4 +1,5 @@
-"""HEAR 2021 runtime: timestamp and scene embeddings by 2.01-s windows.
+"""HEAR 2021 runtime: timestamp and scene embeddings by 2.01-s windows
+(WavJEPA), or of whole utterances (WavLM, ``RuntimeWavLM``).
 
 Counterpart of ``wavjepa_tpu/api/runtime.py``, with the same window and
 padding arithmetic and outputs: every window of a batch is folded into one
@@ -18,6 +19,14 @@ while a recording is open; with the runtime's request number), holding
 (normalisation, encoder, channel average, cut). Counters ``embed.tokens``
 and ``embed.padded_tokens`` count the encoder tokens computed and those
 of them that are padding.
+
+``RuntimeWavLM`` serves ``models/wavlm.WavLM`` behind the same interface and
+under the same spans and counters: a request's utterances, each normalised
+to zero mean and unit variance over its own samples, padded to the
+longest, encoded in one batch under the frames' padding mask (``embed.encode``
+holds the model's ``wavlm.*`` spans), and a scene embedding the mean of an
+utterance's valid frames. ``load_wavlm`` reads a ``transformers``-named
+state dict.
 """
 
 from __future__ import annotations
@@ -33,10 +42,12 @@ import torch
 from wavjepa_tpu_torch.api.convert import (
     detect_pos_embed,
     load_torch_checkpoint,
+    state_dict_from_hf_wavlm,
     unwrap_state_dict,
 )
-from wavjepa_tpu_torch.api.feature_helper import prepare_batch
+from wavjepa_tpu_torch.api.feature_helper import adapt_channels, prepare_batch
 from wavjepa_tpu_torch.models.jepa import ENCODER_SIDE, JEPA, JEPAConfig
+from wavjepa_tpu_torch.models.wavlm import WavLM, WavLMConfig
 from wavjepa_tpu_torch.train.checkpoint import read_model_config
 from wavjepa_tpu_torch.utils.profiling import count, span
 
@@ -268,6 +279,114 @@ def load_model(
             if k.startswith(ENCODER_SIDE)
         }
     return RuntimeJEPA(config, state_dict, dev, seed)
+
+
+class RuntimeWavLM:
+    """WavLM's encoder on one device behind the HEAR contract, serving whole
+    utterances: a request's are padded to its longest and encoded as one
+    batch. ``state_dict`` holds ``models/wavlm.WavLM``'s weights
+    (``api/convert.state_dict_from_hf_wavlm`` maps ``transformers``' names
+    onto them); without it the weights are drawn from ``seed``."""
+
+    def __init__(self, config: WavLMConfig = WavLMConfig(),
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 device: DeviceLike = None, seed: int = 0):
+        self.device = resolve_device(device)
+        self.config = config
+        model = WavLM(config)
+        if state_dict is None:
+            model.init_parameters(torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(dict(state_dict), strict=True)
+        self.model = model.to(self.device).eval()
+        self.sample_rate = config.sample_rate
+        self.embedding_size = config.hidden_size
+        self.scene_embedding_size = self.timestamp_embedding_size = self.embedding_size
+        self.frame_ms = 1000.0 * float(np.prod(config.conv_stride)) / config.sample_rate
+        self._requests = itertools.count()
+
+    def _to_batch(self, audio) -> tuple[np.ndarray, np.ndarray]:
+        """Mono utterances → ((B, samples of the longest) float32 zero-padded,
+        (B,) int64 samples of each)."""
+        if isinstance(audio, torch.Tensor):
+            audio = audio.detach().cpu().float().numpy()
+        if not isinstance(audio, (list, tuple)):
+            audio = np.asarray(audio, np.float32)
+            if audio.ndim not in (1, 2):
+                raise ValueError(f"unsupported audio input shape {audio.shape}")
+            audio = [audio] if audio.ndim == 1 else list(audio)
+        waves = [adapt_channels(np.asarray(a, np.float32), 1)[0] for a in audio]
+        lengths = np.array([w.shape[-1] for w in waves], np.int64)
+        batch = np.zeros((len(waves), int(lengths.max())), np.float32)
+        for i, w in enumerate(waves):
+            batch[i, :w.shape[-1]] = w
+        return batch, lengths
+
+    def _normalize(self, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+        """Each row to zero mean and unit variance over its first n samples
+        (biased variance, + 1e-7 under the root), zero past them."""
+        valid = (torch.arange(x.shape[1], device=x.device)[None, :] < n[:, None]).float()
+        count = n[:, None].float()
+        mean = (x * valid).sum(1, keepdim=True) / count
+        var = ((x - mean) * valid).square().sum(1, keepdim=True) / count
+        return (x - mean) * torch.rsqrt(var + 1e-7) * valid
+
+    def _embed(self, audio, scene: bool):
+        """(B, T, E) float32 frames and the (B, T) padding mask, or with
+        ``scene`` (B, E), each utterance's mean over its valid frames."""
+        with span("embed.prepare"):
+            batch, lengths = self._to_batch(audio)
+            frames = self.config.frames(batch.shape[1])
+            valid = sum(self.config.frames(int(n)) for n in lengths)
+        count("embed.tokens", len(lengths) * frames)
+        count("embed.padded_tokens", len(lengths) * frames - valid)
+        with torch.inference_mode():
+            with span("embed.h2d"):
+                x = torch.from_numpy(batch).to(self.device)
+                n = torch.from_numpy(lengths).to(self.device)
+            with span("embed.encode"):
+                if self.config.do_normalize:
+                    x = self._normalize(x, n)
+                emb, mask = self.model(x, n)
+                if scene:
+                    keep = (~mask)[..., None].float()
+                    return (emb * keep).sum(1) / keep.sum(1), mask
+        return emb, mask
+
+    def get_timestamp_embeddings(self, audio) -> tuple[torch.Tensor, torch.Tensor]:
+        """Utterances (a list of waveforms, or a (B, T) array or tensor) →
+        ((B, S, E) float32 frames, padded past each utterance's end,
+        (B, S) float64 timestamps in ms), on the device."""
+        with span("embed.request", request=next(self._requests)):
+            emb, _ = self._embed(audio, scene=False)
+            ts = self.frame_ms * torch.arange(emb.shape[1], dtype=torch.float64,
+                                              device=self.device)
+            return emb, ts[None, :].expand(emb.shape[0], -1).contiguous()
+
+    def get_scene_embeddings(self, audio) -> torch.Tensor:
+        with span("embed.request", request=next(self._requests)):
+            return self._embed(audio, scene=True)[0]
+
+    def valid_frames(self, audio) -> list[int]:
+        """Each utterance's frames that its scene embedding averages: those
+        the model's padding mask leaves in a request of ``audio``."""
+        batch, lengths = self._to_batch(audio)
+        mask = self.model.padding_mask(torch.from_numpy(lengths),
+                                       self.config.frames(batch.shape[1]))
+        return (~mask).sum(1).tolist()
+
+
+def load_wavlm(model_file_path: str = "", config: Optional[WavLMConfig] = None,
+               device: DeviceLike = None, seed: int = 0) -> RuntimeWavLM:
+    """A WavLM runtime from a ``transformers``-named state dict (a
+    ``pytorch_model.bin``-style file, the encoder's or a task model's under
+    ``wavlm.``), or with weights drawn from ``seed`` when no path is given;
+    WavLM Large's configuration, in bfloat16, unless ``config`` is given."""
+    state_dict = None
+    if model_file_path:
+        state_dict = state_dict_from_hf_wavlm(
+            unwrap_state_dict(load_torch_checkpoint(model_file_path)))
+    return RuntimeWavLM(config or WavLMConfig(), state_dict, device, seed)
 
 
 def get_timestamp_embeddings(audio, model: RuntimeJEPA):

@@ -62,6 +62,26 @@
 // tile is not a key at all: it gets −inf, stays out of the max and gets
 // weight 0, so it cannot join the uniform average of a fully masked row.
 //
+// The gated relative-position bias (relbias_flash below; WavLM's
+// attention, models/wavlm.py). The same kernel, compiled with Bias, adds to
+// every score of a real, unmasked key the term g[b, h, q]·E[h, k − q]:
+//     o = softmax(d^-1/2 * q k^T + g ⊙ E[k − q], masked keys at the minimum) v
+// where E is a per-offset f32 table (H, 256·nb), nb = ⌈T/128⌉, entry
+// k − q + 128·nb − 1 of row h (the bucketed embedding of every offset a
+// 128 × 128 tile pair can see, with 127 slots of margin on each side, so
+// that every tile's window lies inside the row and starts 512 bytes from
+// the next), built once a request, and g a (B, H, T) f32 gate a layer.
+// Materialised, the bias is (B, H, T, T): at B = 16, T = 1,749 it is 1.57 GB
+// in bf16 a layer, ~0.93 ms of bytes at 3.35 TB/s against the attention's
+// ~0.20-ms compute bound. Here nothing of size T² exists: each key stage
+// also brings the 256 table entries its tile pair needs (1 KB by TMA, on
+// the stage's mbarrier), a row's gate is read once an item, and each score
+// takes one shared-memory read and one multiply before its FMA. Masked keys
+// keep the minimum and slots past T −inf, so the fully-masked-row rule is
+// unchanged. bf16 and f32 both; forward only (serving). The kernels live
+// in namespace relbias_flash, not flash_fwd, so that a trace tells them
+// from the unbiased ones by name.
+//
 // Row statistics for the backward. When `stats` is not null the kernel also
 // writes, per query row, the final running max m and sum l of exp(s − m) as
 // an f32 pair (B, H, T, 2), m in the natural domain (a fully masked row's is
@@ -99,7 +119,9 @@ constexpr int kMaskBox = kTileKeys + 16;
 // Shared memory of a block, from a 1024-aligned base: two Q slots, the ring
 // of K/V stages, the output tiles of both warpgroups, each stage's mask
 // bytes, then the barriers (Q full and empty, stage full and empty).
-template <int D>
+constexpr int kTabWindow = 256;  // table entries a (query item, key tile) pair can read
+
+template <int D, bool Bias = false>
 struct Smem {
   static constexpr int kRowBytes = 2 * D;  // one swizzled row: 128 or 64 bytes
   static constexpr int kStages = D == 64 ? 4 : 8;
@@ -109,7 +131,9 @@ struct Smem {
   static constexpr int kO = kKV + kStages * 2 * kKBytes;
   static constexpr int kMask = kO + kItemRows * kRowBytes;
   static constexpr int kMaskStride = 256;  // a stage's mask bytes (TMA writes 128-aligned)
-  static constexpr int kBars = kMask + kStages * kMaskStride;
+  static constexpr int kTab = kMask + kStages * kMaskStride;  // a stage's table window (Bias)
+  static constexpr int kTabBytes = Bias ? kTabWindow * 4 : 0;
+  static constexpr int kBars = kTab + kStages * kTabBytes;
   static constexpr int kBytes = kBars + (4 + 2 * kStages) * 8 + 1024;
   static_assert(kBytes <= 232448, "more shared memory than a block has");
 };
@@ -136,20 +160,45 @@ __device__ __forceinline__ void scale_and_mask(float (&s)[N / 2], float (&tmax)[
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
-                         const __grid_constant__ CUtensorMap map_k,
-                         const __grid_constant__ CUtensorMap map_v,
-                         const __grid_constant__ CUtensorMap map_o,
-                         const __grid_constant__ CUtensorMap map_mask, float* __restrict__ stats,
-                         int H, int seq, float scale, int q_blocks, int items) {
-  using L = Smem<D>;
+// scale_and_mask with the gated bias: a real, unmasked key's term is
+// g2[row]·win[col − row + 127] (g2 = the row's gate times log2(e); `win` the
+// stage's table window, `rlo` = 127 − the lane's row r within the item).
+template <bool Full, int N>
+__device__ __forceinline__ void scale_mask_bias(float (&s)[N / 2], float (&tmax)[2][2],
+                                                const uint8_t* ms, int keys, int c, float scale2,
+                                                const float* win, int rlo, const float (&g2)[2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 4) {
+    const int col = 8 * (i / 4) + 2 * c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = col + (e & 1), row = e >> 1;  // rows r, r + 8
+      const float add = !Full && key >= keys ? -INFINITY
+                        : ms[key]            ? -FLT_MAX
+                                             : g2[row] * win[key + rlo - 8 * row];
+      s[i + e] = fmaf(s[i + e], scale2, add);
+      tmax[row][(i >> 2) & 1] = fmaxf(tmax[row][(i >> 2) & 1], s[i + e]);
+    }
+  }
+}
+
+// The bf16 kernel's body; Bias adds the gated relative-position term (see
+// the top of this file). The two __global__ kernels below are its
+// instantiations, in namespaces of their own.
+template <int D, bool Bias>
+__device__ __forceinline__ void fwd_bf16(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                         const CUtensorMap& map_v, const CUtensorMap& map_o,
+                                         const CUtensorMap& map_mask, const CUtensorMap& map_tab,
+                                         float* __restrict__ stats, const float* __restrict__ gate,
+                                         int H, int seq, float scale, int q_blocks, int items) {
+  using L = Smem<D, Bias>;
   constexpr int S = L::kStages;
   constexpr int W = 2 * D;  // bytes of a row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint8_t* const mask_smem = smem_raw + (base - smem_addr(smem_raw)) + L::kMask;
+  const float* const tab_smem =
+      reinterpret_cast<const float*>(smem_raw + (base - smem_addr(smem_raw)) + L::kTab);
   const uint32_t q_full = base + L::kBars, q_empty = q_full + 16;
   const uint32_t kv_full = q_empty + 16, kv_empty = kv_full + 8 * S;
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
@@ -189,11 +238,14 @@ flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
         bar_wait(kv_empty + 8 * stage, phase ^ 1);
         const uint32_t bar = kv_full + 8 * stage;
         const uint32_t kt = base + L::kKV + stage * 2 * L::kKBytes;
-        bar_expect_tx(bar, 2 * L::kKBytes + kMaskBox);
+        bar_expect_tx(bar, 2 * L::kKBytes + kMaskBox + L::kTabBytes);
         tma_load_4d(kt, &map_k, bar, 0, j * kTileKeys, h, b);
         tma_load_4d(kt + L::kKBytes, &map_v, bar, 0, j * kTileKeys, h, b);
         tma_load_1d(base + L::kMask + stage * L::kMaskStride, &map_mask, bar,
                     (b * seq + j * kTileKeys) & ~15);
+        if (Bias)  // offsets 128·(j − qb) − 127 .. + 127 of row h
+          tma_load_1d(base + L::kTab + stage * L::kTabBytes, &map_tab, bar,
+                      (2 * h * n_tiles + j - qb + n_tiles - 1) * kTileKeys);
         if (++stage == S) {
           stage = 0;
           phase ^= 1;
@@ -223,6 +275,12 @@ flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
     uint32_t pa[kTileKeys / 16][4];       // P rounded to bf16, the A operand of P·V
     bar_wait(q_full + 8 * slot, slot_phase);
     const uint32_t qa = base + slot * L::kQBytes + half * 64 * W;
+    float g2[2] = {0.f, 0.f};  // the gate of rows r, r + 8, times log2(e)
+    if (Bias) {
+      const float* grow = gate + ((size_t)b * H + h) * (size_t)seq;
+      if (row0 + r < seq) g2[0] = grow[row0 + r] * kLog2e;
+      if (row0 + r + 8 < seq) g2[1] = grow[row0 + r + 8] * kLog2e;
+    }
 
     auto issue_s = [&](float (&s)[kTileKeys / 2], int st) {
       const uint32_t kt = base + L::kKV + st * 2 * L::kKBytes;
@@ -253,10 +311,18 @@ flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
       // rows r and r + 8 with 2^x
       const uint8_t* ms = mask_smem + st * L::kMaskStride + ((b * seq + k0) & 15);
       float tmax[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
-      if (k0 + kTileKeys <= seq)
+      if (Bias) {
+        const float* win = tab_smem + st * (L::kTabBytes / 4);
+        const int rlo = 127 - 64 * half - r;
+        if (k0 + kTileKeys <= seq)
+          scale_mask_bias<true, kTileKeys>(s, tmax, ms, kTileKeys, c, scale2, win, rlo, g2);
+        else
+          scale_mask_bias<false, kTileKeys>(s, tmax, ms, seq - k0, c, scale2, win, rlo, g2);
+      } else if (k0 + kTileKeys <= seq) {
         scale_and_mask<true, kTileKeys>(s, tmax, ms, kTileKeys, c, scale2);
-      else
+      } else {
         scale_and_mask<false, kTileKeys>(s, tmax, ms, seq - k0, c, scale2);
+      }
       float alpha[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -348,6 +414,18 @@ flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
   if (threadIdx.x % 128 == 0) bulk_wait<false>();
 }
 
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_o,
+                         const __grid_constant__ CUtensorMap map_mask, float* __restrict__ stats,
+                         int H, int seq, float scale, int q_blocks, int items) {
+  fwd_bf16<D, false>(map_q, map_k, map_v, map_o, map_mask, map_mask, stats, nullptr, H, seq,
+                     scale, q_blocks, items);
+}
+
 // ------------------------------------------------------------ f32, CUDA cores
 
 constexpr int kBlockQ = 64;  // query rows a block owns
@@ -363,12 +441,16 @@ constexpr int smem_floats() {
   return kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D + kBlockQ * kPStride;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                        float* __restrict__ o, float* __restrict__ stats, int H, int seq,
-                        float scale, HeadStrides in, HeadStrides out) {
+// The f32 kernel's body; Bias adds g[b, h, q]·table[h, k − q + 128·nb − 1]
+// (table rows tab_len apart) to each real, unmasked key's scaled score.
+template <int D, bool Bias>
+__device__ __forceinline__ void fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        const uint8_t* __restrict__ mask, float* __restrict__ o,
+                                        float* __restrict__ stats,
+                                        const float* __restrict__ table,
+                                        const float* __restrict__ gate, int tab_len, int H,
+                                        int seq, float scale, HeadStrides in, HeadStrides out) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int kOutCols = D / 16;  // output columns tx + 16·j a thread owns
 
@@ -387,6 +469,14 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
   const size_t rows = ((size_t)b * H + h) * (size_t)seq;
   const size_t head = in.at(b, h), ohead = out.at(b, h);
   const uint8_t* mrow = mask + (size_t)b * seq;
+  // the table's entry of offset key − row is at trow[key − row]
+  const float* trow = Bias ? table + (size_t)h * tab_len + tab_len / 2 - 1 : nullptr;
+  float grow[kRowsPerThread];
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int row = q0 + ty * kRowsPerThread + r;
+    grow[r] = Bias && row < seq ? gate[rows + row] : 0.f;
+  }
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
@@ -442,7 +532,9 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
       const bool masked = valid[c] && mrow[key] != 0;
 #pragma unroll
       for (int r = 0; r < kRowsPerThread; ++r) {
-        s[r][c] = !valid[c] ? -INFINITY : (masked ? -FLT_MAX : s[r][c] * scale);
+        float x = s[r][c] * scale;
+        if (Bias && valid[c]) x += grow[r] * trow[key - (q0 + ty * kRowsPerThread + r)];
+        s[r][c] = !valid[c] ? -INFINITY : (masked ? -FLT_MAX : x);
       }
     }
 
@@ -493,6 +585,15 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
       for (int j = 0; j < kOutCols; ++j) o[ohead + (size_t)row * out.row + tx + 16 * j] = acc[r][j] * inv;
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                        float* __restrict__ o, float* __restrict__ stats, int H, int seq,
+                        float scale, HeadStrides in, HeadStrides out) {
+  fwd_f32<D, false>(q, k, v, mask, o, stats, nullptr, nullptr, 0, H, seq, scale, in, out);
 }
 
 // ------------------------------------------------------------------ launch
@@ -548,6 +649,113 @@ cudaError_t launch_f32(const Args& a) {
 }
 
 }  // namespace flash_fwd
+
+// ------------------------------------------- the gated relative-position bias
+
+namespace relbias_flash {
+
+using namespace hopper;
+using flash_fwd::kItemRows;
+using flash_fwd::kTabWindow;
+using flash_fwd::kTileKeys;
+using flash_fwd::kWgThreads;
+using flash_fwd::Smem;
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+relbias_fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
+                 const __grid_constant__ CUtensorMap map_mask,
+                 const __grid_constant__ CUtensorMap map_tab, const float* __restrict__ gate,
+                 int H, int seq, float scale, int q_blocks, int items) {
+  flash_fwd::fwd_bf16<D, true>(map_q, map_k, map_v, map_o, map_mask, map_tab, nullptr, gate, H,
+                               seq, scale, q_blocks, items);
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash_fwd::kThreads)
+relbias_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                float* __restrict__ o, const float* __restrict__ table,
+                const float* __restrict__ gate, int tab_len, int H, int seq, float scale,
+                HeadStrides in, HeadStrides out) {
+  flash_fwd::fwd_f32<D, true>(q, k, v, mask, o, nullptr, table, gate, tab_len, H, seq, scale,
+                              in, out);
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const uint8_t* mask;
+  const float *table, *gate;
+  void* o;
+  int B, H, seq;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D>
+cudaError_t launch_bf16(const Args& a) {
+  CUtensorMap mq, mk, mv, mo, mm, mt;
+  const HeadStrides i = contiguous_heads(a.H, a.seq, D);
+  const int nb = (a.seq + kTileKeys - 1) / kTileKeys;
+  if (!make_head_map(&mq, a.q, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kItemRows) ||
+      !make_head_map(&mk, a.k, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileKeys) ||
+      !make_head_map(&mv, a.v, D, a.seq, a.H, a.B, i.row, i.head, i.batch, kTileKeys) ||
+      !make_head_map(&mo, a.o, D, a.seq, a.H, a.B, i.row, i.head, i.batch, 64) ||
+      !make_byte_map(&mm, a.mask, (long long)a.B * a.seq, flash_fwd::kMaskBox) ||
+      !make_f32_map(&mt, a.table, (long long)a.H * 2 * kTileKeys * nb, kTabWindow))
+    return cudaErrorInvalidValue;
+  const long long items = (long long)a.B * a.H * nb;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  auto kernel = relbias_fwd_bf16<D>;
+  constexpr int bytes = Smem<D, true>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int grid = items < sm_count() ? (int)items : sm_count();
+  kernel<<<grid, kWgThreads, bytes, a.stream>>>(mq, mk, mv, mo, mm, mt, a.gate, a.H, a.seq,
+                                                a.scale, nb, (int)items);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Args& a) {
+  const size_t smem = flash_fwd::smem_floats<D>() * sizeof(float);
+  auto kernel = relbias_fwd_f32<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const HeadStrides i = contiguous_heads(a.H, a.seq, D);
+  const int nb = (a.seq + kTileKeys - 1) / kTileKeys;
+  dim3 grid((a.seq + flash_fwd::kBlockQ - 1) / flash_fwd::kBlockQ, a.H, a.B);
+  kernel<<<grid, flash_fwd::kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, static_cast<float*>(a.o), a.table, a.gate,
+      2 * kTileKeys * nb, a.H, a.seq, a.scale, i, i);
+  return cudaGetLastError();
+}
+
+}  // namespace relbias_flash
+
+// The gated relative-position bias variant: q, k, v, o contiguous (B, H, T,
+// d), 16-byte aligned; mask contiguous (B, T) bytes; table contiguous f32
+// (H, 256·⌈T/128⌉), entry k − q + 128·⌈T/128⌉ − 1 of row h the bias of
+// offset k − q; gate contiguous f32 (B, H, T). dtype and head_dim as below.
+inline cudaError_t relbias_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                               const uint8_t* mask, const float* table,
+                                               const float* gate, void* o, int B, int H, int seq,
+                                               int head_dim, int dtype, float scale,
+                                               cudaStream_t s) {
+  using namespace relbias_flash;
+  if (B <= 0 || H <= 0 || seq <= 0 || B > 65535 || H > 65535 ||
+      reinterpret_cast<uintptr_t>(table) % 16)
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, mask, table, gate, o, B, H, seq, scale, s};
+  if (dtype == 0 && head_dim == 32) return launch_f32<32>(a);
+  if (dtype == 0 && head_dim == 64) return launch_f32<64>(a);
+  if (dtype == 1 && head_dim == 32) return launch_bf16<32>(a);
+  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(a);
+  return cudaErrorInvalidValue;
+}
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t
 // (0 = launched); cudaErrorInvalidValue for a shape or type it does not take.

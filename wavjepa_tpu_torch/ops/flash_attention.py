@@ -18,6 +18,13 @@ versions. The bf16 backward has two routes, chosen by the library
 (``flash_attention_bwd_route``): one block per (batch, head) at T ≤ 128,
 two passes of 64-row items above (dQ and each row's D, then dK and dV),
 both on TMA and wgmma.
+
+``relbias_attention(q, k, v, mask, table, gate)`` is the same forward with
+WavLM's gated relative-position bias added to each scaled score,
+g[b, h, q]·E[h, k − q] (``csrc/flash_attention_fwd.cuh``'s
+``relbias_flash`` kernels; forward only). ``table`` is the per-offset bias
+laid out as the kernel reads it (``relbias_offsets``), built once a
+request; ``gate`` is (B, H, T) f32, one a layer.
 """
 
 from __future__ import annotations
@@ -36,21 +43,105 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 
 
-def _softmax_probs(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """f32 scores scaled by d^-½, masked keys at the f32 minimum (a fully
-    masked row is uniform), f32 softmax."""
+def _softmax_probs(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+                   bias: "torch.Tensor | None" = None) -> torch.Tensor:
+    """f32 scores scaled by d^-½, plus ``bias`` (f32, broadcast to (B, H,
+    T, T)) where given, masked keys at the f32 minimum (a fully masked row
+    is uniform), f32 softmax."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias
     return torch.softmax(s.masked_fill(mask[:, None, None, :], NEG_INF), dim=-1)
 
 
 def flash_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    bias: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """Plain version of the forward kernel's maths: P rounded to the input
-    dtype, f32-accumulated P·V, output in the input dtype."""
-    p = _softmax_probs(q, k, mask)
+    dtype, f32-accumulated P·V, output in the input dtype. ``bias`` (f32,
+    (B, H, T, T) or broadcast to it) is added to the scaled scores, as the
+    ``relbias_flash`` kernels add the gated relative-position term."""
+    p = _softmax_probs(q, k, mask, bias)
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+def relbias_offsets(t: int, device=None) -> torch.Tensor:
+    """The offset k − q of each entry of a relative-position table row as
+    the kernel reads it: (256·nb,) int64, nb = ⌈t/128⌉, entry i for offset
+    i − (128·nb − 1). Every offset |k − q| < t is there; the margin's
+    entries are read only for keys or rows past t, which the kernel drops,
+    so any finite value does there."""
+    nb = -(-t // 128)
+    return torch.arange(256 * nb, device=device) - (128 * nb - 1)
+
+
+def relbias_dense(table: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """The gated bias materialised, (B, H, T, T) f32: gate[b, h, q] ·
+    table[h, k − q + 128·nb − 1]. The plain version's, and the library
+    route's, input; the kernel never forms it."""
+    t = gate.shape[-1]
+    pos = torch.arange(t, device=table.device)
+    idx = pos[None, :] - pos[:, None] + (table.shape[-1] // 2 - 1)  # [q, k]
+    return gate.float()[..., None] * table.float()[:, idx][None]
+
+
+def _check_relbias(q, table, gate) -> None:
+    b, h, t, _ = q.shape
+    if table.shape != (h, 256 * -(-t // 128)) or table.dtype != torch.float32:
+        raise ValueError(f"table must be f32 ({h}, {256 * -(-t // 128)}) (relbias_offsets), got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    if gate.shape != (b, h, t) or gate.dtype != torch.float32:
+        raise ValueError(f"gate must be f32 ({b}, {h}, {t}), got {gate.dtype} "
+                         f"{tuple(gate.shape)}")
+    if table.device != q.device or gate.device != q.device:
+        raise ValueError("table and gate must be on q's device")
+
+
+def relbias_flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    table: torch.Tensor, gate: torch.Tensor,
+) -> torch.Tensor:
+    """The gated relative-position bias forward kernel's output. CUDA
+    tensors only: the CPU path is ``flash_attention_reference`` with
+    ``relbias_dense``."""
+    _check(q, k, v, mask)
+    _check_relbias(q, table, gate)
+    table, gate = table.contiguous(), gate.contiguous()
+    _check_kernel_inputs(mask, q, k, v, table)
+    mask = _aligned_mask(mask)
+    b, h, t, d = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _relbias_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), table.data_ptr(),
+            gate.data_ptr(), out.data_ptr(), b, h, t, d, _DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"relbias_flash_attention_fwd launch failed: cudaError_t {err}")
+    relbias_flash_attention_fwd.launches += 1
+    return out
+
+
+relbias_flash_attention_fwd.launches = 0  # kernel launches; the CPU path never counts
+
+
+def relbias_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    table: torch.Tensor, gate: torch.Tensor,
+) -> torch.Tensor:
+    """Masked self-attention with the gated relative-position bias, forward
+    only: the ``relbias_flash`` kernel on CUDA tensors, the plain formula
+    on CPU tensors. Returns (B, H, T, d) in q's dtype."""
+    _check(q, k, v, mask)
+    _check_relbias(q, table, gate)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, mask, relbias_dense(table, gate))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, table, gate)):
+        raise NotImplementedError("relbias_attention has no backward kernel (serving only)")
+    return relbias_flash_attention_fwd(q, k, v, mask, table, gate)
 
 
 def flash_attention_bwd_reference(
@@ -234,6 +325,15 @@ def _fwd_fn():
     fn = _build.load("flash_attention_fwd").wavjepa_flash_attention_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _relbias_fn():
+    fn = _build.load("flash_attention_fwd").wavjepa_relbias_flash_fwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 

@@ -243,6 +243,25 @@ def layer_norm32(
     return layer_norm32_fwd(x, weight, bias, eps, dtype, residual)[0]
 
 
+def add_layer_norm32(
+    x: torch.Tensor, residual: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+    eps: float, dtype: torch.dtype,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, s) of a pre-norm block's join: s = x + residual, rounded to x's
+    dtype, is the residual stream, and y = LayerNorm32(s) in ``dtype``
+    feeds the next sublayer; one kernel on the card, which writes s beside
+    y. Forward only (serving): the card's route keeps no gradient."""
+    cpu = x.device.type == "cpu"
+    profiling.count("layer_norm.plain" if cpu else "layer_norm.kernel", 1)
+    if cpu:
+        y, s, _, _ = _reference_fwd(x, weight, bias, eps, dtype, residual)
+        return y, s
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, residual, weight, bias)):
+        raise NotImplementedError("add_layer_norm32 has no backward on the card (serving only)")
+    y, s, _, _ = layer_norm32_fwd(x, weight, bias, eps, dtype, residual, save=True)
+    return y, s
+
+
 @functools.cache
 def _fwd_fn():
     fn = _build.load("layer_norm").wavjepa_layer_norm_fwd

@@ -25,8 +25,9 @@ reproduce ``jax.random``, so the tests feed both packages the same crops.
 In a torch.distributed process group each rank is given its rows of the
 global scene batch, draws the crop starts for the global batch and takes
 its rows (as ``train/step.py``), and sums its gradients and loss terms with
-the other ranks' once a step; divided by the world size they are the mean
-of the ranks' equal microbatch means, the JAX package's global mean.
+the other ranks' once a step (span ``train.all_reduce``); divided by the
+world size they are the mean of the ranks' equal microbatch means, the JAX
+package's global mean.
 
 Under tensor parallelism the student is a rank's shard, its gradients are
 summed over the data-parallel group alone and their norm is the whole
@@ -49,6 +50,7 @@ from wavjepa_tpu_torch.models.denoiser import (
 from wavjepa_tpu_torch.models.jepa import JEPA
 from wavjepa_tpu_torch.ops.audio import crops_at, instance_normalize, random_starts, wire_to_f32
 from wavjepa_tpu_torch.ops.resample import resample_torch
+from wavjepa_tpu_torch.utils.profiling import span
 from wavjepa_tpu_torch.parallel.mesh import (
     all_reduce_gradients,
     data_group,
@@ -198,8 +200,9 @@ class DenoiseTrainStep:
             parts = {k: parts.get(k, 0.0) + v.detach() for k, v in p_mb.items()}
         n_means, world = a, data_group()[1]
         if world > 1:  # every rank's microbatch means
-            loss, *sums = all_reduce_gradients(params, loss, *parts.values(),
-                                               group=data_process_group())
+            with span("train.all_reduce"):
+                loss, *sums = all_reduce_gradients(params, loss, *parts.values(),
+                                                   group=data_process_group())
             parts = dict(zip(parts, sums))
             n_means *= world
         if n_means > 1:  # the mean of equal microbatch means, as the JAX package

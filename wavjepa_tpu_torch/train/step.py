@@ -38,7 +38,9 @@ Phases (``utils/profiling.span``, recorded only while a recording is open):
 ``train.step`` (the call, with the step index) holds ``scene_synthesis``,
 ``train.prepare`` (crops, instance norm, masks), one ``train.microbatch``
 a microbatch (one in a single pass) with its ``train.forward`` and
-``train.backward``, and ``train.update`` (EMA, clip, AdamW).
+``train.backward``, ``train.all_reduce`` (the gradient round over the
+data-parallel ranks, at world size > 1) and ``train.update`` (EMA, clip,
+AdamW).
 
 ``JEPATrainStep.step_on`` runs the step from given crops and masks: torch
 cannot reproduce ``jax.random``, so the tests feed both packages the same
@@ -311,8 +313,9 @@ class JEPATrainStep:
                     num_sum = num_sum + num.detach()
                     den_sum = den_sum + den
             if world > 1:  # global numerator, target count and gradients
-                num_sum, den_sum = all_reduce_gradients(params, num_sum, den_sum,
-                                                        group=data_process_group())
+                with span("train.all_reduce"):
+                    num_sum, den_sum = all_reduce_gradients(params, num_sum, den_sum,
+                                                            group=data_process_group())
             inv = 1.0 / (den_sum + 1e-8)
             for p in params:
                 if p.grad is not None:
