@@ -121,6 +121,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
             refresh a batch; and the first run's checkpoint served by
             ``api/hear_natjepa.load_model`` (2 four-channel clips of 10 s,
             f32 card against CPU, bf16 against f32);
+9c. microbatch graph  the Nat configuration as its benchmark cell runs it
+            (base width, 32 clips × 8 crops, 16 microbatches) through
+            ``build_run``: steps through the train step's microbatch graph
+            (each microbatch's forward and backward replayed as one CUDA
+            graph) and through the eager loop in turns, timed, with the
+            card's memory; then one step a route from one state with the
+            gathers' backward deterministic: loss, gradient norm, every
+            gradient, weight, teacher leaf and AdamW moment bit for bit
+            equal, each counted wrapper's launches equal on both routes and
+            exactly a Nat microbatch's a microbatch, one capture and 15
+            replays counted;
 10. denoise  denoise distillation at the CLI's defaults (base width, bf16,
             8 clips × 16 crops, 4 microbatches, α = 0): a seeded JEPA
             written as a port checkpoint under ``build/`` and loaded as the
@@ -2233,6 +2244,135 @@ def phase_nat(counters: dict) -> dict:
           f"{run['step_p50_ms']:.1f}-ms step ({share:.4f})", flush=True)
     record["serve"] = phase_nat_serve(counters["flash_attention_fwd"],
                                       counters["fused_attention_block_fwd"])
+    return record
+
+
+# phase 9c (the microbatch graph): one Nat step as its cell runs it, through
+# the graph and through the eager loop from one state; then steps timed in
+# turns
+GRAPH_SEED = 5
+GRAPH_TIMED_STEPS = 3
+
+
+def phase_microbatch_graph(counters: dict) -> dict:
+    """Phase 9c: NAT_RECIPE as resolved (base width, 32 clips × 8 crops,
+    bf16, packing 176/256, 16 microbatches) through ``build_run``. From one
+    seeded state and one scene batch, one step through the microbatch graph
+    (``train/step.py``; it captures, its microbatch 0 eager) and one through
+    the eager loop (the route's rule patched to say no), with the gathers'
+    backward deterministic on both: the loss, the gradient norm, every
+    gradient, weight, teacher leaf and AdamW moment bit for bit equal; each
+    counted wrapper's launches equal on both routes and exactly a Nat
+    microbatch's (``nat_launches``; the norm 75 forward and 51 backward) a
+    microbatch; the counters 1 capture, 15 replays, 1 eager microbatch.
+    Before that, from the same state in the default mode, a step a route
+    (the graph captures) and GRAPH_TIMED_STEPS steps a route in turns: step
+    p50, clips/s and the card's memory (each route's allocated peak, and
+    the reserved memory, which holds the graph's pool)."""
+    import copy
+    import warnings
+
+    from wavjepa_tpu_torch.ops import layer_norm
+    from wavjepa_tpu_torch.train import step as train_step
+    from wavjepa_tpu_torch.train.config import apply_overrides, load_config
+    from wavjepa_tpu_torch.train.loop import build_run
+    from wavjepa_tpu_torch.utils import profiling
+
+    cfg = apply_overrides(load_config(NAT_RECIPE), ["optimizer.warmup_steps=2"])
+    dev, model_cfg, state, step_fn = build_run(cfg, "cuda")
+    state.step = 1  # warmup_steps 2: a learning rate that moves the weights
+    accum = step_fn.accum_steps
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in nat_scene_batch(GRAPH_SEED).items()}
+    inputs = step_fn.prepare(model_cfg, step_fn.scenes(model_cfg, batch),
+                             torch.Generator(dev).manual_seed(GRAPH_SEED))
+    twin = copy.deepcopy(state)
+    counted = {**counters, "layer_norm32_fwd": layer_norm.layer_norm32_fwd,
+               "layer_norm32_bwd": layer_norm.layer_norm32_bwd}
+    per_microbatch = {**nat_launches(counters, model_cfg),
+                      **{f"layer_norm32_{k}": n for k, n in LAYER_NORM_PER_MICROBATCH.items()}}
+    rule = train_step.microbatch_graph_route
+
+    def step(st, graphed: bool) -> tuple:
+        """One step on ``inputs``: (metrics, launches, counters, seconds)."""
+        train_step.microbatch_graph_route = rule if graphed else (lambda *a: False)
+        try:
+            out = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profiling.recording() as rec:
+                launches = counted_run(counted, lambda: out.append(
+                    step_fn.step_on(st, *inputs)[1]))
+            return out[0], launches, dict(rec.counters), time.perf_counter() - t0
+        finally:
+            train_step.microbatch_graph_route = rule
+
+    def readings(st) -> dict:
+        out = {f"weight {n}": p.detach().clone() for n, p in st.model.named_parameters()}
+        out.update({f"grad {n}": p.grad.clone() for n, p in st.model.named_parameters()})
+        out.update({f"teacher {n}": p.clone() for n, p in st.teacher_encoder.named_parameters()})
+        out.update({f"adamw {k} {n}": v.clone() for n, p in st.model.named_parameters()
+                    for k, v in st.optimizer.state[p].items() if torch.is_tensor(v)})
+        return out
+
+    # the default mode first: a step a route (the graph captures), then turns
+    pristine = copy.deepcopy(state)
+    for st, graphed_route in ((state, True), (twin, False)):
+        step(st, graphed_route)
+    times = {"graph": [], "eager": []}
+    peaks = {}
+    for _ in range(GRAPH_TIMED_STEPS):
+        for st, name in ((state, "graph"), (twin, "eager")):
+            torch.cuda.reset_peak_memory_stats()
+            run = step(st, name == "graph")
+            times[name].append(run[3] * 1e3)
+            peaks[name] = torch.cuda.max_memory_allocated()
+            if name == "graph" and run[2].get("train.graph_replay") != accum:
+                raise AssertionError(f"microbatch graph: counters {run[2]}")
+    reserved = torch.cuda.memory_reserved()
+    # then the comparison from one state, the gathers' backward deterministic
+    state, twin = pristine, copy.deepcopy(pristine)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graphed = step(state, True)
+        graphed_readings = readings(state)
+        eager = step(twin, False)
+        unequal = [k for k, v in readings(twin).items() if not torch.equal(v, graphed_readings[k])]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del graphed_readings
+    record = {"accum_steps": accum, "unequal": unequal[:20], "n_unequal": len(unequal),
+              "loss": [float(graphed[0]["loss"]), float(eager[0]["loss"])],
+              "grad_norm": [float(graphed[0]["grad_norm"]), float(eager[0]["grad_norm"])],
+              "launches": {"graph": graphed[1], "eager": eager[1]},
+              "counters": {"graph": graphed[2], "eager": eager[2]}}
+    expected = {k: n * accum for k, n in per_microbatch.items()}
+    counts = {k: graphed[2].get(f"train.{k}", 0)
+              for k in ("graph_capture", "graph_replay", "microbatch_eager")}
+    if (unequal or not torch.equal(graphed[0]["loss"], eager[0]["loss"])
+            or not torch.equal(graphed[0]["grad_norm"], eager[0]["grad_norm"])):
+        raise AssertionError(f"microbatch graph vs eager loop: {record}")
+    if graphed[1] != expected or eager[1] != expected:
+        raise AssertionError(f"microbatch graph: launches {record['launches']}, expected "
+                             f"{expected}")
+    if counts != {"graph_capture": 1, "graph_replay": accum - 1, "microbatch_eager": 1}:
+        raise AssertionError(f"microbatch graph: counters {graphed[2]}")
+    b = cfg.trainer.batch_size
+    record.update(step_ms=times, step_p50_ms={k: statistics.median(v) for k, v in times.items()},
+                  max_memory_allocated_bytes=peaks, memory_reserved_bytes=reserved)
+    record["clips_per_s"] = {k: b / (v / 1e3) for k, v in record["step_p50_ms"].items()}
+    print(f"[microbatch graph] Nat step at accum {accum}, graph vs eager from one state: "
+          f"loss {record['loss'][0]!r} = {record['loss'][1]!r}, grad_norm equal, every "
+          f"gradient, weight, teacher leaf and AdamW moment equal (deterministic gathers); "
+          f"launches a step {graphed[1]} on both routes; counters {counts}; step p50 "
+          f"{record['step_p50_ms']['graph']:.1f} vs {record['step_p50_ms']['eager']:.1f} ms "
+          f"({record['clips_per_s']['graph']:.2f} vs {record['clips_per_s']['eager']:.2f} "
+          f"clips/s); peak allocated {peaks['graph'] / 2**30:.2f} vs "
+          f"{peaks['eager'] / 2**30:.2f} GiB, reserved "
+          f"{record['memory_reserved_bytes'] / 2**30:.2f} GiB", flush=True)
+    del state, twin, step_fn, inputs
+    torch.cuda.empty_cache()
     return record
 
 
@@ -4586,6 +4726,8 @@ def main() -> int:
     done("nat")
     ambisonic = phase_ambisonic(counters, nat)
     done("ambisonic nat")
+    microbatch_graph = phase_microbatch_graph(counters)
+    done("microbatch graph")
     denoise = phase_denoise(counters, nat["shards"])
     done("denoise")
     evaluation = phase_eval(counters)
@@ -4693,7 +4835,7 @@ def main() -> int:
                    "train_fused": train_fused, "train_parity": train_parity,
                    "train_parity_fused": train_parity_fused, "data": data,
                    "train_shards": train_shards, "trace": trace, "nat": nat,
-                   "ambisonic": ambisonic,
+                   "microbatch_graph": microbatch_graph, "ambisonic": ambisonic,
                    "denoise": denoise, "eval": evaluation, "eval_arch_xares": arch_xares,
                    "parallel": parallel, "tensor_parallel": tensor_parallel,
                    "recompute": recompute, "librispeech": librispeech, "phase_s": phase_s,

@@ -36,6 +36,7 @@ import math
 import torch
 
 from wavjepa_tpu_torch.ops import _build
+from wavjepa_tpu_torch.utils.profiling import launch_counted
 
 NEG_INF = torch.finfo(torch.float32).min  # masked keys: finite, as on the TPU
 
@@ -99,6 +100,7 @@ def _check_relbias(q, table, gate) -> None:
         raise ValueError("table and gate must be on q's device")
 
 
+@launch_counted
 def relbias_flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     table: torch.Tensor, gate: torch.Tensor,
@@ -123,9 +125,6 @@ def relbias_flash_attention_fwd(
         raise RuntimeError(f"relbias_flash_attention_fwd launch failed: cudaError_t {err}")
     relbias_flash_attention_fwd.launches += 1
     return out
-
-
-relbias_flash_attention_fwd.launches = 0  # kernel launches; the CPU path never counts
 
 
 def relbias_attention(
@@ -200,6 +199,7 @@ def _aligned_mask(mask: torch.Tensor) -> torch.Tensor:
     return mask if mask.data_ptr() % 16 == 0 else mask.clone()
 
 
+@launch_counted
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     with_stats: bool = False,
@@ -228,9 +228,7 @@ def flash_attention_fwd(
     return out, stats
 
 
-flash_attention_fwd.launches = 0  # kernel launches; the CPU path never counts
-
-
+@launch_counted
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     do: torch.Tensor, stats: torch.Tensor,
@@ -265,8 +263,6 @@ def flash_attention_bwd(
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
-
-flash_attention_bwd.launches = 0  # kernel launches; the CPU path never counts
 
 BWD_ROUTES = {0: "fma", 1: "single_pass", 2: "two_pass"}
 

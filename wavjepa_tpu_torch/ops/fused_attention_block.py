@@ -42,6 +42,7 @@ from typing import Optional
 import torch
 
 from wavjepa_tpu_torch.ops import _build
+from wavjepa_tpu_torch.utils.profiling import launch_counted
 
 # −0.7·f32max, as the JAX kernel: finite, so a fully masked row is uniform
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
@@ -286,6 +287,7 @@ def weight_grad_splits(rows: int, tiles: int, sms: int) -> int:
     return best
 
 
+@launch_counted
 def fused_attention_block_fwd(
     x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
     b_out: torch.Tensor, mask: torch.Tensor, heads: int,
@@ -314,9 +316,7 @@ def fused_attention_block_fwd(
     return out
 
 
-fused_attention_block_fwd.launches = 0  # kernel launches; the CPU path never counts
-
-
+@launch_counted
 def fused_attention_block_bwd(
     x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
     mask: torch.Tensor, g: torch.Tensor, heads: int,
@@ -365,9 +365,6 @@ def fused_attention_block_bwd(
     fused_attention_block_bwd.launches += 1
     return (dx, grad_in[: 3 * a * d].view(3 * a, d), grad_in[3 * a * d:],
             grad_out[: d * a].view(d, a), grad_out[d * a:])
-
-
-fused_attention_block_bwd.launches = 0  # kernel launches; the CPU path never counts
 
 
 class FusedAttentionBlock(torch.autograd.Function):

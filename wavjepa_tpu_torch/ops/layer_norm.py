@@ -108,6 +108,7 @@ def _check_kernel_inputs(x, residual, dtype, **params) -> None:
                              f"{tuple(p.shape)} on {p.device}")
 
 
+@profiling.launch_counted
 def layer_norm32_fwd(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
     dtype: torch.dtype, residual: Optional[torch.Tensor] = None, save: bool = False,
@@ -139,9 +140,6 @@ def layer_norm32_fwd(
     return y, s, mean, rstd
 
 
-layer_norm32_fwd.launches = 0  # kernel launches; the CPU path never counts
-
-
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -163,6 +161,7 @@ def backward_parts(rows: int, device: torch.device) -> int:
     return max(1, min(-(-rows // per_block), _BLOCKS_PER_SM * _sm_count(device.index)))
 
 
+@profiling.launch_counted
 def layer_norm32_bwd(
     dy: torch.Tensor, s: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     weight: torch.Tensor,
@@ -170,7 +169,8 @@ def layer_norm32_bwd(
     """(ds, dweight, dbias) from the backward kernels (a pass over the rows,
     then the partial sums of the parameters' gradients in a fixed order: two
     calls give equal bits). CUDA tensors only: the CPU path is
-    ``layer_norm32_bwd_reference``."""
+    ``layer_norm32_bwd_reference``. Its ``launches`` counts calls (two
+    kernels each)."""
     d = s.shape[-1]
     _check_kernel_inputs(s, None, dy.dtype, weight=weight)
     rows = s.numel() // d
@@ -196,9 +196,6 @@ def layer_norm32_bwd(
         raise RuntimeError(f"layer_norm32_bwd launch failed: cudaError_t {err}")
     layer_norm32_bwd.launches += 1
     return ds, dw, db
-
-
-layer_norm32_bwd.launches = 0  # calls (two kernels each); the CPU path never counts
 
 
 class LayerNorm32Function(torch.autograd.Function):

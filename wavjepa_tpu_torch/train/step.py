@@ -34,13 +34,41 @@ global norm counts each split leaf's squared norm summed over the
 tensor-parallel group once and each replicated leaf once
 (``global_grad_norm``).
 
+The microbatch graph: on a CUDA device with more than one microbatch and no
+tensor parallelism (``microbatch_graph_route``), the accumulation loop does
+not launch each microbatch's ~2,300 kernels one by one from the host. The
+first step of an input signature (the four microbatch inputs' shapes,
+dtypes and device, the training modes, the switches that choose kernels;
+``MicrobatchGraph``) runs its microbatch 0 eagerly on a side stream, which
+warms every kernel and library handle up, and captures the same forward and
+backward as one CUDA graph (``torch.cuda.graph``); every later microbatch
+copies its slices into the graph's input buffers and replays it. The
+gradients accumulate where the eager loop puts them: ``.grad`` is allocated
+before the capture and zeroed in place at each step's start, so that the
+captured AccumulateGrad adds into it, and the step runs the eager loop's
+kernels in its order: bit for bit its result where they are deterministic.
+The graph holds the addresses of the parameters, their gradients, the
+buffers and the teacher's, which the step updates in place; a step that
+finds any of them moved captures again. Scene synthesis, ``prepare``, the
+canonicalisation, the all-reduce, the scaling by the target count and the
+update run outside the graph, as on the eager route. Tensor parallelism
+(collectives inside the forward), one pass (``accum_steps == 1``) and the
+CPU take the eager loop. Counters (``utils/profiling.count``):
+``train.graph_capture`` once a capture, ``train.graph_replay`` once a
+replayed microbatch, ``train.microbatch_eager`` once an eager one (a
+capturing step's microbatch 0 among them). The kernel wrappers' launch
+counters count what the card runs: a capture's launches are counted aside
+and added once a replay (``profiling.counted_aside``).
+
 Phases (``utils/profiling.span``, recorded only while a recording is open):
 ``train.step`` (the call, with the step index) holds ``scene_synthesis``,
 ``train.prepare`` (crops, instance norm, masks), one ``train.microbatch``
 a microbatch (one in a single pass) with its ``train.forward`` and
-``train.backward``, ``train.all_reduce`` (the gradient round over the
-data-parallel ranks, at world size > 1) and ``train.update`` (EMA, clip,
-AdamW).
+``train.backward`` on the eager route; a replayed microbatch's
+``train.microbatch`` holds the input copy and the replay, and no forward
+or backward span, as the graph runs its forward and backward as one call;
+then ``train.all_reduce`` (the gradient round over the data-parallel
+ranks, at world size > 1) and ``train.update`` (EMA, clip, AdamW).
 
 ``JEPATrainStep.step_on`` runs the step from given crops and masks: torch
 cannot reproduce ``jax.random``, so the tests feed both packages the same
@@ -66,12 +94,13 @@ from wavjepa_tpu_torch.parallel.mesh import (
     data_process_group,
     global_grad_norm,
     mean_over_model_group,
+    model_group,
     shard_batch,
     tp_rule,
 )
 from wavjepa_tpu_torch.train.schedule import ema_decay_schedule, warmup_cosine_schedule
 from wavjepa_tpu_torch.train.state import TrainState, ema_update
-from wavjepa_tpu_torch.utils.profiling import span
+from wavjepa_tpu_torch.utils.profiling import count, counted_aside, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +247,108 @@ def canonicalize_for_packing(ctx_mask: torch.Tensor, target_masks: torch.Tensor,
 MaskerFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
+def microbatch_graph_route(device: torch.device, accum_steps: int,
+                           model_parallel: int) -> bool:
+    """Whether the accumulation loop replays its microbatches as a CUDA
+    graph: on a CUDA device, with more than one microbatch, and no tensor
+    parallelism (``model_parallel``, the tensor-parallel group's size),
+    whose collectives sit inside the forward. Data parallelism's all-reduce
+    comes after the loop, so it takes the graph at any world size."""
+    return device.type == "cuda" and accum_steps > 1 and model_parallel == 1
+
+
+def eager_microbatch(model: JEPA, teacher_encoder: TransformerEncoder, parts) -> tuple:
+    """One microbatch's (numerator, target count), its gradient added into
+    the parameters' ``.grad``, kernel by kernel from the host."""
+    count("train.microbatch_eager", 1)
+    with span("train.forward"):
+        num, den = jepa_loss_fn(model, teacher_encoder, *parts, return_terms=True)
+    with span("train.backward"):
+        num.backward()  # the gradients sum ∇num over microbatches
+    return num.detach(), den
+
+
+class MicrobatchGraph:
+    """One microbatch's forward and backward as a CUDA graph, for one input
+    signature (``signature``) and the addresses it was captured at
+    (``addresses``, held in ``bound``). ``run`` captures at its first call
+    (``capture``: that microbatch eagerly on a side stream, then the
+    capture) and replays after it (``replay``: the microbatch copied into
+    the input buffers, then the graph). Both return the
+    microbatch's (numerator, target count); the graph's are overwritten by
+    the next replay, so the caller sums them before it."""
+
+    def __init__(self, model: JEPA, teacher_encoder: TransformerEncoder, first: list):
+        self.model, self.teacher = model, teacher_encoder
+        self.inputs = [torch.empty_like(x) for x in first]
+        self.bound = self.addresses(model, teacher_encoder)
+        self.graph = self.tally = self.terms = None
+
+    @staticmethod
+    def signature(model: JEPA, teacher_encoder: TransformerEncoder, first: list) -> tuple:
+        """What a graph is kept for: the modules, their training modes, the
+        switches that choose kernels at the capture (TF32, deterministic
+        algorithms) and each input's shape, dtype and device."""
+        return (id(model), id(teacher_encoder), model.training, teacher_encoder.training,
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                torch.are_deterministic_algorithms_enabled(),
+                *((tuple(x.shape), x.dtype, x.device) for x in first))
+
+    @staticmethod
+    def addresses(model: JEPA, teacher_encoder: TransformerEncoder) -> tuple:
+        """The memory a captured microbatch reads and writes besides its
+        inputs: every parameter, its ``.grad`` and ``requires_grad``, and
+        every buffer of both modules."""
+        params = list(model.parameters())
+        return (*(p.data_ptr() for p in params),
+                *(None if p.grad is None else p.grad.data_ptr() for p in params),
+                *(p.requires_grad for p in params),
+                *(t.data_ptr() for t in (*model.buffers(), *teacher_encoder.parameters(),
+                                         *teacher_encoder.buffers())))
+
+    def _load(self, parts: list) -> None:
+        for buf, x in zip(self.inputs, parts):
+            buf.copy_(x)
+
+    def capture(self, parts: list) -> tuple:
+        """Microbatch ``parts`` run eagerly on a side stream (the warm-up:
+        its gradient is the step's, counted as an eager microbatch), then
+        the same forward and backward captured on that stream, on the input
+        buffers. The capture runs nothing: its counts and launches are
+        counted aside and added once a replay."""
+        self._load(parts)
+        current = torch.cuda.current_stream(self.inputs[0].device)
+        stream = torch.cuda.Stream(self.inputs[0].device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            num, den = eager_microbatch(self.model, self.teacher, self.inputs)
+        current.wait_stream(stream)
+        num.record_stream(current)
+        den.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the loader's thread may copy and pin while this one captures
+        with counted_aside() as tally, torch.cuda.graph(graph, stream=stream,
+                                                         capture_error_mode="thread_local"):
+            g_num, g_den = jepa_loss_fn(self.model, self.teacher, *self.inputs,
+                                        return_terms=True)
+            g_num.backward()
+        count("train.graph_capture", 1)
+        self.graph, self.tally, self.terms = graph, tally, (g_num.detach(), g_den)
+        return num, den
+
+    def run(self, parts: list) -> tuple:
+        """The microbatch through the graph: captured at the first call,
+        replayed after it."""
+        return self.capture(parts) if self.graph is None else self.replay(parts)
+
+    def replay(self, parts: list) -> tuple:
+        self._load(parts)
+        self.graph.replay()
+        self.tally.add()
+        count("train.graph_replay", 1)
+        return self.terms
+
+
 class JEPATrainStep:
     """``step(state, audio, generator) -> (state, metrics)``; see the module
     docstring for the order. ``state`` is updated in place and returned.
@@ -246,6 +377,7 @@ class JEPATrainStep:
         self.masker = masker or time_inverse_block_masks
         self.masker_cfg = masker_cfg if masker_cfg is not None else TimeInverseMaskConfig()
         self.accum_steps = accum_steps
+        self._graphs: dict = {}  # MicrobatchGraph.signature → its graph
 
     def __call__(self, state: TrainState, audio, generator: torch.Generator,
                  rir_bank: Optional[dict] = None):
@@ -262,6 +394,17 @@ class JEPATrainStep:
         """A scene batch → (B, n_channels, T) f32 scenes at ``cfg``'s sample
         rate (``build_scenes``)."""
         return build_scenes(self.scene_cfg, cfg.sample_rate, batch, rir_bank)
+
+    def _graph(self, state: TrainState, first: list) -> "MicrobatchGraph":
+        """The microbatch graph of this signature (``first``: microbatch 0's
+        inputs), captured anew where none is kept or the kept one's
+        addresses have moved."""
+        model, teacher = state.model, state.teacher_encoder
+        key = MicrobatchGraph.signature(model, teacher, first)
+        graph = self._graphs.get(key)
+        if graph is None or graph.bound != MicrobatchGraph.addresses(model, teacher):
+            graph = self._graphs[key] = MicrobatchGraph(model, teacher, first)
+        return graph
 
     def prepare(self, cfg, audio: torch.Tensor, generator: torch.Generator):
         """(B, C, L) or (B, L) clips, this rank's rows of the global batch →
@@ -291,26 +434,33 @@ class JEPATrainStep:
             ctx_mask, visible_masks = canonicalize_for_packing(
                 ctx_mask, target_masks, cfg.pack_encoder, chans)
         params = list(model.parameters())
-        for p in params:
-            p.grad = None
+        graphed = microbatch_graph_route(crops.device, self.accum_steps, model_group()[1])
+        if graphed:  # the graph adds into .grad where it was at the capture
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.empty_like(p)
+            torch._foreach_zero_([p.grad for p in params])
+        else:
+            for p in params:
+                p.grad = None
         n_rows = crops.shape[0]
         world = data_group()[1]
+        inputs = (crops, ctx_mask, target_masks, visible_masks)
         if self.accum_steps > 1 or world > 1:
             if n_rows % self.accum_steps:
                 raise ValueError(f"crop batch {n_rows} not divisible by "
                                  f"accum_steps={self.accum_steps}")
             mb = n_rows // self.accum_steps
+            graph = self._graph(state, [x[:mb] for x in inputs]) if graphed else None
             num_sum = den_sum = 0.0
             for i in range(self.accum_steps):
-                part = slice(i * mb, (i + 1) * mb)
+                parts = [x[i * mb:(i + 1) * mb] for x in inputs]
                 with span("train.microbatch", index=i):
-                    with span("train.forward"):
-                        num, den = jepa_loss_fn(model, state.teacher_encoder, crops[part],
-                                                ctx_mask[part], target_masks[part],
-                                                visible_masks[part], return_terms=True)
-                    with span("train.backward"):
-                        num.backward()  # the gradients sum ∇num over microbatches
-                    num_sum = num_sum + num.detach()
+                    if graph is None:
+                        num, den = eager_microbatch(model, state.teacher_encoder, parts)
+                    else:
+                        num, den = graph.run(parts)
+                    num_sum = num_sum + num
                     den_sum = den_sum + den
             if world > 1:  # global numerator, target count and gradients
                 with span("train.all_reduce"):
@@ -323,9 +473,9 @@ class JEPATrainStep:
             loss = num_sum * inv
         else:
             with span("train.microbatch", index=0):
+                count("train.microbatch_eager", 1)
                 with span("train.forward"):
-                    loss = jepa_loss_fn(model, state.teacher_encoder, crops, ctx_mask,
-                                        target_masks, visible_masks)
+                    loss = jepa_loss_fn(model, state.teacher_encoder, *inputs)
                 with span("train.backward"):
                     loss.backward()
                 loss = loss.detach()

@@ -11,13 +11,19 @@ Counterpart of ``wavjepa_tpu/utils/profiling.py``:
     prof.key_averages()                    # time by operator and kernel
 
 The program marks its phases with ``span(name, **attrs)`` and counts work
-with ``count(name, n)``. Both do nothing unless a ``recording()`` is open:
+with ``count(name, n)``; the kernel wrappers count their launches in a
+``launches`` attribute of their own (``launch_counted``). Spans and counts
+do nothing unless a ``recording()`` is open:
 then each span keeps its name, its parent (from a stack per thread), its
 thread, its start and end on ``time.perf_counter_ns()`` and its attributes,
 and opens a ``torch.profiler.record_function`` of the same name, so that
 under a profiler the phases lie in the trace on the clock of the card's
 kernels and copies. Spans measure the host: a span that launches device
 work ends when the launches are issued, not when the card finishes them.
+
+Work that is recorded and not run, a CUDA graph's capture, is counted
+aside (``counted_aside``): its counts and launches go into a ``Tally``,
+which its owner adds (``Tally.add``) each time the card runs that work.
 
 ``trace`` writes a Chrome/Perfetto trace (``<name>.json.gz``, open it in
 https://ui.perfetto.dev or chrome://tracing) into the log directory, with
@@ -144,11 +150,69 @@ def span(name: str, **attrs):
 
 
 def count(name: str, n: int) -> None:
-    """Add ``n`` to the counter ``name`` of the open recording."""
+    """Add ``n`` to the counter ``name`` of the open recording (to the
+    open ``counted_aside`` block's tally instead, while one is open)."""
+    aside = _ASIDE
+    if aside is not None:
+        aside.counts[name] += n
+        return
     rec = _OPEN
     if rec is None:
         return
     rec._add(name, n)
+
+
+LAUNCH_COUNTED: list = []  # the kernel wrappers that ``launch_counted`` gave a counter
+
+
+def launch_counted(fn):
+    """Decorate a kernel wrapper: ``fn.launches`` starts at 0, the wrapper
+    adds one a launch (its CPU path never counts), and ``counted_aside``
+    knows it."""
+    fn.launches = 0
+    LAUNCH_COUNTED.append(fn)
+    return fn
+
+
+@dataclasses.dataclass
+class Tally:
+    """What a ``counted_aside`` block counted: counter increments by name
+    and launches by kernel wrapper."""
+
+    counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    launches: dict = dataclasses.field(default_factory=dict)
+
+    def add(self) -> None:
+        """Count the block's work once more, as if it had run again: into
+        the open recording and the wrappers' ``launches``."""
+        for name, n in self.counts.items():
+            count(name, n)
+        for fn, n in self.launches.items():
+            fn.launches += n
+
+
+_ASIDE: Optional[Tally] = None  # the open counted_aside block's tally, on every thread
+
+
+@contextlib.contextmanager
+def counted_aside() -> Iterator[Tally]:
+    """Count the block's work into a ``Tally`` (yielded), kept out of the
+    open recording and out of the wrappers' ``launches``: for work that is
+    recorded and not run, as a CUDA graph's capture is. Counts from every
+    thread go there (autograd's backward runs on a thread of its own)."""
+    global _ASIDE
+    if _ASIDE is not None:
+        raise RuntimeError("counted_aside is already open")
+    tally = _ASIDE = Tally()
+    before = [fn.launches for fn in LAUNCH_COUNTED]
+    try:
+        yield tally
+    finally:
+        _ASIDE = None
+        for fn, n in zip(LAUNCH_COUNTED, before):
+            if fn.launches != n:
+                tally.launches[fn] = fn.launches - n
+            fn.launches = n
 
 
 @contextlib.contextmanager
